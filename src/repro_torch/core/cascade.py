@@ -1,0 +1,159 @@
+"""Bit-packed Monte-Carlo cascade simulation (twin of
+``repro.core.cascade``): the expected spread of a seed set.
+
+Frontier/active state is word-packed int32 ``[n, num_sims/32]`` and one
+diffusion step is a gather over the padded *reverse* adjacency,
+``hit[v] |= frontier[nbr[v, slot]] & live[v, slot]`` — the mirror of
+the RRR sampler's reverse BFS, so the ``kernel`` engine reuses the
+``kernels.rrr_expand`` CUDA kernel.  The live mask already sits in
+gather order (slot ``slot`` of row ``v`` is the word the step reads),
+so ``gather="auto"`` takes the streamed layout, which reads it
+directly; ``"resident"`` reads it through the identity index
+``v * d_pad + slot``.  The ``packed`` engine is the plain PyTorch
+path; all are bit-identical to the reference's engines.
+
+Live edges are drawn once per simulation, keyed per lane
+(``fold_in(fold_in(key, chunk), sim)``) as in the reference; these
+~10^8 draws stay in plain PyTorch through ``prng``.  Models: IC and LT
+(live-edge form).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import bitset
+from repro_torch.core.prng import Key
+from repro_torch.core.rrr import GATHERS, _coin_chunks, xla_cumsum
+from repro_torch.graphs.csr import CSRGraph, padded_adjacency
+from repro_torch.kernels import rrr_expand
+
+MODELS = ("IC", "LT")
+ENGINES = ("packed", "kernel")
+
+
+def resolve_engine(engine: str | None, default: str = "kernel") -> str:
+    if engine is None:
+        engine = default
+    if engine == "map":
+        raise NotImplementedError(
+            "engine='map' is not ported yet (ROADMAP Queue 1 item 7)")
+    if engine not in ENGINES:
+        raise ValueError(
+            f"unknown cascade engine {engine!r}; expected one of {ENGINES}")
+    return engine
+
+
+def resolve_model(model: str | None, default: str = "IC") -> str:
+    if model is None:
+        model = default
+    if model == "WC":
+        raise NotImplementedError(
+            "model='WC' is not ported yet (ROADMAP Queue 1 item 7)")
+    if model not in MODELS:
+        raise ValueError(
+            f"unknown diffusion model {model!r}; expected one of {MODELS}")
+    return model
+
+
+def seeds_to_mask(n: int, seeds, *, device) -> torch.Tensor:
+    """bool [n] seed mask with -1 pads and out-of-range ids dropped."""
+    seeds = torch.as_tensor(seeds).reshape(-1).long().to(device)
+    ok = (seeds >= 0) & (seeds < n)
+    mask = torch.zeros(n, dtype=torch.bool, device=device)
+    mask[seeds[ok]] = True
+    return mask
+
+
+def _lane_words(num_sims: int, device) -> torch.Tensor:
+    """int32 [W]: bit j of word w set iff lane w*32+j < num_sims."""
+    return bitset.pack_bool_matrix(
+        torch.ones((1, num_sims), dtype=torch.bool, device=device))[0]
+
+
+def _live_mask(nbr, prob, wt, key: Key, *, model, num_sims, chunk,
+               n_chunks, d_pad):
+    """int32 [n, d_pad, W]: bit s of word s//32 at [v, slot] is set iff
+    in-edge ``slot`` of v is live in simulation s."""
+    n, d = nbr.shape
+    dev = nbr.device
+    w = bitset.num_words(num_sims)
+    live = torch.zeros((n, d_pad, w), dtype=torch.int32, device=dev)
+    if model == "IC":
+        prob_p = torch.nn.functional.pad(prob, (0, d_pad - d))
+        for c in range(n_chunks):
+            kc = key.fold_in(c)
+            p_c = prob_p[:, c * chunk:(c + 1) * chunk]
+            for s in range(num_sims):
+                fire = kc.fold_in(s).uniform((n, chunk), device=dev) < p_c
+                live[:, c * chunk:(c + 1) * chunk, s // 32] |= \
+                    bitset.to_words(fire.to(torch.int64) << (s % 32))
+    else:   # LT live edge: one selected in-edge per (simulation, vertex)
+        cumw = xla_cumsum(wt)
+        in_deg = (nbr >= 0).sum(1)
+        v = torch.arange(n, device=dev)
+        for s in range(num_sims):
+            r = key.fold_in(s).uniform((n,), device=dev)
+            chosen = (cumw <= r[:, None]).sum(1)
+            ok = chosen < in_deg
+            live[v[ok], chosen[ok], s // 32] |= \
+                bitset.to_words(torch.tensor(1 << (s % 32), device=dev))
+    return live
+
+
+def simulate_cascades(g: CSRGraph, seeds, key: Key, *, model: str = "IC",
+                      num_sims: int = 64, max_steps: int = 64,
+                      engine: str = "kernel", coin_chunk: int = 32,
+                      gather: str = "auto") -> torch.Tensor:
+    """Simulate ``num_sims`` cascades from ``seeds`` (-1 pads dropped);
+    return the packed activation incidence int32 [n, ceil(sims/32)]."""
+    engine = resolve_engine(engine)
+    model = resolve_model(model)
+    if gather not in GATHERS:
+        raise ValueError(f"unknown gather {gather!r}; expected {GATHERS}")
+    n = g.num_vertices
+    dev = g.device
+    nbr, prob, wt = padded_adjacency(g)
+    smask = seeds_to_mask(n, seeds, device=dev)
+    lane = _lane_words(num_sims, dev)
+    active = torch.where(smask[:, None], lane[None, :], 0).to(torch.int32)
+    d = nbr.shape[1]
+    if d == 0:          # edgeless graph: nothing ever fires
+        return active
+    chunk, n_chunks, d_pad = _coin_chunks(d, coin_chunk)
+    tbl = torch.nn.functional.pad(torch.where(nbr >= 0, nbr, 0),
+                                  (0, d_pad - d)).contiguous()
+    live = _live_mask(nbr, prob, wt, key, model=model, num_sims=num_sims,
+                      chunk=chunk, n_chunks=n_chunks, d_pad=d_pad)
+    if engine == "kernel" and gather == "resident":
+        gidx = (torch.arange(n, dtype=torch.int32, device=dev)[:, None]
+                * d_pad + torch.arange(d_pad, dtype=torch.int32,
+                                       device=dev)[None, :]).contiguous()
+        plane = live.reshape(n * d_pad, -1)
+
+        def expand(frontier, act):
+            return rrr_expand.rrr_expand_step_resident(frontier, act, tbl,
+                                                       gidx, plane)
+    elif engine == "kernel":
+        def expand(frontier, act):
+            return rrr_expand.rrr_expand_step(frontier, act, tbl, live)
+    else:
+        def expand(frontier, act):
+            return rrr_expand.expand_step_plain(frontier, act, tbl, live)
+
+    frontier = active
+    step = 0
+    while step < max_steps and bool(frontier.any()):
+        frontier, active = expand(frontier, active)
+        step += 1
+    return active
+
+
+def spread(g: CSRGraph, seeds, key: Key, *, model: str = "IC",
+           num_sims: int = 64, max_steps: int = 64, engine: str = "kernel",
+           coin_chunk: int = 32, gather: str = "auto") -> torch.Tensor:
+    """Monte-Carlo estimate of sigma(seeds): float32 mean activation count."""
+    words = simulate_cascades(g, seeds, key, model=model, num_sims=num_sims,
+                              max_steps=max_steps, engine=engine,
+                              coin_chunk=coin_chunk, gather=gather)
+    total = bitset.coverage_size(words).sum()
+    return total.to(torch.float32) / float(num_sims)

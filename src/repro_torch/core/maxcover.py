@@ -1,0 +1,110 @@
+"""Greedy max-k-cover over packed incidence rows (twin of
+``repro.core.maxcover``).
+
+Two solver paths, bit-identical to each other and to the reference's
+solver quad (seeds, rows, covered, gains — with the lowest-index
+argmax tie-break):
+
+  * ``solver="scan"`` — one full marginal-gain sweep + ``argmax`` per
+    pick in plain PyTorch;
+  * ``solver="resident"`` — all k picks of every machine in one launch
+    of the ``kernels.greedy_pick`` CUDA kernel.
+
+Rows may carry a leading machine axis ([m, n, W]); the m solves are
+then independent (RandGreedi's local machines) and run together.
+"""
+from __future__ import annotations
+
+import heapq
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import bitset
+from repro_torch.kernels import greedy_pick
+
+SOLVERS = ("scan", "resident")
+
+
+class CoverSolution(NamedTuple):
+    seeds: torch.Tensor      # int32 [..., k] selected row indices (-1 = unused)
+    rows: torch.Tensor       # int32 [..., k, W] covering rows of the seeds
+    covered: torch.Tensor    # int32 [..., W] union of selected rows
+    coverage: torch.Tensor   # int32 [...] total bits covered
+    gains: torch.Tensor      # int32 [..., k] marginal gain at each pick
+
+
+def resolve_solver(solver: str | None, default: str = "resident") -> str:
+    if solver is None:
+        solver = default
+    if solver in ("fused", "lazy"):
+        raise NotImplementedError(
+            f"solver={solver!r} is not ported yet (ROADMAP Queue 1 item 4, "
+            "Queue 2 items 5 and 8)")
+    if solver not in SOLVERS:
+        raise ValueError(
+            f"unknown solver {solver!r}; expected one of {SOLVERS}")
+    return solver
+
+
+def greedy_maxcover(rows: torch.Tensor, k: int, solver: str | None = None,
+                    excluded=None) -> CoverSolution:
+    """Greedy (1 - 1/e)-approximate max-k-cover of rows int32 [n, W] or
+    [m, n, W].  ``excluded`` (int32 row ids, [E] or [m, E], -1 pads) are
+    never selected — masked exactly like already-picked rows."""
+    solver = resolve_solver(solver)
+    batched = rows.dim() == 3
+    r = rows if batched else rows[None]
+    ex = greedy_pick.excluded_ids(excluded, r.shape[0], r.device)
+    if solver == "resident":
+        out = greedy_pick.greedy_maxcover_resident(r.contiguous(), k, ex)
+    else:
+        out = greedy_pick.greedy_plain(r, k, ex)
+    seeds, sel_rows, covered, gains = (o if batched else o[0] for o in out)
+    return CoverSolution(seeds, sel_rows, covered,
+                         bitset.coverage_size(covered), gains)
+
+
+def _popcount_words(words) -> int:
+    """Host-side popcount of packed words (int32 or uint32 bit patterns)."""
+    return sum(bin(int(x)).count("1") for x in
+               np.asarray(words).astype(np.uint32).astype(np.uint64).ravel())
+
+
+def _u64(row) -> np.ndarray:
+    return np.asarray(row).astype(np.uint32).astype(np.uint64)
+
+
+def lazy_greedy_maxcover_np(rows, k: int) -> tuple[list, int]:
+    """Paper Algorithm 2 — heap-based lazy greedy (NumPy oracle).
+    Returns (seed list, total coverage)."""
+    rows = np.asarray(rows)
+    n, w = rows.shape
+    covered = np.zeros(w, dtype=np.uint64)
+    heap = [(-_popcount_words(rows[v]), 0, v) for v in range(n)]
+    heapq.heapify(heap)                           # (-gain, stamp, v)
+    seeds: list[int] = []
+    stamp = 0
+    while heap and len(seeds) < k:
+        neg_gain, s, v = heapq.heappop(heap)
+        fresh = _popcount_words(_u64(rows[v]) & ~covered)
+        if -neg_gain == fresh or (heap and fresh >= -heap[0][0]):
+            if fresh == 0:
+                break
+            seeds.append(v)
+            covered |= _u64(rows[v])
+            stamp += 1
+        else:
+            heapq.heappush(heap, (-fresh, stamp, v))
+    return seeds, _popcount_words(covered)
+
+
+def coverage_of(rows, seeds) -> int:
+    """Coverage of an explicit seed subset (host-side check)."""
+    rows = np.asarray(rows)
+    covered = np.zeros(rows.shape[1], dtype=np.uint64)
+    for s in seeds:
+        if s >= 0:
+            covered |= _u64(rows[int(s)])
+    return _popcount_words(covered)

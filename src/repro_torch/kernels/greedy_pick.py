@@ -1,0 +1,88 @@
+"""Greedy max-k-cover over a machine axis (``csrc/greedy_pick.cu``) and
+its plain PyTorch version (the scan solver).
+
+Replaces ``repro/kernels/greedy_pick.py``: ``greedy_maxcover_resident_pallas``
+(TPU kernel #3), which the reference vmaps over the m machines; here
+the machine axis is part of the one cooperative launch.  Each pick
+masks picked and excluded rows to gain -1, takes the largest gain with
+the lowest-index tie-break, and commits as ``commit_pick``: a best gain
+<= 0 gives seed -1, gain 0 and a zero row.  Bound on the H100: bytes
+(every pick re-reads the rows).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import bitset
+from repro_torch.kernels import ops
+
+_ARGS = [ops.PTR] * 8 + [ops.I64] * 5
+
+
+def excluded_ids(excluded, m: int, device) -> torch.Tensor:
+    """int32 [m, E] exclusion ids (-1 pads); one row is shared by all
+    machines when a flat [E] array is given."""
+    if excluded is None:
+        excluded = torch.full((1,), -1, dtype=torch.int32)
+    ex = torch.as_tensor(excluded, dtype=torch.int32).to(device)
+    if ex.dim() == 1:
+        ex = ex[None].expand(m, -1)
+    if ex.dim() != 2 or ex.shape[0] != m:
+        raise ValueError(f"excluded must be [E] or [{m}, E], got "
+                         f"{tuple(ex.shape)}")
+    return ex.contiguous()
+
+
+def greedy_plain(rows: torch.Tensor, k: int, excluded: torch.Tensor):
+    """rows int32 [m, n, W], excluded int32 [m, E] -> (seeds [m, k],
+    sel_rows [m, k, W], covered [m, W], gains [m, k])."""
+    m, n, w = rows.shape
+    dev = rows.device
+    covered = torch.zeros((m, w), dtype=torch.int32, device=dev)
+    seeds = torch.full((m, k), -1, dtype=torch.int32, device=dev)
+    sel_rows = torch.zeros((m, k, w), dtype=torch.int32, device=dev)
+    gains = torch.zeros((m, k), dtype=torch.int32, device=dev)
+    if n == 0:
+        return seeds, sel_rows, covered, gains
+    picked = torch.zeros((m, n), dtype=torch.bool, device=dev)
+    ok = (excluded >= 0) & (excluded < n)
+    mach = torch.arange(m, device=dev)[:, None].expand_as(excluded)
+    picked[mach[ok], excluded[ok].long()] = True
+    ar = torch.arange(m, device=dev)
+    for i in range(k):
+        g = bitset.marginal_gain(rows, covered[:, None, :])
+        g = torch.where(picked, -1, g)
+        best = torch.argmax(g, dim=1)
+        best_gain = g[ar, best]
+        take = best_gain > 0
+        row = torch.where(take[:, None], rows[ar, best], 0)
+        covered |= row
+        seeds[:, i] = torch.where(take, best.to(torch.int32), -1)
+        sel_rows[:, i] = row
+        gains[:, i] = torch.where(take, best_gain, 0)
+        picked[ar, best] |= take
+    return seeds, sel_rows, covered, gains
+
+
+def greedy_maxcover_resident(rows: torch.Tensor, k: int, excluded=None):
+    """All k picks of every machine of ``rows`` int32 [m, n, W] in one
+    launch; ``excluded`` int32 [E] or [m, E] row ids never picked."""
+    m, n, w = rows.shape
+    ex = excluded_ids(excluded, m, rows.device)
+    if not ops.on_card(rows, ex):
+        return greedy_plain(rows, k, ex)
+    ops.check(rows, "rows", torch.int32, (m, n, w))
+    dev = rows.device
+    seeds = torch.full((m, k), -1, dtype=torch.int32, device=dev)
+    sel_rows = torch.zeros((m, k, w), dtype=torch.int32, device=dev)
+    covered = torch.zeros((m, w), dtype=torch.int32, device=dev)
+    gains = torch.zeros((m, k), dtype=torch.int32, device=dev)
+    if m * n * k == 0:
+        return seeds, sel_rows, covered, gains
+    keys = torch.zeros((m, k), dtype=torch.int64, device=dev)
+    taken = torch.zeros((m, n), dtype=torch.uint8, device=dev)
+    ops.launch("greedy_pick", "greedy_pick", "greedy_pick", _ARGS,
+               rows.data_ptr(), ex.data_ptr(), keys.data_ptr(), taken.data_ptr(),
+               seeds.data_ptr(), sel_rows.data_ptr(), covered.data_ptr(),
+               gains.data_ptr(), m, n, w, k, ex.shape[1])
+    return seeds, sel_rows, covered, gains

@@ -1,0 +1,76 @@
+"""Dispatch and launch counters of the hand-written kernels.
+
+Every kernel wrapper goes through :func:`on_card`: tensors on the CPU
+take the kernel's plain PyTorch version, tensors on a CUDA device launch
+the kernel — there is no fallback between the two.  :func:`launch`
+calls the C entry point on ``torch.cuda.current_stream()``, raises if it
+returns an error, and only then adds one to that kernel's count in
+:data:`LAUNCHES` (so a run can show that it went through the kernels).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+KERNELS = ("rrr_expand_resident", "rrr_expand_streamed", "coin_pack",
+           "greedy_pick", "bucket_insert")
+
+LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+# What the C entry points return besides a cudaError_t: the kernel
+# does not take these inputs, and nothing was launched.
+_REFUSALS = {
+    -2: "the row does not fit in the block's shared memory",
+    -3: "the machines cannot all be co-resident for the cooperative "
+        "launch",
+}
+
+PTR = ctypes.c_void_p
+I64 = ctypes.c_int64
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def on_card(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors
+    (run the plain version).  Mixed or other devices raise."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {devices}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type == "cuda":
+        return True
+    raise ValueError(f"unsupported device {dev}")
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
+    """Raise unless ``t`` has the dtype, the shape (None = any extent)
+    and a contiguous layout the kernel takes."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if len(t.shape) != len(shape) or any(
+            s is not None and s != e for s, e in zip(shape, t.shape)):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def launch(kernel: str, lib: str, fn: str, argtypes, *args) -> None:
+    """Call ``fn`` of ``lib`` on the current stream and count one launch
+    of ``kernel`` once the C side reports success."""
+    f = build.function(lib, fn, [*argtypes, PTR])
+    err = f(*args, torch.cuda.current_stream().cuda_stream)
+    if err in _REFUSALS:
+        raise ValueError(f"{kernel}: {_REFUSALS[err]}")
+    if err != 0:
+        raise RuntimeError(f"{kernel}: CUDA error {err} at launch")
+    LAUNCHES[kernel] += 1

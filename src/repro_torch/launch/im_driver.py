@@ -1,0 +1,194 @@
+"""Influence-maximization driver (twin of ``repro.launch.im_driver``):
+the IMM martingale loop with GreediRIS seed selection, then the spread
+estimate, on one device.
+
+  PYTHONPATH=src python -m repro_torch.launch.im_driver --graph er \
+      --n 262144 --avg-deg 4 --k 100 --selector greediris --machines 8 \
+      --sampler kernel --gather resident --solver resident --use-kernel \
+      --max-theta 32768 --eval-engine kernel --eval-sims 64
+
+Same flag names and ``[im]`` lines as the reference.  The port's
+defaults are the kernel paths; ``--device`` (default ``cuda``) picks
+the device and never falls back.  Flags of paths not ported yet raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import (cascade, imm, maxcover, prng, resolve_device,
+                              theory)
+from repro_torch.core.diffusion import influence
+from repro_torch.core.rrr import resolve_sampler
+from repro_torch.graphs import generators
+
+# flag -> (value that means "not asked for", ROADMAP item porting it)
+_NOT_PORTED = {
+    "theta": (0, "Queue 1 item 9 (the SPMD round)"),
+    "use_opim": (False, "Queue 1 item 6 (OPIM)"),
+    "serve": (False, "Queue 1 item 8 (serving)"),
+    "faults": ([], "Queue 1 item 10 (runtime)"),
+    "fault_report": (None, "Queue 1 item 10 (runtime)"),
+    "eval_spread": (False, "Queue 1 item 7 (the map engine)"),
+}
+
+
+def _coin_chunk_arg(text: str) -> int:
+    try:
+        v = int(text)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected an integer slot count, got {text!r}") from None
+    if v < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {v}")
+    return v
+
+
+def make_graph(kind: str, n: int, avg_deg: float, seed: int, device):
+    if kind == "er":
+        return generators.erdos_renyi(n, avg_deg, seed, device=device)
+    if kind == "ba":
+        return generators.preferential_attachment(n, int(avg_deg), seed,
+                                                  device=device)
+    return generators.rmat(int(np.ceil(np.log2(n))), int(n * avg_deg),
+                           seed=seed, device=device)
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--graph", default="er", choices=("er", "ba", "rmat"))
+    ap.add_argument("--n", type=int, default=2000)
+    ap.add_argument("--avg-deg", type=float, default=8.0)
+    ap.add_argument("--k", type=int, default=32)
+    ap.add_argument("--eps", type=float, default=0.13)
+    ap.add_argument("--delta", type=float, default=0.077)
+    ap.add_argument("--model", default="IC", choices=("IC", "LT"))
+    ap.add_argument("--selector", default="greediris",
+                    choices=("greedy", "ripples", "randgreedi",
+                             "greediris", "greediris-trunc"))
+    ap.add_argument("--alpha", type=float, default=0.125)
+    ap.add_argument("--aggregate", default="gather",
+                    choices=("gather", "pipeline"))
+    ap.add_argument("--machines", type=int, default=0,
+                    help="0 = one machine per device (1 here)")
+    ap.add_argument("--max-theta", type=int, default=1 << 14)
+    ap.add_argument("--theta", type=int, default=0)
+    ap.add_argument("--use-opim", action="store_true")
+    ap.add_argument("--solver", default="resident",
+                    choices=("scan", "fused", "resident", "lazy"),
+                    help="local greedy path: 'scan' (plain PyTorch) or "
+                         "'resident' (one CUDA launch for all k picks of "
+                         "all machines); bit-identical")
+    ap.add_argument("--sampler", default="kernel",
+                    choices=("dense", "packed", "kernel"),
+                    help="S1 path: 'packed' (plain PyTorch) or 'kernel' "
+                         "(coin and expansion CUDA kernels); bit-identical")
+    ap.add_argument("--gather", default="auto",
+                    choices=("resident", "streamed", "auto"),
+                    help="expansion kernel layout ('auto' = resident)")
+    ap.add_argument("--coin-chunk", type=_coin_chunk_arg, default=32)
+    ap.add_argument("--use-kernel", action="store_true",
+                    help="route the streaming receiver through the fused "
+                         "bucket-insert kernel (the sender path is "
+                         "--solver)")
+    ap.add_argument("--chunk-size", default="0",
+                    help="receiver chunking of the fixed-theta round "
+                         "(not used by the IMM loop)")
+    ap.add_argument("--eval-sims", type=int, default=32)
+    ap.add_argument("--eval-engine", default="kernel",
+                    choices=("map", "packed", "kernel"))
+    ap.add_argument("--eval-spread", action="store_true")
+    ap.add_argument("--serve", action="store_true")
+    ap.add_argument("--faults", action="append", default=[])
+    ap.add_argument("--fault-report", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; 'cuda' raises without a card")
+    return ap
+
+
+def run(argv=None) -> dict:
+    """Parse ``argv``, run the driver, print the ``[im]`` lines, and
+    return the result with per-stage seconds and counts."""
+    args = parser().parse_args(argv)
+    for flag, (off, item) in _NOT_PORTED.items():
+        if getattr(args, flag) != off:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported yet: ROADMAP {item}")
+    if args.selector == "ripples":
+        raise NotImplementedError(
+            "--selector ripples is not ported yet: ROADMAP Queue 1 item 6 "
+            "and Queue 2 item 9 (the coverage kernel)")
+    resolve_sampler(args.sampler)
+    maxcover.resolve_solver(args.solver)
+    cascade.resolve_engine(args.eval_engine)
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+    t0 = time.perf_counter()
+    g = make_graph(args.graph, args.n, args.avg_deg, args.seed, device)
+    graph_s = time.perf_counter() - t0
+    n = g.num_vertices
+    key = prng.key(args.seed)
+    print(f"[im] graph n={n} m={g.num_edges} model={args.model} "
+          f"selector={args.selector}")
+
+    stats: dict = {}
+    t0 = time.perf_counter()
+    m = args.machines or 1
+    solver = args.solver
+    sel = {
+        "greedy": lambda: imm.make_greedy_selector(solver),
+        "randgreedi": lambda: imm.make_randgreedi_selector(
+            m, "greedy", solver=solver),
+        "greediris": lambda: imm.make_randgreedi_selector(
+            m, "streaming", args.delta, use_kernel=args.use_kernel,
+            solver=solver),
+        "greediris-trunc": lambda: imm.make_randgreedi_selector(
+            m, "streaming", args.delta, args.alpha,
+            use_kernel=args.use_kernel, solver=solver),
+    }[args.selector]()
+    res = imm.imm(g, args.k, args.eps, key, model=args.model, selector=sel,
+                  max_theta=args.max_theta, sampler=args.sampler,
+                  coin_chunk=args.coin_chunk, gather=args.gather,
+                  stats=stats)
+    print(f"[im] IMM rounds={res.rounds} theta={res.theta} "
+          f"coverage_frac={res.coverage_fraction:.4f}")
+    elapsed = time.perf_counter() - t0
+
+    seeds = np.asarray(res.seeds)
+    k_real = int((seeds >= 0).sum())
+    t1 = time.perf_counter()
+    spread = float(influence(g, torch.from_numpy(seeds), key.fold_in(99),
+                             model=args.model, num_sims=args.eval_sims,
+                             engine=args.eval_engine))
+    spread_s = time.perf_counter() - t1
+    ratio = theory.greediris_ratio(args.delta, args.eps,
+                                   args.alpha if "trunc" in args.selector
+                                   else 1.0)
+    print(f"[im] k={k_real} expected influence = {spread:.1f} "
+          f"({100 * spread / n:.2f}% of graph) in {elapsed:.2f}s; "
+          f"worst-case ratio {ratio:.3f}")
+    return dict(
+        seeds=seeds, theta=res.theta, rounds=res.rounds,
+        coverage_fraction=res.coverage_fraction, spread=spread, n=n,
+        edges=g.num_edges, graph_s=graph_s,
+        sample_s=stats.get("sample_s", 0.0),
+        select_s=stats.get("select_s", 0.0), spread_s=spread_s,
+        bfs_steps=stats.get("bfs_steps", 0),
+        peak_bytes=(torch.cuda.max_memory_allocated(device)
+                    if device.type == "cuda" else None))
+
+
+def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

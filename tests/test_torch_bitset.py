@@ -1,0 +1,54 @@
+"""Port parity: int32-word bitset algebra against ``repro.core.bitset``
+(exact: tolerance zero), on random words with the high bit set."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.core import bitset as ref  # noqa: E402
+from repro_torch.core import bitset  # noqa: E402
+from tests.test_torch_ref import partitionable, to_port, u32, words  # noqa: E402,F401
+
+SHAPES = [(1, 1), (7, 3), (37, 5), (64, 33)]
+
+
+@pytest.mark.parametrize("n,theta", [(1, 1), (5, 31), (9, 32), (13, 77)])
+def test_pack_unpack(n, theta):
+    dense = np.random.default_rng(n * theta).random((n, theta)) < 0.5
+    got = bitset.pack_bool_matrix(torch.from_numpy(dense))
+    want = ref.pack_bool_matrix(jnp.asarray(dense))
+    np.testing.assert_array_equal(u32(got), u32(want))
+    np.testing.assert_array_equal(bitset.unpack_words(got, theta).numpy(),
+                                  dense)
+
+
+@pytest.mark.parametrize("n,w", SHAPES)
+def test_popcount_coverage_gain(n, w):
+    rng = np.random.default_rng(n + w)
+    x = words(rng, (n, w))
+    x[0, 0] = 0xFFFFFFFF
+    cov = words(rng, (w,), density=0.2)
+    tx, tc = to_port(x), to_port(cov)
+    np.testing.assert_array_equal(bitset.popcount(tx).numpy(),
+                                  np.asarray(ref.popcount(jnp.asarray(x))))
+    np.testing.assert_array_equal(bitset.coverage_size(tx).numpy(),
+                                  np.asarray(ref.coverage_size(jnp.asarray(x))))
+    np.testing.assert_array_equal(
+        bitset.marginal_gain(tx, tc).numpy(),
+        np.asarray(ref.marginal_gain(jnp.asarray(x), jnp.asarray(cov))))
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_or_reduce(axis):
+    x = words(np.random.default_rng(axis), (6, 5, 4), density=0.2)
+    np.testing.assert_array_equal(
+        u32(bitset.or_reduce(to_port(x), axis)),
+        u32(ref.or_reduce(jnp.asarray(x), axis)))
+
+
+def test_pack_indices():
+    idx = [0, 31, 32, 63, 95, 100]
+    np.testing.assert_array_equal(u32(bitset.pack_indices(idx, 101)),
+                                  ref.pack_indices(np.asarray(idx), 101))

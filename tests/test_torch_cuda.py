@@ -1,0 +1,110 @@
+"""Kernels on the card against their plain versions (exact), and the
+wrappers' refusals.  Needs an NVIDIA GPU and nvcc; skipped elsewhere.
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import imm, prng, rrr  # noqa: E402
+from repro_torch.graphs import csr, generators  # noqa: E402
+from repro_torch.kernels import (bucket_insert, coins, greedy_pick,  # noqa: E402
+                                 rrr_expand)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _words(gen, *shape, dev):
+    return torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                         dtype=torch.int32).to(dev)
+
+
+def _equal(got, want):
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("n,df,w", [(37, 5, 3), (130, 3, 1), (8, 1, 40)])
+def test_expand_layouts(dev, n, df, w):
+    gen = torch.Generator().manual_seed(n)
+    f = _words(gen, n, w, dev=dev) & _words(gen, n, w, dev=dev)
+    vis = f | _words(gen, n, w, dev=dev)
+    nbr = torch.randint(0, n, (n, df), generator=gen, dtype=torch.int32
+                        ).to(dev)
+    plane = _words(gen, 2 * n, w, dev=dev)
+    gidx = torch.randint(0, 2 * n + 1, (n, df), generator=gen,
+                         dtype=torch.int32).to(dev)
+    _equal(rrr_expand.rrr_expand_step_resident(f, vis, nbr, gidx, plane),
+           rrr_expand.expand_step_resident_plain(f, vis, nbr, gidx, plane))
+    gm = _words(gen, n, df, w, dev=dev)
+    _equal(rrr_expand.rrr_expand_step(f, vis, nbr, gm),
+           rrr_expand.expand_step_plain(f, vis, nbr, gm))
+
+
+def test_coin_plane(dev):
+    gen = torch.Generator().manual_seed(1)
+    keys = [prng.key(3).fold_in(c) for c in range(3)]
+    prob = (torch.rand((50, 6), generator=gen) * 0.7).to(dev)
+    f = _words(gen, 50, 4, dev=dev)
+    _equal([coins.coin_plane(keys, prob, f, 2)],
+           [coins.coin_plane_plain(keys, prob, f, 2)])
+
+
+def test_greedy_and_bucket(dev):
+    gen = torch.Generator().manual_seed(2)
+    rows = _words(gen, 4, 300, 3, dev=dev) & _words(gen, 4, 300, 3, dev=dev)
+    ex = torch.tensor([[1, -1], [0, 299], [-1, -1], [7, 8]],
+                      dtype=torch.int32, device=dev)
+    _equal(greedy_pick.greedy_maxcover_resident(rows, 9, ex),
+           greedy_pick.greedy_plain(rows, 9, ex))
+    args = (torch.arange(-1, 40, dtype=torch.int32, device=dev),
+            _words(gen, 41, 3, dev=dev), _words(gen, 9, 3, dev=dev),
+            torch.tensor([0, 1, 2, 3, 0, 1, 2, 3, 3], dtype=torch.int32,
+                         device=dev),
+            torch.full((9, 3), -1, dtype=torch.int32, device=dev),
+            torch.rand(9, generator=gen).to(dev) * 30)
+    _equal(bucket_insert.bucket_insert_chunk(*args),
+           bucket_insert.bucket_insert_plain(*args))
+
+
+def test_sampler_and_imm_paths_agree_on_card(dev):
+    g = generators.erdos_renyi(500, 4.0, seed=3, device=dev)
+    nbr, prob, wt = csr.padded_adjacency(g)
+    fwd = csr.padded_forward_adjacency(g)
+    for model in ("IC", "LT"):
+        x = [rrr.sample_incidence(nbr, prob, wt, prng.key(4), theta=256,
+                                  n=500, model=model, fwd=fwd,
+                                  sampler=sampler, gather=gather)
+             for sampler, gather in (("packed", "auto"),
+                                     ("kernel", "resident"),
+                                     ("kernel", "streamed"))]
+        assert torch.equal(x[0], x[1]) and torch.equal(x[0], x[2])
+    runs = [imm.imm(g, 5, 0.13, prng.key(1), max_theta=1024, sampler=s,
+                    selector=imm.make_randgreedi_selector(
+                        4, use_kernel=u, solver=sv))
+            for s, u, sv in (("packed", False, "scan"),
+                             ("kernel", True, "resident"))]
+    assert runs[0].seeds.tolist() == runs[1].seeds.tolist()
+    assert runs[0].coverage_fraction == runs[1].coverage_fraction
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    f = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    nbr = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        rrr_expand.rrr_expand_step(f, f, nbr.long(), f[:, None])
+    with pytest.raises(ValueError, match="contiguous"):
+        rrr_expand.rrr_expand_step(f, f, nbr, torch.zeros_like(
+            f[:, None]).repeat(1, 2, 1)[:, :1])
+    with pytest.raises(ValueError, match="several devices"):
+        rrr_expand.rrr_expand_step(f, f.cpu(), nbr, f[:, None])
+    big = torch.zeros((1, 2, 70000), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        greedy_pick.greedy_maxcover_resident(big, 1)

@@ -1,0 +1,89 @@
+"""The port stands alone and never falls back: it imports nothing of jax
+or ``repro``, CUDA requests without a card raise, CPU tensors take the
+plain versions without counting a launch, and flags of paths not ported
+yet raise ``NotImplementedError``."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import prng  # noqa: E402
+from repro_torch.kernels import (bucket_insert, coins, greedy_pick,  # noqa: E402
+                                 ops, rrr_expand)
+from repro_torch.launch import im_driver  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+POISONED_IMPORTS = """
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None          # any import of them now fails
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+               for m in sys.modules if sys.modules[m] is not None)
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(REPO, "src"), REPO]))
+    out = subprocess.run([sys.executable, "-c", POISONED_IMPORTS], env=env,
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def test_cuda_request_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        im_driver.main(["--n", "50", "--k", "2", "--max-theta", "64",
+                        "--device", "cuda"])
+
+
+def test_cpu_tensors_take_plain_versions_without_launches():
+    ops.reset_launches()
+    g = torch.Generator().manual_seed(0)
+
+    def w(*shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, generator=g,
+                             dtype=torch.int32)
+    n, df, width = 9, 3, 2
+    frontier, visited = w(n, width), w(n, width)
+    nbr = torch.randint(0, n, (n, df), generator=g, dtype=torch.int32)
+    gidx = torch.randint(0, 2 * n + 1, (n, df), generator=g,
+                         dtype=torch.int32)
+    plane = w(2 * n, width)
+    got = rrr_expand.rrr_expand_step_resident(frontier, visited, nbr, gidx,
+                                              plane)
+    want = rrr_expand.expand_step_resident_plain(frontier, visited, nbr,
+                                                 gidx, plane)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    gmask = w(n, df, width)
+    rrr_expand.rrr_expand_step(frontier, visited, nbr, gmask)
+    coins.coin_plane([prng.key(1)], torch.full((n, 4), 0.5), frontier, 4)
+    greedy_pick.greedy_maxcover_resident(w(2, n, width), 3)
+    bucket_insert.bucket_insert_chunk(
+        torch.arange(4, dtype=torch.int32), w(4, width), w(3, width),
+        torch.zeros(3, dtype=torch.int32),
+        torch.full((3, 2), -1, dtype=torch.int32), torch.zeros(3))
+    assert ops.LAUNCHES == dict.fromkeys(ops.KERNELS, 0)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--theta", "64"], ["--use-opim"], ["--serve"], ["--faults", "x"],
+    ["--selector", "ripples"], ["--sampler", "dense"], ["--solver", "lazy"],
+    ["--solver", "fused"], ["--eval-engine", "map"], ["--eval-spread"],
+])
+def test_unported_paths_raise(flags):
+    with pytest.raises(NotImplementedError, match="ROADMAP|Queue"):
+        im_driver.main(["--n", "50", "--device", "cpu", *flags])

@@ -1,0 +1,75 @@
+"""Port parity: greedy max-k-cover against the reference's resident
+Pallas kernel (interpret mode) and scan solver — exact seeds, rows,
+covered and gains, with ties, exclusions, k beyond the useful rows and
+a machine batch."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.core import maxcover as ref  # noqa: E402
+from repro.kernels.greedy_pick import greedy_maxcover_resident_pallas  # noqa: E402
+from repro_torch.core import maxcover  # noqa: E402
+from repro_torch.kernels import greedy_pick  # noqa: E402
+from tests.test_torch_ref import partitionable, to_port, u32, words  # noqa: E402,F401
+
+
+def _rows(m, n, w, seed):
+    rng = np.random.default_rng(seed)
+    rows = words(rng, (m, n, w), density=0.2)
+    rows[:, 3 % n] = rows[:, 1 % n]          # a tie: lowest index must win
+    return rows
+
+
+def _assert_same(got, want):
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(u32(a), u32(b))
+
+
+@pytest.mark.parametrize("m,n,w,k,excl", [
+    (1, 37, 3, 5, [-1]),
+    (3, 20, 2, 4, [1, 7, -1, 40]),
+    (2, 6, 1, 9, [0]),            # k beyond the useful rows
+])
+def test_resident_matches_pallas(m, n, w, k, excl):
+    rows = _rows(m, n, w, m * n + k)
+    got = greedy_pick.greedy_maxcover_resident(to_port(rows), k,
+                                               torch.tensor(excl))
+    for j in range(m):
+        want = greedy_maxcover_resident_pallas(
+            jnp.asarray(rows[j]), k, jnp.asarray(excl, jnp.int32),
+            interpret=True)
+        _assert_same([o[j] for o in got], want)
+
+
+@pytest.mark.parametrize("solver", ["scan", "resident"])
+def test_greedy_maxcover_matches_scan(solver):
+    rows = _rows(1, 45, 4, 3)[0]
+    want = ref.greedy_maxcover(jnp.asarray(rows), 6, solver="scan",
+                               excluded=jnp.asarray([2, 5], jnp.int32))
+    got = maxcover.greedy_maxcover(to_port(rows), 6, solver=solver,
+                                   excluded=[2, 5])
+    _assert_same(got, want)
+
+
+def test_all_zero_rows_reject_every_pick():
+    got = maxcover.greedy_maxcover(torch.zeros((5, 2), dtype=torch.int32), 3)
+    assert got.seeds.tolist() == [-1, -1, -1]
+    assert got.gains.tolist() == [0, 0, 0]
+    assert int(got.coverage) == 0
+
+
+def test_lazy_oracle_coverage():
+    rows = _rows(1, 60, 3, 9)[0]
+    seeds, cov = maxcover.lazy_greedy_maxcover_np(rows, 5)
+    assert cov == ref.lazy_greedy_maxcover_np(rows, 5)[1]
+    got = maxcover.greedy_maxcover(to_port(rows), 5)
+    assert int(got.coverage) == cov
+    assert maxcover.coverage_of(u32(to_port(rows)), seeds) == cov
+
+
+def test_unported_solvers_raise():
+    with pytest.raises(NotImplementedError, match="Queue"):
+        maxcover.resolve_solver("lazy")

@@ -1,0 +1,90 @@
+"""Port parity: ``sample_incidence`` (both port samplers, IC and LT)
+against the reference's packed sampler — exact incidence words."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.core import rrr as ref  # noqa: E402
+from repro.graphs import csr as ref_csr  # noqa: E402
+from repro.graphs import generators as ref_gen  # noqa: E402
+from repro_torch.core import rrr  # noqa: E402
+from repro_torch.graphs import csr  # noqa: E402
+from tests.test_torch_ref import (partitionable, port_graph, port_key,  # noqa: E402,F401
+                                  u32)
+
+
+def _hub_graph():
+    """Everyone points at vertex 0 (in-degree n-1 > 16: blocked cumsum,
+    several coin chunks) plus a sparse random part."""
+    rng = np.random.default_rng(0)
+    n = 40
+    src = np.concatenate([np.arange(1, n), rng.integers(0, n, 60)])
+    dst = np.concatenate([np.zeros(n - 1, np.int64), rng.integers(0, n, 60)])
+    keep = src != dst
+    from repro.graphs.csr import from_edge_list
+    return from_edge_list(src[keep], dst[keep], n, seed=1)
+
+
+GRAPHS = {"er": lambda: ref_gen.erdos_renyi(70, 3.0, seed=2),
+          "hub": _hub_graph}
+
+
+def _both(g_ref, jkey, theta, model, coin_chunk, max_steps, sampler,
+          gather="auto"):
+    nbr, prob, wt = ref_csr.padded_adjacency(g_ref)
+    want = ref.sample_incidence(
+        nbr, prob, wt, jkey, theta=theta, n=g_ref.num_vertices, model=model,
+        max_steps=max_steps, sampler="packed",
+        fwd=ref_csr.padded_forward_adjacency(g_ref), coin_chunk=coin_chunk)
+    g = port_graph(g_ref)
+    t_nbr, t_prob, t_wt = csr.padded_adjacency(g)
+    stats = {}
+    got = rrr.sample_incidence(
+        t_nbr, t_prob, t_wt, port_key(jkey), theta=theta, n=g.num_vertices,
+        model=model, max_steps=max_steps, sampler=sampler,
+        fwd=csr.padded_forward_adjacency(g), coin_chunk=coin_chunk,
+        gather=gather, stats=stats)
+    return got, want, stats
+
+
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+@pytest.mark.parametrize("model", ["IC", "LT"])
+@pytest.mark.parametrize("sampler,gather", [("packed", "auto"),
+                                            ("kernel", "resident"),
+                                            ("kernel", "streamed")])
+def test_sample_incidence_matches_reference(graph, model, sampler, gather):
+    got, want, stats = _both(GRAPHS[graph](), jax.random.key(3), 96, model,
+                             coin_chunk=7, max_steps=64, sampler=sampler,
+                             gather=gather)
+    np.testing.assert_array_equal(u32(got), u32(want))
+    assert stats["bfs_steps"] >= 1
+
+
+@pytest.mark.parametrize("max_steps", [1, 2])
+def test_max_steps_cutoff(max_steps):
+    got, want, stats = _both(ref_gen.erdos_renyi(50, 6.0, seed=4),
+                             jax.random.key(8), 64, "IC", coin_chunk=32,
+                             max_steps=max_steps, sampler="kernel")
+    np.testing.assert_array_equal(u32(got), u32(want))
+    assert stats["bfs_steps"] == max_steps
+
+
+def test_edgeless_graph_is_roots_only():
+    from repro.graphs.csr import from_edge_list
+    g_ref = from_edge_list(np.array([], np.int64), np.array([], np.int64), 9)
+    got, want, stats = _both(g_ref, jax.random.key(1), 32, "IC",
+                             coin_chunk=32, max_steps=64, sampler="kernel")
+    np.testing.assert_array_equal(u32(got), u32(want))
+    assert stats == {}
+
+
+def test_theta_must_be_word_multiple():
+    g = port_graph(ref_gen.erdos_renyi(10, 2.0, seed=0))
+    nbr, prob, wt = csr.padded_adjacency(g)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        rrr.sample_incidence(nbr, prob, wt, port_key(jax.random.key(0)),
+                             theta=33, n=10, model="IC",
+                             fwd=csr.padded_forward_adjacency(g))
