@@ -7,11 +7,15 @@ Builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version on the card (exact
 equality: every output is integer words or ids, so the tolerance is
 zero), checks the kernel paths against the plain paths end to end at a
-small size, drives the port's main path at full size through the
-driver a user calls, then times every kernel at the shapes that run
-gave it.  Prints JSON lines; the line before the last lists the
-kernels, the last line is the device summary.  Exits non-zero without
-a CUDA device or on any failure.  Imports nothing of JAX.
+small size (the IMM loop, then the fixed-theta GreediRIS round and the
+Ripples round over every solver, receiver, schedule and shuffle),
+drives both paths at full size through the entry points a user calls
+(the IMM loop with the GreediRIS selector; the fixed-theta round with
+the lazy and the fused senders; the Ripples round), then times every
+kernel at the shapes those runs gave it.  Prints JSON lines; the line
+before the last lists the kernels, the last line is the device summary.
+Exits non-zero without a CUDA device or on any failure.  Imports
+nothing of JAX.
 """
 from __future__ import annotations
 
@@ -28,11 +32,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.core import bitset, imm, prng, rrr  # noqa: E402
+from repro_torch.core import bitset, greediris, imm, prng, rrr  # noqa: E402
 from repro_torch.core import cascade, maxcover, streaming  # noqa: E402
 from repro_torch.graphs import csr, generators  # noqa: E402
 from repro_torch.kernels import (build, bucket_insert, coins,  # noqa: E402
-                                 greedy_pick, ops, rrr_expand)
+                                 coverage, greedy_pick, lazy_greedy, ops,
+                                 rrr_expand, topk_gain)
 from repro_torch.launch import im_driver  # noqa: E402
 
 # The slice's command: SNAP com-DBLP scale (317k vertices, 1.05M edges),
@@ -42,11 +47,24 @@ FULL = ["--graph", "er", "--n", "262144", "--avg-deg", "4", "--k", "100",
         "--gather", "resident", "--solver", "resident", "--use-kernel",
         "--max-theta", "32768", "--eval-engine", "kernel", "--eval-sims",
         "64"]
+# Slice 2: the fixed-theta distributed round at the same scale, m = 8
+# machines of theta/m = 16,384 samples (W_global = 4096 words).
+ROUND = ["--graph", "er", "--n", "262144", "--avg-deg", "4", "--k", "100",
+         "--machines", "8", "--theta", "131072", "--selector", "greediris",
+         "--sampler", "kernel", "--solver", "lazy", "--use-kernel",
+         "--chunk-size", "auto", "--eval-engine", "kernel", "--eval-sims",
+         "64"]
+# The kernels of each full-size path and the run that must launch them.
+SLICE1 = ("rrr_expand_resident", "rrr_expand_streamed", "coin_pack",
+          "greedy_pick", "bucket_insert")
+ROUND_RUN = {"lazy_greedy": "lazy", "bucket_insert_stream": "lazy",
+             "topk_gain": "fused", "coverage": "ripples"}
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak bandwidth
 # INT32 ALU peak: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock (NVIDIA
 # publishes no INT32 rate for H100; this follows the SM's lane count).
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+GAIN_OPS_PER_WORD = 3          # and-not, popcount, add
 OPS_PER_COIN = 80              # threefry: 20 x (add, rotate, xor) + keys
                                # + float conversion and compare
 
@@ -66,6 +84,18 @@ SOURCES = {
     "bucket_insert": (
         "src/repro_torch/kernels/csrc/bucket_insert.cu",
         "src/repro/kernels/bucket_insert.py:214"),
+    "coverage": (
+        "src/repro_torch/kernels/csrc/coverage.cu",
+        "src/repro/kernels/coverage.py:45"),
+    "topk_gain": (
+        "src/repro_torch/kernels/csrc/topk_gain.cu",
+        "src/repro/kernels/topk_gain.py:55"),
+    "lazy_greedy": (
+        "src/repro_torch/kernels/csrc/lazy_greedy.cu",
+        "src/repro/kernels/lazy_greedy.py:229"),
+    "bucket_insert_stream": (
+        "src/repro_torch/kernels/csrc/bucket_insert.cu",
+        "src/repro/kernels/bucket_insert.py:266"),
 }
 
 
@@ -186,7 +216,79 @@ def parity_small(dev) -> dict:
     errs["bucket_insert"] = require_equal(
         "bucket_insert", bucket_insert.bucket_insert_chunk(*args),
         bucket_insert.bucket_insert_plain(*args), B=b, C=c, W=w_b, k=k)
+    errs.update(parity_slice2(gen, dev))
     torch.cuda.synchronize()
+    return errs
+
+
+def parity_slice2(gen, dev) -> dict:
+    """The gain sweeps, the lazy solve and the stream receiver: W odd
+    (4-byte loads) and W a multiple of 4 (16-byte loads), ties within
+    and across row tiles, picked and excluded rows, a machine with every
+    row picked, skewed gains that let the lazy solve skip, full buckets,
+    ids of -1, streams of one chunk and chunks larger than one staging
+    buffer."""
+    errs = dict.fromkeys(("coverage", "topk_gain", "lazy_greedy",
+                          "bucket_insert_stream"), 0)
+    for m, n_g, w_g in ((3, 1001, 5), (2, 777, 36)):
+        rows_g = rand_words(gen, m, n_g, w_g, dev=dev)
+        for _ in range(3):
+            rows_g &= rand_words(gen, m, n_g, w_g, dev=dev)
+        rows_g[:, 700] = rows_g[:, 3]                      # ties
+        cov = rand_words(gen, m, w_g, dev=dev) & rand_words(gen, m, w_g,
+                                                              dev=dev)
+        picked = (torch.rand((m, n_g), generator=gen) < 0.3).to(dev)
+        picked[0, 3] = True
+        picked[-1] = True                                  # all picked
+        errs["coverage"] = max(errs["coverage"], require_equal(
+            "coverage", [coverage.marginal_gain(rows_g, cov)],
+            [coverage.marginal_gain_plain(rows_g, cov)], m=m, n=n_g, W=w_g))
+        errs["topk_gain"] = max(errs["topk_gain"], require_equal(
+            "topk_gain", topk_gain.best_gain_index(rows_g, cov, picked),
+            topk_gain.best_gain_index_plain(rows_g, cov, picked), m=m,
+            n=n_g, W=w_g))
+    for m, n_g, w_g, k, ex, skew in (
+            (3, 1001, 5, 12, [[1, -1, 5000], [0, 2, 3], [-1, -1, -1]], False),
+            (2, 10, 2, 15, [[4], [-1]], False),
+            (2, 20000, 36, 30, [[-1], [17]], True)):
+        rows_g = rand_words(gen, m, n_g, w_g, dev=dev)
+        for _ in range(3):
+            rows_g &= rand_words(gen, m, n_g, w_g, dev=dev)
+        if skew:                          # a few heavy rows, many light
+            heavy = (torch.rand((m, n_g, 1), generator=gen) < 0.02).to(dev)
+            rows_g = torch.where(heavy, rows_g | rand_words(
+                gen, m, n_g, w_g, dev=dev), rows_g & 0x00010001)
+        rows_g[:, 40 % n_g] = rows_g[:, 7 % n_g]    # a tie across tiles
+        exc = torch.tensor(ex, dtype=torch.int32, device=dev)
+        *got, swept = lazy_greedy.greedy_maxcover_lazy(rows_g, k, exc)
+        tiles = lazy_greedy.num_row_tiles(n_g)
+        if not all(tiles <= int(t) <= k * tiles for t in swept):
+            raise AssertionError(f"lazy_greedy: tiles_swept {swept.tolist()} "
+                                 f"outside [{tiles}, {k * tiles}]")
+        errs["lazy_greedy"] = max(errs["lazy_greedy"], require_equal(
+            "lazy_greedy", got, lazy_greedy.lazy_plain(rows_g, k, exc)[:4],
+            m=m, n=n_g, W=w_g, k=k, tiles_swept=swept.tolist(),
+            num_tiles=tiles))
+    b, k = 63, 4
+    # the last two chunks exceed what one buffer stages at W = 4096
+    for r, c, w_b in ((1, 301, 7), (3, 100, 8), (57, 14, 36), (5, 8, 4096),
+                      (2, 13, 4096)):
+        ids = torch.randint(-1, 5000, (r, c), generator=gen,
+                            dtype=torch.int32)
+        args = (ids.to(dev), rand_words(gen, r, c, w_b, dev=dev)
+                & rand_words(gen, r, c, w_b, dev=dev),
+                rand_words(gen, b, w_b, dev=dev)
+                & rand_words(gen, b, w_b, dev=dev),
+                torch.randint(0, k + 1, (b,), generator=gen,
+                              dtype=torch.int32).to(dev),
+                torch.full((b, k), -1, dtype=torch.int32, device=dev),
+                (torch.rand(b, generator=gen) * 40 * w_b / 7).to(dev))
+        errs["bucket_insert_stream"] = max(
+            errs["bucket_insert_stream"], require_equal(
+                "bucket_insert_stream",
+                bucket_insert.bucket_insert_stream(*args),
+                bucket_insert.bucket_insert_stream_plain(*args), B=b, R=r,
+                C=c, W=w_b, k=k))
     return errs
 
 
@@ -221,6 +323,75 @@ def paths_agree(dev):
             raise AssertionError(f"{model}: paths disagree")
 
 
+# round phase of `paths`: (arguments that change the result, kernel-path
+# variants that must not)
+ROUND_SWEEP = (
+    ({}, (dict(solver="scan", use_kernel=True, chunk_size=8),
+          dict(solver="fused", use_kernel=True, chunk_size="auto"),
+          dict(solver="resident", use_kernel=True, chunk_size=8),
+          dict(solver="lazy", use_kernel=True, chunk_size="auto"),
+          dict(solver="lazy", chunk_size=8))),
+    (dict(aggregate="pipeline"), (dict(solver="lazy", use_kernel=True),
+                                  dict(solver="fused", use_kernel=True))),
+    (dict(shuffle="sparse"), (dict(solver="lazy", use_kernel=True,
+                                   chunk_size="auto"),)),
+    (dict(alpha_trunc=0.125), (dict(solver="resident", use_kernel=True,
+                                    chunk_size="auto"),)),
+    (dict(survivors=(0, 2, 3)), (dict(solver="lazy", use_kernel=True,
+                                      chunk_size=8),)),
+    (dict(survivors=(0, 2, 3), aggregate="pipeline"),
+     (dict(solver="fused", use_kernel=True),)),
+)
+
+
+def round_paths_agree(dev):
+    """The fixed-theta round and the Ripples round at n = 3000, m = 4,
+    theta = 2048, k = 10: every kernel path on the card against the
+    plain path on the card and on the CPU — identical seeds and
+    coverages."""
+    n, m, theta, k = 3000, 4, 2048, 10
+    for model in ("IC", "LT"):
+        tables = {}
+        for device in ("cpu", dev):
+            g = generators.erdos_renyi(n, 4.0, seed=5, device=device)
+            tables[str(device)] = (*csr.padded_adjacency(g),
+                                   csr.padded_forward_adjacency(g))
+
+        def run(device, **kw):
+            nbr, prob, wt, fwd = tables[str(device)]
+            fn, _, _ = greediris.build_round(m=m, n=n, theta=theta, k=k,
+                                             max_degree=0, model=model,
+                                             fwd=fwd, **kw)
+            o = fn(nbr, prob, wt, prng.key(5))
+            return (o.seeds.tolist(), int(o.coverage),
+                    int(o.global_coverage), int(o.best_local_coverage))
+
+        for fixed, variants in ROUND_SWEEP:
+            plain = dict(fixed, sampler="packed", solver="scan")
+            results = {"plain-cpu": run("cpu", **plain),
+                       "plain-gpu": run(dev, **plain)}
+            for v in variants:
+                kw = dict(fixed, sampler="kernel", **v)
+                results[json.dumps(kw, sort_keys=True)] = run(dev, **kw)
+            emit(phase="paths", path="round", model=model, **results)
+            if len({json.dumps(r) for r in results.values()}) != 1:
+                raise AssertionError(f"round {model} {fixed}: paths disagree")
+        results = {}
+        for name, device, sampler, use_kernel in (
+                ("plain-cpu", "cpu", "packed", False),
+                ("plain-gpu", dev, "packed", False),
+                ("kernel-gpu", dev, "kernel", True)):
+            nbr, prob, wt, fwd = tables[str(device)]
+            fn, _ = greediris.build_ripples_round(
+                m=m, n=n, theta=theta, k=k, model=model, sampler=sampler,
+                use_kernel=use_kernel, fwd=fwd)
+            seeds, cov = fn(nbr, prob, wt, prng.key(5))
+            results[name] = (seeds.tolist(), int(cov))
+        emit(phase="paths", path="ripples", model=model, **results)
+        if len({json.dumps(r) for r in results.values()}) != 1:
+            raise AssertionError(f"ripples {model}: paths disagree")
+
+
 # ---------------------------------------------------------------- phase 5
 
 def full_run():
@@ -243,10 +414,71 @@ def full_run():
     if not (0.0 < out["coverage_fraction"] <= 1.0
             and np.isfinite(out["spread"]) and out["spread"] >= len(real)):
         raise AssertionError("coverage or spread out of range")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in SLICE1 if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
     return launches, seeds
+
+
+def check_seeds(seeds, n: int, k: int = 100):
+    real = seeds[seeds >= 0]
+    if not (len(real) == k and len(set(real.tolist())) == k
+            and real.max() < n):
+        raise AssertionError(f"bad seed set {seeds}")
+
+
+def round_runs(dev):
+    """The fixed-theta round at full size through the driver with the
+    lazy and the fused senders, then the Ripples round at the same theta
+    through ``greediris.build_ripples_round``.  Each run's launch counts
+    are set to 0 just before it and read just after."""
+    launches, outs = {}, {}
+    for solver in ("lazy", "fused"):
+        argv = [solver if a == "lazy" else a for a in ROUND]
+        ops.reset_launches()
+        out = im_driver.run(argv)
+        torch.cuda.synchronize()
+        launches[solver] = dict(ops.LAUNCHES)
+        rnd = out["round"]
+        emit(phase="round", solver=solver, theta=out["theta"],
+             coverage=rnd["coverage"],
+             global_coverage=rnd["global_coverage"],
+             best_local_coverage=rnd["best_local_coverage"],
+             spread=out["spread"], n=out["n"], edges=out["edges"],
+             seconds=dict(graph=out["graph_s"], **rnd["seconds"],
+                          spread=out["spread_s"]),
+             peak_bytes=out["peak_bytes"], launches=launches[solver])
+        check_seeds(out["seeds"], out["n"])
+        if rnd["coverage"] < rnd["best_local_coverage"]:
+            raise AssertionError("round coverage below the best local one")
+        if not np.isfinite(out["spread"]):
+            raise AssertionError("spread is not finite")
+        outs[solver] = out
+    if outs["lazy"]["seeds"].tolist() != outs["fused"]["seeds"].tolist():
+        raise AssertionError("lazy and fused senders gave other seeds")
+
+    args = im_driver.parser().parse_args(ROUND)
+    g = generators.erdos_renyi(args.n, args.avg_deg, args.seed, device=dev)
+    nbr, prob, wt = csr.padded_adjacency(g)
+    fn, theta = greediris.build_ripples_round(
+        m=args.machines, n=args.n, theta=args.theta, k=args.k,
+        model=args.model, use_kernel=True, sampler="kernel",
+        fwd=csr.padded_forward_adjacency(g))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    stats = {}
+    ops.reset_launches()
+    seeds, cov = fn(nbr, prob, wt, prng.key(args.seed), stats=stats)
+    torch.cuda.synchronize()
+    launches["ripples"] = dict(ops.LAUNCHES)
+    emit(phase="round", path="ripples", theta=theta, coverage=int(cov),
+         seconds=stats, peak_bytes=torch.cuda.max_memory_allocated(dev),
+         launches=launches["ripples"])
+    check_seeds(seeds.cpu().numpy(), args.n)
+    missing = [k for k, run in ROUND_RUN.items() if launches[run][k] == 0]
+    if missing:
+        raise AssertionError(f"the round paths never launched {missing}")
+    return launches
 
 
 # ---------------------------------------------------------------- phase 6
@@ -254,10 +486,13 @@ def full_run():
 def timed(name, kernel_fn, plain_fn, reps, plain_reps, bytes_, ops_=0.0):
     """Kernel vs plain on the same main-path inputs: equality, medians,
     and the bound (the larger of bytes over HBM rate and integer ops
-    over the INT32 rate)."""
+    over the INT32 rate).  ``bytes_`` and ``ops_`` may be callables,
+    read once the plain version has run."""
     err = max_err(kernel_fn(), plain_fn())
     if err:
         raise AssertionError(f"{name}: kernel != plain at main-path shapes")
+    bytes_ = bytes_() if callable(bytes_) else bytes_
+    ops_ = ops_() if callable(ops_) else ops_
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = ops_ / INT32_OPS_PER_S * 1e3
     row = dict(name=name, route="cuda", source=SOURCES[name][0],
@@ -367,6 +602,91 @@ def main_path_timings(dev, final_seeds) -> dict:
     return rows_out
 
 
+def round_timings(dev) -> dict:
+    """The slice-2 kernels at the shapes the full-size round gives them:
+    the lazy senders over the shuffled [8, 32768, 4096] rows, one fused
+    pick over the same rows, the stream receiver over the 800 x 4096
+    candidate stream through 63 buckets, and one Ripples pick over the
+    machines' [8, 262144, 512] samples."""
+    args = im_driver.parser().parse_args(ROUND)
+    n, k = args.n, args.k
+    g = generators.erdos_renyi(n, args.avg_deg, args.seed, device=dev)
+    nbr, prob, wt = csr.padded_adjacency(g)
+    fwd = csr.padded_forward_adjacency(g)
+    key = prng.key(args.seed)
+    fn, _, _ = greediris.build_round(
+        m=args.machines, n=n, theta=args.theta, k=k, max_degree=0,
+        model=args.model, sampler="kernel", fwd=fwd)
+    x_s, perm = fn.sample_shuffle(nbr, prob, wt, key)
+    m, per, w = x_s.shape
+    ex = greedy_pick.excluded_ids(None, m, dev)
+    rows_out = {}
+
+    sol = lazy_greedy.greedy_maxcover_lazy(x_s, k, ex)
+    swept = sol[4].tolist()
+    # the bound counts the rows of the tiles an exact schedule that knows
+    # each pick's best sweeps (lazy_plain's count), not the kernel's own
+    need = {}
+
+    def needed_rows():
+        return min(int(need["tiles_needed"].sum()) * lazy_greedy.TILE_ROWS,
+                   k * m * per)
+
+    rows_out["lazy_greedy"] = timed(
+        "lazy_greedy", lambda: lazy_greedy.greedy_maxcover_lazy(x_s, k, ex)[:4],
+        lambda: lazy_greedy.lazy_plain(x_s, k, ex, stats=need)[:4], 5, 1,
+        bytes_=lambda: 4 * (needed_rows() * w + m * k * w + m * w
+                            + 2 * m * k),
+        ops_=lambda: GAIN_OPS_PER_WORD * needed_rows() * w)
+    rows_out["lazy_greedy"]["tiles_swept"] = swept
+    rows_out["lazy_greedy"]["tiles_needed"] = need["tiles_needed"].tolist()
+    rows_out["lazy_greedy"]["num_tiles"] = lazy_greedy.num_row_tiles(per)
+    # the tiles of a machine that every pick's first phase sweeps
+    rows_out["lazy_greedy"]["phase1_tiles_per_pick"] = (
+        lazy_greedy.blocks_per_machine(m, per, w, dev))
+    # what the lazy bound saves: the resident solve on the same rows
+    rows_out["lazy_greedy"]["resident_ms"] = median_ms(
+        lambda: greedy_pick.greedy_maxcover_resident(x_s, k, ex), 3)
+
+    cov0 = torch.zeros((m, w), dtype=torch.int32, device=dev)
+    none = torch.zeros((m, per), dtype=torch.bool, device=dev)
+    rows_out["topk_gain"] = timed(
+        "topk_gain", lambda: topk_gain.best_gain_index(x_s, cov0, none),
+        lambda: topk_gain.best_gain_index_plain(x_s, cov0, none), 10, 3,
+        bytes_=4 * (x_s.numel() + m * w + 2 * m) + none.numel(),
+        ops_=GAIN_OPS_PER_WORD * x_s.numel())
+    del x_s
+
+    seeds, sel_rows, _, gains = sol[:4]
+    ids = torch.where(seeds >= 0, perm.reshape(m, per).gather(
+        1, seeds.clamp(min=0).long()), -1).to(torch.int32).reshape(-1)
+    st = streaming.init_state(k, args.delta, float(gains[:, 0].max()), w,
+                              device=dev)
+    cs = bucket_insert.auto_chunk_size(w, ids.numel(), dev)
+    ids_ch, rows_ch = streaming.chunk_stream(ids, sel_rows.reshape(-1, w), cs)
+    b = st.covers.shape[0]
+    rows_out["bucket_insert_stream"] = timed(
+        "bucket_insert_stream",
+        lambda: bucket_insert.bucket_insert_stream(ids_ch, rows_ch, *st),
+        lambda: bucket_insert.bucket_insert_stream_plain(ids_ch, rows_ch, *st),
+        10, 3, bytes_=4 * (ids_ch.numel() * (w + 1) + 2 * b * w + 2 * b
+                           + 2 * b * k + b))
+    rows_out["bucket_insert_stream"].update(R=ids_ch.shape[0], C=cs, B=b)
+    del sol, sel_rows, rows_ch
+
+    rf, _ = greediris.build_ripples_round(
+        m=m, n=n, theta=args.theta, k=k, model=args.model, sampler="kernel",
+        fwd=fwd)
+    x = rf.sample(nbr, prob, wt, key)
+    cov0 = torch.zeros((m, x.shape[2]), dtype=torch.int32, device=dev)
+    rows_out["coverage"] = timed(
+        "coverage", lambda: [coverage.marginal_gain(x, cov0)],
+        lambda: [coverage.marginal_gain_plain(x, cov0)], 10, 3,
+        bytes_=4 * (x.numel() + cov0.numel() + m * n),
+        ops_=GAIN_OPS_PER_WORD * x.numel())
+    return rows_out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -378,7 +698,7 @@ def card_line() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--stop-after", choices=("build", "parity", "paths",
-                                             "full"),
+                                             "full", "round"),
                     help="end early after this phase (no result lines)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -405,17 +725,23 @@ def main(argv=None) -> int:
     if args.stop_after == "parity":
         return 0
     paths_agree(dev)
+    round_paths_agree(dev)
     if args.stop_after == "paths":
         return 0
     launches, seeds = full_run()
     if args.stop_after == "full":
         return 0
+    round_launches = round_runs(dev)
+    if args.stop_after == "round":
+        return 0
     rows = main_path_timings(dev, torch.from_numpy(seeds))
+    rows.update(round_timings(dev))
     kernels = []
     for name in ops.KERNELS:
         row = rows[name]
         row["max_abs_err"] = max(row["max_abs_err"], errs[name])
-        row["launches"] = launches[name]
+        row["launches"] = (launches[name] if name in SLICE1
+                           else round_launches[ROUND_RUN[name]][name])
         kernels.append(row)
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(card)

@@ -1,4 +1,6 @@
 """Core algorithms: bitsets, PRNG, sampling, max-cover, IMM, cascades."""
+import time
+
 import torch
 
 
@@ -14,3 +16,25 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r}")
     return dev
+
+
+class StageClock:
+    """Adds the wall seconds of a block to ``stats[name]``, waiting for
+    the card at both ends so device work is charged where it runs.
+    Does nothing when ``stats`` is None."""
+
+    def __init__(self, stats, name: str, device):
+        self.stats, self.name = stats, name
+        self.device = torch.device(device)
+
+    def __enter__(self):
+        if self.stats is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        if self.stats is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.stats[self.name] = (self.stats.get(self.name, 0.0)
+                                     + time.perf_counter() - self.t0)

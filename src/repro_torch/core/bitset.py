@@ -83,6 +83,28 @@ def or_reduce(words: torch.Tensor, axis: int) -> torch.Tensor:
     return out
 
 
+def packed_nonzero(words: torch.Tensor, *, size: int, fill_value: int = -1):
+    """(sample, vertex) pairs of the set bits of packed words [n, W],
+    int32 [size] each, sample-major (then vertex), tail filled with
+    ``fill_value`` — the reference's order exactly: each of the 32
+    bit-planes contributes its first ``size`` hits in (vertex, word)
+    order, and the merged pairs are sorted by (sample, vertex)."""
+    n = words.shape[0]
+    s_all, v_all = [], []
+    for j in range(WORD_BITS):
+        v_j, w_j = torch.nonzero((words >> j) & 1, as_tuple=True)
+        s_all.append(w_j[:size] * WORD_BITS + j)
+        v_all.append(v_j[:size])
+    s_cat, v_cat = torch.cat(s_all), torch.cat(v_all)
+    order = torch.argsort(s_cat * max(n, 1) + v_cat)[:size]
+    s_out = torch.full((size,), fill_value, dtype=torch.int32,
+                       device=words.device)
+    v_out = s_out.clone()
+    s_out[:order.numel()] = s_cat[order].to(torch.int32)
+    v_out[:order.numel()] = v_cat[order].to(torch.int32)
+    return s_out, v_out
+
+
 def pack_indices(indices, theta: int) -> torch.Tensor:
     """Pack a list of sample indices into one int32 word row (CPU)."""
     w = num_words(theta)

@@ -36,7 +36,8 @@ def resolve_engine(engine: str | None, default: str = "kernel") -> str:
         engine = default
     if engine == "map":
         raise NotImplementedError(
-            "engine='map' is not ported yet (ROADMAP Queue 1 item 7)")
+            "engine='map' is not ported yet: ROADMAP Queue 1, 'the WC "
+            "model and the map cascade engine'")
     if engine not in ENGINES:
         raise ValueError(
             f"unknown cascade engine {engine!r}; expected one of {ENGINES}")
@@ -48,7 +49,8 @@ def resolve_model(model: str | None, default: str = "IC") -> str:
         model = default
     if model == "WC":
         raise NotImplementedError(
-            "model='WC' is not ported yet (ROADMAP Queue 1 item 7)")
+            "model='WC' is not ported yet: ROADMAP Queue 1, 'the WC "
+            "model and the map cascade engine'")
     if model not in MODELS:
         raise ValueError(
             f"unknown diffusion model {model!r}; expected one of {MODELS}")

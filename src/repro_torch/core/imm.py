@@ -8,13 +8,12 @@ RandGreedi, or the streaming GreediRIS.
 from __future__ import annotations
 
 import math
-import time
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core import maxcover, randgreedi, theory
+from repro_torch.core import StageClock, maxcover, randgreedi, theory
 from repro_torch.core.prng import Key
 from repro_torch.core.rrr import resolve_sampler, sample_incidence
 from repro_torch.graphs.csr import (CSRGraph, padded_adjacency,
@@ -57,28 +56,14 @@ def make_randgreedi_selector(m: int, aggregator: str = "streaming",
     return sel
 
 
+def make_ripples_selector(m: int) -> Selector:
+    def sel(rows, k, key):
+        return randgreedi.ripples_select(rows, m=m, k=k)
+    return sel
+
+
 def _round32(x: float) -> int:
     return int(math.ceil(x / 32.0) * 32)
-
-
-class _Clock:
-    """Adds the wall seconds of a block to ``stats[name]``, waiting for
-    the card at both ends so device work is charged where it runs."""
-
-    def __init__(self, stats: Optional[dict], name: str, device):
-        self.stats, self.name, self.device = stats, name, device
-
-    def __enter__(self):
-        if self.stats is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.t0 = time.perf_counter()
-
-    def __exit__(self, *exc):
-        if self.stats is not None:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.stats[self.name] = (self.stats.get(self.name, 0.0)
-                                     + time.perf_counter() - self.t0)
 
 
 def imm(g: CSRGraph, k: int, eps: float, key: Key, *, model: str = "IC",
@@ -102,14 +87,14 @@ def imm(g: CSRGraph, k: int, eps: float, key: Key, *, model: str = "IC",
     eps_p = math.sqrt(2.0) * eps
 
     def sample(sub, count):
-        with _Clock(stats, "sample_s", g.device):
+        with StageClock(stats, "sample_s", g.device):
             return sample_incidence(
                 nbr, prob, wt, sub, theta=count, n=n, model=model,
                 max_steps=max_steps, sampler=sampler, fwd=fwd,
                 coin_chunk=coin_chunk, gather=gather, stats=stats)
 
     def select(sub):
-        with _Clock(stats, "select_s", g.device):
+        with StageClock(stats, "select_s", g.device):
             seeds, cov = selector(rows, k, sub)
             return seeds, int(cov)
 

@@ -1,14 +1,19 @@
 """Greedy max-k-cover over packed incidence rows (twin of
 ``repro.core.maxcover``).
 
-Two solver paths, bit-identical to each other and to the reference's
-solver quad (seeds, rows, covered, gains — with the lowest-index
-argmax tie-break):
+The reference's solver quad, bit-identical to each other and to the
+reference (seeds, rows, covered, gains — with the lowest-index argmax
+tie-break):
 
   * ``solver="scan"`` — one full marginal-gain sweep + ``argmax`` per
     pick in plain PyTorch;
+  * ``solver="fused"`` — one launch of the ``kernels.topk_gain`` CUDA
+    kernel per pick (gain sweep + argmax), committed on the device;
   * ``solver="resident"`` — all k picks of every machine in one launch
-    of the ``kernels.greedy_pick`` CUDA kernel.
+    of the ``kernels.greedy_pick`` CUDA kernel;
+  * ``solver="lazy"`` — the resident launch plus stale per-tile upper
+    bounds (``kernels.lazy_greedy``), re-sweeping only the tiles that
+    can still win.
 
 Rows may carry a leading machine axis ([m, n, W]); the m solves are
 then independent (RandGreedi's local machines) and run together.
@@ -22,9 +27,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import bitset
-from repro_torch.kernels import greedy_pick
+from repro_torch.kernels import greedy_pick, lazy_greedy, topk_gain
 
-SOLVERS = ("scan", "resident")
+SOLVERS = ("scan", "fused", "resident", "lazy")
 
 
 class CoverSolution(NamedTuple):
@@ -38,10 +43,6 @@ class CoverSolution(NamedTuple):
 def resolve_solver(solver: str | None, default: str = "resident") -> str:
     if solver is None:
         solver = default
-    if solver in ("fused", "lazy"):
-        raise NotImplementedError(
-            f"solver={solver!r} is not ported yet (ROADMAP Queue 1 item 4, "
-            "Queue 2 items 5 and 8)")
     if solver not in SOLVERS:
         raise ValueError(
             f"unknown solver {solver!r}; expected one of {SOLVERS}")
@@ -59,6 +60,11 @@ def greedy_maxcover(rows: torch.Tensor, k: int, solver: str | None = None,
     ex = greedy_pick.excluded_ids(excluded, r.shape[0], r.device)
     if solver == "resident":
         out = greedy_pick.greedy_maxcover_resident(r.contiguous(), k, ex)
+    elif solver == "lazy":
+        out = lazy_greedy.greedy_maxcover_lazy(r.contiguous(), k, ex)[:4]
+    elif solver == "fused":
+        out = greedy_pick.greedy_plain(r.contiguous(), k, ex,
+                                       pick=topk_gain.best_gain_index)
     else:
         out = greedy_pick.greedy_plain(r, k, ex)
     seeds, sel_rows, covered, gains = (o if batched else o[0] for o in out)

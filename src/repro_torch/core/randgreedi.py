@@ -5,7 +5,8 @@ Partition the covering sets uniformly at random over m machines, run
 greedy on each machine (one batched solve over the machine axis),
 aggregate the union of the local solutions on a global machine (offline
 greedy or the streaming algorithm), and return the better of {global,
-best local}.
+best local}.  Also the Ripples baseline (``ripples_select``): greedy
+with one global reduction of the per-machine gains per pick.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.core import bitset, maxcover, streaming
 from repro_torch.core.prng import Key
+from repro_torch.kernels import coverage
 
 
 class RandGreediResult(NamedTuple):
@@ -40,7 +42,7 @@ def partition_blocks(n: int, m: int, key: Key) -> np.ndarray:
     return perm[:per * m].reshape(m, per)
 
 
-def _normalize_survivors(survivors, m: int):
+def normalize_survivors(survivors, m: int):
     if survivors is None:
         return None
     surv = tuple(sorted({int(j) for j in survivors}))
@@ -69,7 +71,7 @@ def randgreedi_maxcover(rows: torch.Tensor, key: Key, *, m: int, k: int,
     """
     if aggregator not in ("greedy", "streaming"):
         raise ValueError(f"unknown aggregator {aggregator!r}")
-    survivors = _normalize_survivors(survivors, m)
+    survivors = normalize_survivors(survivors, m)
     n, w = rows.shape
     perm = partition_permutation(n, key, device=rows.device)
     per = n // m
@@ -108,3 +110,42 @@ def randgreedi_maxcover(rows: torch.Tensor, key: Key, *, m: int, k: int,
     covered = torch.where(take_global, g_cover, local.covered[best_m])
     return RandGreediResult(seeds, coverage, g_cov, local_cov.max(),
                             local_ids, covered)
+
+
+def ripples_picks(x: torch.Tensor, k: int, use_kernel: bool = False):
+    """k greedy picks over samples sharded by machine: x int32
+    [m, n, w_local], machine j holding words of its own samples.  Each
+    pick sums the machines' gains (the all-reduce GreediRIS removes),
+    masks picked vertices to -1 and takes the lowest argmax; the gains
+    come from the ``coverage`` kernel with ``use_kernel``.  Returns
+    (seeds int32 [k], covered int32 [m, w_local])."""
+    m, n, wl = x.shape
+    dev = x.device
+    gain = coverage.marginal_gain if use_kernel else \
+        coverage.marginal_gain_plain
+    covered = torch.zeros((m, wl), dtype=torch.int32, device=dev)
+    seeds = torch.full((k,), -1, dtype=torch.int32, device=dev)
+    picked = torch.zeros((n,), dtype=torch.bool, device=dev)
+    for i in range(k):
+        total = gain(x, covered).sum(0, dtype=torch.int32)
+        total = torch.where(picked, -1, total)
+        best = torch.argmax(total)
+        take = total[best] > 0
+        covered |= torch.where(take, x[:, best], 0)
+        seeds[i] = torch.where(take, best.to(torch.int32), -1)
+        picked[best] |= take
+    return seeds, covered
+
+
+def ripples_select(rows: torch.Tensor, *, m: int, k: int,
+                   use_kernel: bool = False):
+    """Ripples-style seed selection over rows int32 [n, W]: the words
+    split into m machine shards of W // m (the tail words dropped, as
+    the reference does), then :func:`ripples_picks` in plain PyTorch
+    (``use_kernel`` is ignored, as in the reference).  Returns (seeds
+    [k], coverage [])."""
+    n, w = rows.shape
+    wm = w // m
+    shards = rows[:, :wm * m].reshape(n, m, wm).permute(1, 0, 2)
+    seeds, covered = ripples_picks(shards.contiguous(), k)
+    return seeds, bitset.coverage_size(covered).sum(dtype=torch.int32)

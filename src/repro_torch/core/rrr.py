@@ -41,7 +41,8 @@ def resolve_sampler(sampler: Optional[str], default: str = "kernel") -> str:
         sampler = default
     if sampler == "dense":
         raise NotImplementedError(
-            "sampler='dense' is not ported yet (ROADMAP Queue 1 item 3)")
+            "sampler='dense' is not ported yet: ROADMAP Queue 1, "
+            "'the dense sampler'")
     if sampler not in SAMPLERS:
         raise ValueError(
             f"unknown sampler {sampler!r}; expected one of {SAMPLERS}")

@@ -4,11 +4,14 @@ twin of ``repro.core.streaming``.
 B = ceil(log_{1+delta} k) threshold buckets; bucket b guesses
 OPT ~ l*(1+delta)^b and admits a streamed candidate whose marginal gain
 against the bucket's cover reaches guess_b / (2k), while it holds fewer
-than k seeds.  Two receivers give bit-identical ``StreamState``:
+than k seeds.  Three receivers give bit-identical ``StreamState``:
 
   * ``"scan"`` — plain PyTorch, one candidate at a time;
   * ``"fused"`` — the whole chunk in one launch of the
-    ``kernels.bucket_insert`` CUDA kernel.
+    ``kernels.bucket_insert`` CUDA kernel;
+  * ``"pipelined"`` — the stream cut into chunks of ``chunk_size``
+    candidates, all of them in one launch of the stream kernel
+    (``insert_stream``), the next chunk staged while one inserts.
 
 The float32 thresholds are computed on the host, in the reference's
 order of float32 operations (see :func:`thresholds`), so the admission
@@ -27,7 +30,7 @@ import torch
 from repro_torch.core import bitset
 from repro_torch.kernels import bucket_insert
 
-RECEIVERS = ("scan", "fused")
+RECEIVERS = ("scan", "fused", "pipelined")
 
 
 class StreamState(NamedTuple):
@@ -105,6 +108,31 @@ def insert_chunk(state: StreamState, seed_ids: torch.Tensor,
     return StreamState(covers, counts, seeds, state.thresholds)
 
 
+def insert_stream(state: StreamState, seed_ids: torch.Tensor,
+                  rows: torch.Tensor, k: int,
+                  use_kernel: bool = True) -> StreamState:
+    """Stream a chunked candidate stream (ids [R, C], rows [R, C, W])
+    through all buckets in arrival order (chunk by chunk): one launch of
+    the stream kernel with ``use_kernel``, else the scan folded over the
+    chunks.  Bit-identical to streaming the [R * C] candidates one by
+    one."""
+    if k != state.seeds.shape[1]:
+        raise ValueError(
+            f"k={k} does not match the state's bucket capacity "
+            f"{state.seeds.shape[1]} (seeds.shape[1])")
+    if seed_ids.dim() != 2 or rows.dim() != 3:
+        raise ValueError(
+            f"insert_stream takes a chunked stream: ids [R, C] and rows "
+            f"[R, C, W]; got ids {tuple(seed_ids.shape)} and rows "
+            f"{tuple(rows.shape)} — use insert_chunk for a flat chunk")
+    fn = (bucket_insert.bucket_insert_stream if use_kernel
+          else bucket_insert.bucket_insert_stream_plain)
+    covers, counts, seeds = fn(seed_ids.to(torch.int32).contiguous(),
+                               rows.contiguous(), state.covers, state.counts,
+                               state.seeds, state.thresholds)
+    return StreamState(covers, counts, seeds, state.thresholds)
+
+
 def chunk_stream(seed_ids: torch.Tensor, rows: torch.Tensor,
                  chunk_size: int):
     """Reshape a flat candidate stream (ids [T], rows [T, W]) into
@@ -135,21 +163,25 @@ def finalize(state: StreamState):
 def streaming_maxcover(seed_ids: torch.Tensor, rows: torch.Tensor, k: int,
                        delta: float, lower: float,
                        num_buckets_override: int | None = None,
-                       use_kernel: bool = False, receiver: str | None = None):
+                       use_kernel: bool = False, receiver: str | None = None,
+                       chunk_size: int | None = None):
     """One streaming pass over an ordered candidate stream; ``lower`` is
     the max singleton coverage.  Returns (seeds [k], coverage [], state).
-    ``receiver`` is "scan" or "fused" (default from ``use_kernel``)."""
+    ``receiver`` is "scan", "fused" or "pipelined" (default from
+    ``use_kernel``); the pipelined receiver cuts the stream into
+    ``chunk_size`` candidates (None: ``bucket_insert.auto_chunk_size``)."""
     if receiver is None:
         receiver = "fused" if use_kernel else "scan"
-    if receiver == "pipelined":
-        raise NotImplementedError(
-            "receiver='pipelined' is not ported yet (ROADMAP Queue 1 item 5, "
-            "Queue 2 item 7)")
     if receiver not in RECEIVERS:
         raise ValueError(f"unknown receiver path {receiver!r}")
     state = init_state(k, delta, lower, rows.shape[1], num_buckets_override,
                        device=rows.device)
-    if seed_ids.shape[0]:
+    total = seed_ids.shape[0]
+    if total and receiver == "pipelined":
+        cs = min(chunk_size or bucket_insert.auto_chunk_size(
+            rows.shape[1], total, rows.device), total)
+        state = insert_stream(state, *chunk_stream(seed_ids, rows, cs), k)
+    elif total:
         state = insert_chunk(state, seed_ids, rows, k,
                              use_kernel=(receiver == "fused"))
     seeds, cov = finalize(state)

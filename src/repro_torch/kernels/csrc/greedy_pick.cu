@@ -3,19 +3,11 @@
 // greedy_maxcover_resident_pallas (sweep_tile_argmax, commit_pick,
 // _kernel), vmapped over machines at repro/core/randgreedi.py:131.
 //
-// Per pick: every block sweeps its share of its machine's rows
-// (one warp per row, lanes along the words, gain = sum popc(row & ~cov)
-// with the cover in shared memory), masks picked and excluded rows to
-// gain -1, and folds its best row into the machine's key slot with a
-// 64-bit atomicMax on ((gain + 1) << 32) | (0xFFFFFFFF - row): the
-// largest gain wins and, among equal gains, the lowest row index —
-// jnp.argmax's tie-break.  One grid-wide sync later, every block reads
-// the winner, ORs its row into its own shared-memory cover, and the
-// machine's first block writes the seed, gain and row
-// (commit_pick: a best gain <= 0 gives seed -1, gain 0, a zero row).
-// Each pick owns its key slot, zeroed by the caller, so nothing is
-// reset between picks.  A row's picked flag is written and read only
-// by the block that sweeps that row.
+// Per pick: every block sweeps its share of its machine's rows (one warp
+// per row, the cover in shared memory), folds its best key into the
+// machine's key slot with a 64-bit atomicMax, and after one grid-wide
+// sync commits the winner (greedy_core.cuh).  Each pick owns its key
+// slot, zeroed by the caller, so nothing is reset between picks.
 //
 // Bound on the H100: bytes — each pick re-reads the machine's rows
 // (k * m * n * W * 4 bytes per solve; the roofline counts them once).
@@ -23,20 +15,20 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "gain_core.cuh"
+#include "greedy_core.cuh"
 
 namespace cg = cooperative_groups;
 
 __global__ void greedy_pick_kernel(const uint32_t* __restrict__ rows,
                                    const int32_t* __restrict__ excluded,
                                    int64_t E, int64_t n, int64_t W, int64_t k,
-                                   int bpm, unsigned long long* keys,
+                                   int bpm, bool vec, unsigned long long* keys,
                                    uint8_t* taken, int32_t* seeds,
                                    uint32_t* rows_out, uint32_t* covered,
                                    int32_t* gains) {
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ uint32_t cov[];
-  __shared__ unsigned long long warp_best[32];
+  extern __shared__ __align__(16) uint32_t cov[];
+  __shared__ unsigned long long scratch[32];
   const int mach = blockIdx.x / bpm;
   const int lb = blockIdx.x % bpm;  // block rank within the machine
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -46,55 +38,20 @@ __global__ void greedy_pick_kernel(const uint32_t* __restrict__ rows,
   unsigned long long* K = keys + (int64_t)mach * k;
 
   for (int64_t w = threadIdx.x; w < W; w += blockDim.x) cov[w] = 0;
-  if (threadIdx.x == 0) {  // rows this block owns that may not be picked
-    for (int64_t e = 0; e < E; ++e) {
-      const int64_t r = excluded[(int64_t)mach * E + e];
-      if (r >= 0 && r < n && r % bpm == lb) T[r] = 1;
-    }
-  }
+  if (threadIdx.x == 0)
+    mark_excluded(excluded + (int64_t)mach * E, E, n, 1, bpm, lb, T);
   __syncthreads();
 
   for (int64_t p = 0; p < k; ++p) {
-    unsigned long long best = 0;
-    for (int64_t r = lb + (int64_t)warp * bpm; r < n;
-         r += (int64_t)wpb * bpm) {
-      const uint32_t* row = R + r * W;
-      int g = 0;
-      for (int64_t w = lane; w < W; w += 32) g += andnot_popc(row[w], cov[w]);
-      g = warp_sum(g);
-      if (T[r]) g = -1;
-      const unsigned long long key =
-          ((unsigned long long)(uint32_t)(g + 1) << 32) |
-          (unsigned long long)(0xFFFFFFFFu - (uint32_t)r);
-      best = key > best ? key : best;
-    }
-    if (lane == 0) warp_best[warp] = best;
-    __syncthreads();
-    if (warp == 0) {
-      unsigned long long b = lane < wpb ? warp_best[lane] : 0ull;
-      b = warp_max(b);
-      if (lane == 0 && b) atomicMax(K + p, b);
-    }
+    const unsigned long long best = block_max_key(
+        warp_sweep_argmax(R, T, cov, W, vec, lb + (int64_t)warp * bpm, n,
+                          (int64_t)wpb * bpm, lane),
+        scratch);
+    if (threadIdx.x == 0 && best) atomicMax(K + p, best);
     grid.sync();
-    const unsigned long long win = __ldcg(K + p);
-    const int gain = (int)(uint32_t)(win >> 32) - 1;
-    const int64_t idx = (int64_t)(0xFFFFFFFFu - (uint32_t)win);
-    const bool take = gain > 0;
-    const uint32_t* wrow = R + idx * W;
     const int64_t out = (int64_t)mach * k + p;
-    for (int64_t w = threadIdx.x; w < W; w += blockDim.x) {
-      const uint32_t word = take ? wrow[w] : 0u;
-      cov[w] |= word;
-      if (lb == 0) rows_out[out * W + w] = word;
-    }
-    if (threadIdx.x == 0) {
-      if (take && idx % bpm == lb) T[idx] = 1;
-      if (lb == 0) {
-        seeds[out] = take ? (int32_t)idx : -1;
-        gains[out] = take ? gain : 0;
-      }
-    }
-    __syncthreads();
+    commit_pick(__ldcg(K + p), R, W, 1, bpm, lb, cov, T, seeds + out,
+                gains + out, rows_out + out * W);
   }
   if (lb == 0)
     for (int64_t w = threadIdx.x; w < W; w += blockDim.x)
@@ -125,8 +82,10 @@ extern "C" int greedy_pick(const void* rows, const void* excluded, void* keys,
   const int64_t useful = (n + (threads / 32) - 1) / (threads / 32);
   if (bpm > useful) bpm = (int)(useful > 0 ? useful : 1);
   int64_t E_ = E, n_ = n, W_ = W, k_ = k;
+  bool vec = vec_rows(rows, W);
   void* args[] = {(void*)&rows, (void*)&excluded, &E_, &n_, &W_, &k_,
-                  &bpm, &keys, &taken, &seeds, &rows_out, &covered, &gains};
+                  &bpm, &vec, &keys, &taken, &seeds, &rows_out, &covered,
+                  &gains};
   err = cudaLaunchCooperativeKernel((void*)greedy_pick_kernel,
                                     dim3((unsigned)(m * bpm)), dim3(threads),
                                     args, smem, (cudaStream_t)stream);

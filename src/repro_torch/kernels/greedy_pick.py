@@ -13,8 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import bitset
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, topk_gain
 
 _ARGS = [ops.PTR] * 8 + [ops.I64] * 5
 
@@ -33,9 +32,14 @@ def excluded_ids(excluded, m: int, device) -> torch.Tensor:
     return ex.contiguous()
 
 
-def greedy_plain(rows: torch.Tensor, k: int, excluded: torch.Tensor):
+def greedy_plain(rows: torch.Tensor, k: int, excluded: torch.Tensor,
+                 pick=topk_gain.best_gain_index_plain):
     """rows int32 [m, n, W], excluded int32 [m, E] -> (seeds [m, k],
-    sel_rows [m, k, W], covered [m, W], gains [m, k])."""
+    sel_rows [m, k, W], covered [m, W], gains [m, k]): k calls of
+    ``pick(rows, covered, picked) -> (best gain, best index)`` (the
+    plain sweep by default, ``topk_gain.best_gain_index`` for the fused
+    solver), each committed on the device as the reference's loop body —
+    no host sync per pick."""
     m, n, w = rows.shape
     dev = rows.device
     covered = torch.zeros((m, w), dtype=torch.int32, device=dev)
@@ -50,10 +54,8 @@ def greedy_plain(rows: torch.Tensor, k: int, excluded: torch.Tensor):
     picked[mach[ok], excluded[ok].long()] = True
     ar = torch.arange(m, device=dev)
     for i in range(k):
-        g = bitset.marginal_gain(rows, covered[:, None, :])
-        g = torch.where(picked, -1, g)
-        best = torch.argmax(g, dim=1)
-        best_gain = g[ar, best]
+        best_gain, best = pick(rows, covered, picked)
+        best = best.long()
         take = best_gain > 0
         row = torch.where(take[:, None], rows[ar, best], 0)
         covered |= row

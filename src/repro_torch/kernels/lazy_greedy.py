@@ -1,0 +1,116 @@
+"""Lazy greedy max-k-cover over a machine axis (``csrc/lazy_greedy.cu``)
+and its plain PyTorch version.
+
+Replaces ``repro/kernels/lazy_greedy.py``: ``greedy_maxcover_lazy_pallas``
+(TPU kernel #6) — the resident solve plus a stale upper bound per tile
+of ``TILE_ROWS`` rows, so a pick re-sweeps only the tiles whose bound
+can still reach the best gain.  Seeds, rows, covered and gains equal
+the resident solve's bit for bit; ``tiles_swept`` (int32 [m]) depends
+on the order the sweeps run in, lies in [num_tiles, k * num_tiles] per
+machine, and is never compared for equality.  Bound on the H100: bytes
+(the rows of the tiles an exact schedule that knows each pick's best
+sweeps, ``lazy_plain``'s ``tiles_needed``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build, coverage, greedy_pick, ops
+
+TILE_ROWS = 32
+# Tiles each block owns at least, so that a pick's first phase (every
+# block's largest-bound tile) leaves most tiles to the bound test.
+MIN_TILES_PER_BLOCK = 8
+_UB_INIT = 2**31 - 1
+_ARGS = [ops.PTR] * 10 + [ops.I64] * 7
+
+
+def num_row_tiles(n: int) -> int:
+    return -(-n // TILE_ROWS)
+
+
+def lazy_plain(rows: torch.Tensor, k: int, excluded: torch.Tensor,
+               stats: dict | None = None):
+    """The resident solve's picks, with the reference's in-order bound
+    test counting the tiles it would sweep: tile t is swept when its
+    bound reaches the best of the tiles before it.  Returns (seeds,
+    sel_rows, covered, gains, tiles_swept [m]).
+
+    ``stats["tiles_needed"]`` (int32 [m]) counts the sweeps of an
+    exact schedule that knows each pick's final best: every tile in the
+    first pick, then in each pick the tiles whose stale bound reaches
+    that best (a swept tile's bound becomes its fresh masked max)."""
+    m, n, _ = rows.shape
+    tiles = num_row_tiles(n)
+    ub = torch.full((m, tiles), _UB_INIT, dtype=torch.int32,
+                    device=rows.device)
+    ub_need = ub.clone()
+    swept = torch.zeros((m,), dtype=torch.int32, device=rows.device)
+    needed = torch.zeros_like(swept)
+    ar = torch.arange(m, device=rows.device)
+
+    def pick(rows, covered, picked):
+        g = torch.where(picked, -1,
+                        coverage.marginal_gain_plain(rows, covered))
+        tmax = torch.nn.functional.pad(
+            g, (0, tiles * TILE_ROWS - n), value=-1).reshape(
+                m, tiles, TILE_ROWS).amax(2)
+        before = torch.nn.functional.pad(
+            torch.cummax(tmax, dim=1).values[:, :-1], (1, 0), value=-1)
+        go = ub >= before
+        ub.copy_(torch.where(go, tmax, ub))
+        swept.add_(go.sum(1, dtype=torch.int32))
+        best = torch.argmax(g, dim=1)
+        need = ub_need >= g[ar, best][:, None]
+        ub_need.copy_(torch.where(need, tmax, ub_need))
+        needed.add_(need.sum(1, dtype=torch.int32))
+        return g[ar, best], best
+
+    out = greedy_pick.greedy_plain(rows, k, excluded, pick=pick)
+    if stats is not None:
+        stats["tiles_needed"] = needed
+    return (*out, swept)
+
+
+def blocks_per_machine(m: int, n: int, num_words: int, device) -> int:
+    """The kernel's blocks per machine at this shape on the CUDA
+    ``device``: the tiles of a machine that every pick's first phase
+    sweeps."""
+    with torch.cuda.device(device):
+        bpm = int(build.function(
+            "lazy_greedy", "lazy_greedy_blocks_per_machine", [ops.I64] * 5)(
+                m, n, num_words, TILE_ROWS, MIN_TILES_PER_BLOCK))
+    if bpm <= 0:
+        raise ValueError(f"lazy_greedy: no launch at m={m}, n={n}, "
+                         f"W={num_words} (code {bpm})")
+    return bpm
+
+
+def greedy_maxcover_lazy(rows: torch.Tensor, k: int, excluded=None):
+    """All k picks of every machine of ``rows`` int32 [m, n, W] in one
+    launch -> (seeds, sel_rows, covered, gains, tiles_swept);
+    ``excluded`` int32 [E] or [m, E] row ids are never picked."""
+    m, n, w = rows.shape
+    ex = greedy_pick.excluded_ids(excluded, m, rows.device)
+    if not ops.on_card(rows, ex):
+        return lazy_plain(rows, k, ex)
+    ops.check(rows, "rows", torch.int32, (m, n, w))
+    dev = rows.device
+    seeds = torch.full((m, k), -1, dtype=torch.int32, device=dev)
+    sel_rows = torch.zeros((m, k, w), dtype=torch.int32, device=dev)
+    covered = torch.zeros((m, w), dtype=torch.int32, device=dev)
+    gains = torch.zeros((m, k), dtype=torch.int32, device=dev)
+    swept = torch.zeros((m,), dtype=torch.int32, device=dev)
+    if m * n * k == 0:
+        return seeds, sel_rows, covered, gains, swept
+    keys = torch.zeros((m, k), dtype=torch.int64, device=dev)
+    taken = torch.zeros((m, n), dtype=torch.uint8, device=dev)
+    ub = torch.full((m, num_row_tiles(n)), _UB_INIT, dtype=torch.int32,
+                    device=dev)
+    ops.launch("lazy_greedy", "lazy_greedy", "lazy_greedy", _ARGS,
+               rows.data_ptr(), ex.data_ptr(), keys.data_ptr(),
+               taken.data_ptr(), ub.data_ptr(), swept.data_ptr(),
+               seeds.data_ptr(), sel_rows.data_ptr(), covered.data_ptr(),
+               gains.data_ptr(), m, n, w, k, ex.shape[1], TILE_ROWS,
+               MIN_TILES_PER_BLOCK)
+    return seeds, sel_rows, covered, gains, swept

@@ -16,7 +16,8 @@ import torch
 from repro_torch.kernels import build
 
 KERNELS = ("rrr_expand_resident", "rrr_expand_streamed", "coin_pack",
-           "greedy_pick", "bucket_insert")
+           "greedy_pick", "bucket_insert", "coverage", "topk_gain",
+           "lazy_greedy", "bucket_insert_stream")
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -26,6 +27,9 @@ _REFUSALS = {
     -2: "the row does not fit in the block's shared memory",
     -3: "the machines cannot all be co-resident for the cooperative "
         "launch",
+    -4: "more than 65535 machines for the grid",
+    -5: "the cover leaves no room in the block's shared memory for a "
+        "double buffer of one candidate",
 }
 
 PTR = ctypes.c_void_p

@@ -1,0 +1,47 @@
+"""One greedy pick per machine — the masked gain sweep fused with the
+argmax (``csrc/topk_gain.cu``) — and the plain PyTorch version.
+
+Replaces ``repro/kernels/topk_gain.py``: ``best_gain_index_pallas`` (TPU
+kernel #7), the per-pick engine of ``solver="fused"``, with a leading
+machine axis.  Picked rows score -1; ties go to the lowest row index,
+as ``jnp.argmax`` breaks them.  Bound on the H100: bytes (the rows,
+read once per pick).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import coverage, ops
+
+_ARGS = [ops.PTR] * 6 + [ops.I64] * 3
+
+
+def best_gain_index_plain(rows, covered, picked):
+    """rows int32 [m, n, W], covered int32 [m, W], picked bool [m, n] ->
+    (best gain, best index), int32 [m] each."""
+    g = torch.where(picked, -1, coverage.marginal_gain_plain(rows, covered))
+    best = torch.argmax(g, dim=1)
+    return g.gather(1, best[:, None])[:, 0], best.to(torch.int32)
+
+
+def best_gain_index(rows: torch.Tensor, covered: torch.Tensor,
+                    picked: torch.Tensor):
+    """The best masked gain of each machine and its lowest row index."""
+    m, n, w = rows.shape
+    if n == 0:
+        raise ValueError("best_gain_index needs at least one row")
+    if not ops.on_card(rows, covered, picked):
+        return best_gain_index_plain(rows, covered, picked)
+    ops.check(rows, "rows", torch.int32, (m, n, w))
+    ops.check(covered, "covered", torch.int32, (m, w))
+    ops.check(picked, "picked", torch.bool, (m, n))
+    dev = rows.device
+    keys = torch.zeros((m,), dtype=torch.int64, device=dev)
+    best = torch.empty((m,), dtype=torch.int32, device=dev)
+    index = torch.empty((m,), dtype=torch.int32, device=dev)
+    if m == 0:
+        return best, index
+    ops.launch("topk_gain", "topk_gain", "best_gain_index", _ARGS,
+               rows.data_ptr(), covered.data_ptr(), picked.data_ptr(),
+               keys.data_ptr(), best.data_ptr(), index.data_ptr(), m, n, w)
+    return best, index

@@ -1,39 +1,48 @@
 """Influence-maximization driver (twin of ``repro.launch.im_driver``):
-the IMM martingale loop with GreediRIS seed selection, then the spread
-estimate, on one device.
+the IMM martingale loop, or with ``--theta`` the fixed-theta
+distributed GreediRIS round, then the spread estimate, on one device.
 
   PYTHONPATH=src python -m repro_torch.launch.im_driver --graph er \
       --n 262144 --avg-deg 4 --k 100 --selector greediris --machines 8 \
       --sampler kernel --gather resident --solver resident --use-kernel \
       --max-theta 32768 --eval-engine kernel --eval-sims 64
 
+  PYTHONPATH=src python -m repro_torch.launch.im_driver --graph er \
+      --n 262144 --avg-deg 4 --k 100 --machines 8 --theta 131072 \
+      --selector greediris --sampler kernel --solver lazy --use-kernel \
+      --chunk-size auto --eval-engine kernel --eval-sims 64
+
 Same flag names and ``[im]`` lines as the reference.  The port's
 defaults are the kernel paths; ``--device`` (default ``cuda``) picks
-the device and never falls back.  Flags of paths not ported yet raise
-``NotImplementedError`` naming their ROADMAP item.
+the device and never falls back.  On one card ``--machines`` sets the
+round's machine count m (the reference takes its device count).  Flags
+of paths not ported yet raise ``NotImplementedError`` naming their
+ROADMAP entry.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import (cascade, imm, maxcover, prng, resolve_device,
-                              theory)
+from repro_torch.core import (cascade, greediris, imm, maxcover, prng,
+                              resolve_device, theory)
 from repro_torch.core.diffusion import influence
 from repro_torch.core.rrr import resolve_sampler
 from repro_torch.graphs import generators
+from repro_torch.graphs.csr import padded_adjacency, padded_forward_adjacency
 
-# flag -> (value that means "not asked for", ROADMAP item porting it)
+# flag -> (value that means "not asked for", ROADMAP entry porting it)
 _NOT_PORTED = {
-    "theta": (0, "Queue 1 item 9 (the SPMD round)"),
-    "use_opim": (False, "Queue 1 item 6 (OPIM)"),
-    "serve": (False, "Queue 1 item 8 (serving)"),
-    "faults": ([], "Queue 1 item 10 (runtime)"),
-    "fault_report": (None, "Queue 1 item 10 (runtime)"),
-    "eval_spread": (False, "Queue 1 item 7 (the map engine)"),
+    "use_opim": (False, "Queue 1, 'OPIM'"),
+    "serve": (False, "Queue 1, 'serving'"),
+    "faults": ([], "Queue 1, 'runtime'"),
+    "fault_report": (None, "Queue 1, 'runtime'"),
+    "eval_spread": (False, "Queue 1, 'the WC model and the map cascade "
+                           "engine'"),
 }
 
 
@@ -46,6 +55,24 @@ def _coin_chunk_arg(text: str) -> int:
     if v < 1:
         raise argparse.ArgumentTypeError(f"must be >= 1, got {v}")
     return v
+
+
+def _chunk_size_arg(text: str):
+    """--chunk-size: 'auto', 0 (the default policy) or a positive
+    candidate count."""
+    if text == "auto":
+        return "auto"
+    try:
+        v = int(text)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected 'auto' or an integer candidate count, got "
+            f"{text!r}") from None
+    if v < 0:
+        raise argparse.ArgumentTypeError(
+            f"must be >= 0, got {v}: a candidate count, 0 for the default "
+            "policy, or 'auto'")
+    return v or None
 
 
 def make_graph(kind: str, n: int, avg_deg: float, seed: int, device):
@@ -74,15 +101,17 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--aggregate", default="gather",
                     choices=("gather", "pipeline"))
     ap.add_argument("--machines", type=int, default=0,
-                    help="0 = one machine per device (1 here)")
+                    help="machine count m on the one device (0 = 1)")
     ap.add_argument("--max-theta", type=int, default=1 << 14)
     ap.add_argument("--theta", type=int, default=0)
     ap.add_argument("--use-opim", action="store_true")
     ap.add_argument("--solver", default="resident",
                     choices=("scan", "fused", "resident", "lazy"),
-                    help="local greedy path: 'scan' (plain PyTorch) or "
-                         "'resident' (one CUDA launch for all k picks of "
-                         "all machines); bit-identical")
+                    help="local greedy path: 'scan' (plain PyTorch), "
+                         "'fused' (one CUDA launch per pick), 'resident' "
+                         "(one launch for all k picks of all machines) or "
+                         "'lazy' (resident with stale tile bounds); "
+                         "bit-identical")
     ap.add_argument("--sampler", default="kernel",
                     choices=("dense", "packed", "kernel"),
                     help="S1 path: 'packed' (plain PyTorch) or 'kernel' "
@@ -92,12 +121,12 @@ def parser() -> argparse.ArgumentParser:
                     help="expansion kernel layout ('auto' = resident)")
     ap.add_argument("--coin-chunk", type=_coin_chunk_arg, default=32)
     ap.add_argument("--use-kernel", action="store_true",
-                    help="route the streaming receiver through the fused "
-                         "bucket-insert kernel (the sender path is "
-                         "--solver)")
-    ap.add_argument("--chunk-size", default="0",
-                    help="receiver chunking of the fixed-theta round "
-                         "(not used by the IMM loop)")
+                    help="route the streaming receiver through its "
+                         "kernels (the sender path is --solver)")
+    ap.add_argument("--chunk-size", type=_chunk_size_arg, default=None,
+                    help="receiver chunking of the fixed-theta round: "
+                         "'auto', 0 (default policy) or a count (not used "
+                         "by the IMM loop)")
     ap.add_argument("--eval-sims", type=int, default=32)
     ap.add_argument("--eval-engine", default="kernel",
                     choices=("map", "packed", "kernel"))
@@ -113,16 +142,13 @@ def parser() -> argparse.ArgumentParser:
 
 def run(argv=None) -> dict:
     """Parse ``argv``, run the driver, print the ``[im]`` lines, and
-    return the result with per-stage seconds and counts."""
+    return the result with per-stage seconds and counts (``round``: the
+    fixed-theta round's coverages and stage seconds, else None)."""
     args = parser().parse_args(argv)
     for flag, (off, item) in _NOT_PORTED.items():
         if getattr(args, flag) != off:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet: ROADMAP {item}")
-    if args.selector == "ripples":
-        raise NotImplementedError(
-            "--selector ripples is not ported yet: ROADMAP Queue 1 item 6 "
-            "and Queue 2 item 9 (the coverage kernel)")
     resolve_sampler(args.sampler)
     maxcover.resolve_solver(args.solver)
     cascade.resolve_engine(args.eval_engine)
@@ -142,23 +168,27 @@ def run(argv=None) -> dict:
     t0 = time.perf_counter()
     m = args.machines or 1
     solver = args.solver
-    sel = {
-        "greedy": lambda: imm.make_greedy_selector(solver),
-        "randgreedi": lambda: imm.make_randgreedi_selector(
-            m, "greedy", solver=solver),
-        "greediris": lambda: imm.make_randgreedi_selector(
-            m, "streaming", args.delta, use_kernel=args.use_kernel,
-            solver=solver),
-        "greediris-trunc": lambda: imm.make_randgreedi_selector(
-            m, "streaming", args.delta, args.alpha,
-            use_kernel=args.use_kernel, solver=solver),
-    }[args.selector]()
-    res = imm.imm(g, args.k, args.eps, key, model=args.model, selector=sel,
-                  max_theta=args.max_theta, sampler=args.sampler,
-                  coin_chunk=args.coin_chunk, gather=args.gather,
-                  stats=stats)
-    print(f"[im] IMM rounds={res.rounds} theta={res.theta} "
-          f"coverage_frac={res.coverage_fraction:.4f}")
+    if args.selector in ("greediris", "greediris-trunc") and args.theta:
+        res = _fixed_theta_round(args, g, m, key, stats)
+    else:
+        sel = {
+            "greedy": lambda: imm.make_greedy_selector(solver),
+            "ripples": lambda: imm.make_ripples_selector(m),
+            "randgreedi": lambda: imm.make_randgreedi_selector(
+                m, "greedy", solver=solver),
+            "greediris": lambda: imm.make_randgreedi_selector(
+                m, "streaming", args.delta, use_kernel=args.use_kernel,
+                solver=solver),
+            "greediris-trunc": lambda: imm.make_randgreedi_selector(
+                m, "streaming", args.delta, args.alpha,
+                use_kernel=args.use_kernel, solver=solver),
+        }[args.selector]()
+        res = imm.imm(g, args.k, args.eps, key, model=args.model,
+                      selector=sel, max_theta=args.max_theta,
+                      sampler=args.sampler, coin_chunk=args.coin_chunk,
+                      gather=args.gather, stats=stats)
+        print(f"[im] IMM rounds={res.rounds} theta={res.theta} "
+              f"coverage_frac={res.coverage_fraction:.4f}")
     elapsed = time.perf_counter() - t0
 
     seeds = np.asarray(res.seeds)
@@ -181,8 +211,53 @@ def run(argv=None) -> dict:
         sample_s=stats.get("sample_s", 0.0),
         select_s=stats.get("select_s", 0.0), spread_s=spread_s,
         bfs_steps=stats.get("bfs_steps", 0),
+        round=(dict(coverage=res.coverage,
+                    global_coverage=res.global_coverage,
+                    best_local_coverage=res.best_local_coverage,
+                    seconds={name: stats[f"{name}_s"]
+                             for name in _ROUND_STAGES})
+               if isinstance(res, RoundResult) else None),
         peak_bytes=(torch.cuda.max_memory_allocated(device)
                     if device.type == "cuda" else None))
+
+
+_ROUND_STAGES = ("sample_shuffle", "senders", "receiver", "merge")
+
+
+class RoundResult(NamedTuple):
+    seeds: np.ndarray
+    coverage_fraction: float
+    theta: int
+    rounds: int
+    coverage: int
+    global_coverage: int
+    best_local_coverage: int
+
+
+def _fixed_theta_round(args, g, m: int, key, stats: dict) -> RoundResult:
+    """The reference's ``--theta`` path: one distributed round of m
+    machines (``greediris.build_round``) on the graph's device."""
+    nbr, prob, wt = padded_adjacency(g)
+    alpha = args.alpha if args.selector == "greediris-trunc" else 1.0
+    fn, _, theta = greediris.build_round(
+        m=m, n=g.num_vertices, theta=args.theta, k=args.k,
+        max_degree=g.max_in_degree(), model=args.model, delta=args.delta,
+        alpha_trunc=alpha, aggregate=args.aggregate,
+        use_kernel=args.use_kernel, solver=args.solver,
+        chunk_size=args.chunk_size, sampler=args.sampler,
+        fwd=padded_forward_adjacency(g), coin_chunk=args.coin_chunk,
+        gather=args.gather)
+    out = fn(nbr, prob, wt, key, stats=stats)
+    stats["sample_s"] = stats["sample_shuffle_s"]
+    stats["select_s"] = (stats["senders_s"] + stats["receiver_s"]
+                         + stats["merge_s"])
+    cov = int(out.coverage)
+    print(f"[im] m={m} theta={theta} coverage={cov} "
+          f"(global {int(out.global_coverage)}, best-local "
+          f"{int(out.best_local_coverage)})")
+    return RoundResult(out.seeds.cpu().numpy(), cov / theta, theta, 1, cov,
+                       int(out.global_coverage),
+                       int(out.best_local_coverage))
 
 
 def main(argv=None) -> int:

@@ -52,3 +52,18 @@ def test_pack_indices():
     idx = [0, 31, 32, 63, 95, 100]
     np.testing.assert_array_equal(u32(bitset.pack_indices(idx, 101)),
                                   ref.pack_indices(np.asarray(idx), 101))
+
+
+@pytest.mark.parametrize("n,w,density,size", [
+    (1, 1, 0.5, 40), (13, 3, 0.2, 500), (37, 5, 0.5, 64), (9, 2, 0.5, 7),
+    (20, 4, 0.1, 1)])
+def test_packed_nonzero(n, w, density, size):
+    """Sample-major (sample, vertex) pairs with the reference's per-plane
+    caps: the same pairs in the same order whether the count fits in
+    ``size`` or overflows it, tail filled with -1."""
+    x = words(np.random.default_rng(n * w), (n, w), density=density)
+    s, v = bitset.packed_nonzero(to_port(x), size=size)
+    s_ref, v_ref = ref.packed_nonzero(jnp.asarray(x), size=size)
+    assert s.dtype == v.dtype == torch.int32
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s_ref))
+    np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))

@@ -7,10 +7,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import imm, prng, rrr  # noqa: E402
+from repro_torch.core import greediris, imm, prng, rrr  # noqa: E402
 from repro_torch.graphs import csr, generators  # noqa: E402
-from repro_torch.kernels import (bucket_insert, coins, greedy_pick,  # noqa: E402
-                                 rrr_expand)
+from repro_torch.kernels import (bucket_insert, coins, coverage,  # noqa: E402
+                                 greedy_pick, lazy_greedy, rrr_expand,
+                                 topk_gain)
 
 pytestmark = pytest.mark.cuda
 
@@ -74,6 +75,72 @@ def test_greedy_and_bucket(dev):
            bucket_insert.bucket_insert_plain(*args))
 
 
+def test_gain_sweeps_and_lazy_solve(dev):
+    gen = torch.Generator().manual_seed(3)
+    rows = _words(gen, 3, 301, 5, dev=dev) & _words(gen, 3, 301, 5, dev=dev)
+    rows[:, 40] = rows[:, 7]                     # a tie across two tiles
+    cov = _words(gen, 3, 5, dev=dev) & _words(gen, 3, 5, dev=dev)
+    picked = (torch.rand((3, 301), generator=gen) < 0.3).to(dev)
+    picked[2] = True                             # every row picked
+    _equal([coverage.marginal_gain(rows, cov)],
+           [coverage.marginal_gain_plain(rows, cov)])
+    _equal(topk_gain.best_gain_index(rows, cov, picked),
+           topk_gain.best_gain_index_plain(rows, cov, picked))
+    ex = torch.tensor([[1, -1], [0, 300], [-1, -1]], dtype=torch.int32,
+                      device=dev)
+    *got, swept = lazy_greedy.greedy_maxcover_lazy(rows, 12, ex)
+    *want, _ = lazy_greedy.lazy_plain(rows, 12, ex)
+    _equal(got, want)
+    tiles = lazy_greedy.num_row_tiles(301)
+    assert all(tiles <= int(t) <= 12 * tiles for t in swept)
+    assert 1 <= lazy_greedy.blocks_per_machine(3, 301, 5, dev) <= tiles
+
+
+@pytest.mark.parametrize("r,c,w", [(1, 41, 3), (5, 9, 3), (3, 8, 4096),
+                                   (2, 13, 4096)])
+def test_bucket_insert_stream(dev, r, c, w):
+    """Chunks of 8 and 13 candidates at W = 4096 exceed what the shared
+    memory stages at once (6): the kernel stages them in parts."""
+    gen = torch.Generator().manual_seed(r)
+    ids = torch.randint(-1, 60, (r, c), generator=gen, dtype=torch.int32)
+    rows = _words(gen, r, c, w, dev=dev)
+    for _ in range(4 if w > 64 else 0):          # gains near 3000
+        rows &= _words(gen, r, c, w, dev=dev)
+    args = (ids.to(dev), rows,
+            _words(gen, 9, w, dev=dev) & _words(gen, 9, w, dev=dev),
+            torch.tensor([0, 1, 2, 3, 0, 1, 2, 3, 3], dtype=torch.int32,
+                         device=dev),
+            torch.full((9, 3), -1, dtype=torch.int32, device=dev),
+            torch.rand(9, generator=gen).to(dev) * (4000 if w > 64 else 30))
+    _equal(bucket_insert.bucket_insert_stream(*args),
+           bucket_insert.bucket_insert_stream_plain(*args))
+    assert 1 <= bucket_insert.stream_chunk_capacity(4096, dev) < 8
+
+
+def test_round_paths_agree_on_card(dev):
+    g = generators.erdos_renyi(500, 4.0, seed=3, device=dev)
+    nbr, prob, wt = csr.padded_adjacency(g)
+    fwd = csr.padded_forward_adjacency(g)
+    outs = []
+    for sampler, solver, use_kernel, aggregate in (
+            ("packed", "scan", False, "gather"),
+            ("kernel", "lazy", True, "gather"),
+            ("kernel", "fused", True, "pipeline"),
+            ("packed", "scan", False, "pipeline")):
+        fn, _, _ = greediris.build_round(
+            m=4, n=500, theta=1024, k=6, max_degree=0, sampler=sampler,
+            solver=solver, use_kernel=use_kernel, aggregate=aggregate,
+            fwd=fwd)
+        o = fn(nbr, prob, wt, prng.key(2))
+        outs.append((aggregate, o.seeds.tolist(), int(o.coverage)))
+    assert outs[0][1:] == outs[1][1:] and outs[2][1:] == outs[3][1:]
+    rip = [greediris.build_ripples_round(m=4, n=500, theta=1024, k=6,
+                                         use_kernel=u, fwd=fwd)[0](
+        nbr, prob, wt, prng.key(2)) for u in (False, True)]
+    assert rip[0][0].tolist() == rip[1][0].tolist()
+    assert int(rip[0][1]) == int(rip[1][1])
+
+
 def test_sampler_and_imm_paths_agree_on_card(dev):
     g = generators.erdos_renyi(500, 4.0, seed=3, device=dev)
     nbr, prob, wt = csr.padded_adjacency(g)
@@ -108,3 +175,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     big = torch.zeros((1, 2, 70000), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         greedy_pick.greedy_maxcover_resident(big, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        lazy_greedy.greedy_maxcover_lazy(big, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        coverage.marginal_gain(big, big[:, 0])
+    wide = torch.zeros((1, 7, 20000), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="double buffer"):
+        bucket_insert.bucket_insert_stream(
+            torch.zeros((1, 7), dtype=torch.int32, device=dev), wide,
+            wide[0, :2], torch.zeros(2, dtype=torch.int32, device=dev),
+            torch.full((2, 1), -1, dtype=torch.int32, device=dev),
+            torch.zeros(2, device=dev))

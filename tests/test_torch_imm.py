@@ -72,3 +72,26 @@ def test_drivers_print_the_same_lines(model, capsys):
     im_driver.main(flags + ["--device", "cpu"])
     got = _im_lines(capsys.readouterr().out)
     assert len(want) == 3 and got == want
+
+
+@pytest.mark.parametrize("flags", [
+    ["--theta", "512", "--selector", "greediris", "--machines", "1"],
+    ["--theta", "512", "--selector", "greediris-trunc", "--alpha", "0.5",
+     "--aggregate", "pipeline", "--machines", "1"],
+    ["--selector", "ripples", "--machines", "4"],
+])
+def test_drivers_print_the_same_round_lines(flags, capsys):
+    """The fixed-theta round (one machine: the reference takes its
+    device count, one here) and the Ripples selector print the
+    reference's ``[im]`` lines."""
+    common = ["--n", "200", "--avg-deg", "4", "--k", "4", "--max-theta",
+              "512", "--sampler", "packed", "--solver", "scan",
+              "--eval-engine", "packed", "--eval-sims", "64"]
+    ref_driver.main(common + flags)
+    want = _im_lines(capsys.readouterr().out)
+    out = im_driver.run(common + flags + ["--device", "cpu"])
+    got = _im_lines(capsys.readouterr().out)
+    assert len(want) == 3 and got == want
+    if "--theta" in flags:
+        assert set(out["round"]["seconds"]) == {
+            "sample_shuffle", "senders", "receiver", "merge"}

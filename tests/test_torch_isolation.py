@@ -11,8 +11,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import prng  # noqa: E402
-from repro_torch.kernels import (bucket_insert, coins, greedy_pick,  # noqa: E402
-                                 ops, rrr_expand)
+from repro_torch.kernels import (bucket_insert, coins, coverage,  # noqa: E402
+                                 greedy_pick, lazy_greedy, ops, rrr_expand,
+                                 topk_gain)
 from repro_torch.launch import im_driver  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -76,14 +77,57 @@ def test_cpu_tensors_take_plain_versions_without_launches():
         torch.arange(4, dtype=torch.int32), w(4, width), w(3, width),
         torch.zeros(3, dtype=torch.int32),
         torch.full((3, 2), -1, dtype=torch.int32), torch.zeros(3))
+    rows = w(2, n, width)
+    cov = w(2, width)
+    coverage.marginal_gain(rows, cov)
+    topk_gain.best_gain_index(rows, cov, torch.zeros((2, n), dtype=torch.bool))
+    lazy_greedy.greedy_maxcover_lazy(rows, 3)
+    bucket_insert.bucket_insert_stream(
+        torch.arange(4, dtype=torch.int32).reshape(2, 2), w(2, 2, width),
+        w(3, width), torch.zeros(3, dtype=torch.int32),
+        torch.full((3, 2), -1, dtype=torch.int32), torch.zeros(3))
     assert ops.LAUNCHES == dict.fromkeys(ops.KERNELS, 0)
 
 
 @pytest.mark.parametrize("flags", [
-    ["--theta", "64"], ["--use-opim"], ["--serve"], ["--faults", "x"],
-    ["--selector", "ripples"], ["--sampler", "dense"], ["--solver", "lazy"],
-    ["--solver", "fused"], ["--eval-engine", "map"], ["--eval-spread"],
+    ["--use-opim"], ["--serve"], ["--faults", "x"], ["--sampler", "dense"],
+    ["--eval-engine", "map"], ["--eval-spread"],
 ])
 def test_unported_paths_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP|Queue"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, '"):
         im_driver.main(["--n", "50", "--device", "cpu", *flags])
+
+
+PLAIN = ["--sampler", "packed", "--solver", "scan", "--eval-engine",
+         "packed"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--theta", "256", "--machines", "4", "--solver", "lazy",
+     "--use-kernel", "--chunk-size", "auto"],
+    ["--selector", "ripples", "--machines", "4"],
+    ["--solver", "lazy", "--use-kernel", "--machines", "4"],
+    ["--solver", "fused", "--use-kernel", "--machines", "4"],
+])
+def test_ported_paths_equal_their_plain_twin(flags):
+    """Paths that used to be refused now run on the CPU and give what
+    the plain paths (packed sampler, scan solver and receiver, packed
+    spread engine) give."""
+    base = ["--n", "60", "--k", "3", "--max-theta", "256", "--device",
+            "cpu"]
+    got = im_driver.run(base + flags)
+    plain = [f for f in flags if f not in ("--use-kernel",)]
+    for flag in ("--solver", "--chunk-size"):
+        if flag in plain:
+            i = plain.index(flag)
+            del plain[i:i + 2]
+    want = im_driver.run(base + plain + PLAIN)
+    for key in ("seeds", "theta", "rounds", "coverage_fraction", "spread",
+                "round"):
+        if key == "seeds":
+            assert got[key].tolist() == want[key].tolist()
+        elif key == "round" and got[key] is not None:
+            assert {k: v for k, v in got[key].items() if k != "seconds"} == \
+                {k: v for k, v in want[key].items() if k != "seconds"}
+        else:
+            assert got[key] == want[key]

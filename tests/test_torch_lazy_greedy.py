@@ -1,0 +1,87 @@
+"""Port parity: the lazy greedy solve (``kernels.lazy_greedy``) against
+the reference's ``greedy_maxcover_lazy_pallas`` in interpret mode —
+seeds, rows, covered and gains exact at unaligned shapes, with ties
+across tiles, exclusions and exhausted gains.  ``tiles_swept`` depends
+on the order the sweeps run in and is only held to its range."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.core import maxcover as ref  # noqa: E402
+from repro.kernels.lazy_greedy import greedy_maxcover_lazy_pallas  # noqa: E402
+from repro_torch.core import maxcover  # noqa: E402
+from repro_torch.kernels import lazy_greedy  # noqa: E402
+from tests.test_torch_ref import partitionable, to_port, u32, words  # noqa: E402,F401
+
+TILE = lazy_greedy.TILE_ROWS
+
+
+def _rows(m, n, w, seed, skew=False):
+    rng = np.random.default_rng(seed)
+    rows = words(rng, (m, n, w), density=0.2)
+    if skew:                                   # few heavy rows, many light
+        rows &= np.where(rng.random((m, n, 1)) < 0.1, 0xFFFFFFFF,
+                         0x00010001).astype(np.uint32)
+    if n > TILE + 3:
+        rows[:, TILE + 3] = rows[:, 3]         # a tie across two tiles
+    return rows
+
+
+@pytest.mark.parametrize("m,n,w,k,excl,skew", [
+    (1, 37, 3, 5, [-1], False),
+    (3, 100, 2, 7, [1, 35, -1, 400], False),
+    (2, 6, 1, 9, [0], False),                  # k beyond the useful rows
+    (2, 161, 5, 12, [-1], True),
+])
+def test_lazy_matches_pallas(m, n, w, k, excl, skew):
+    rows = _rows(m, n, w, m * n + k, skew)
+    *got, swept = lazy_greedy.greedy_maxcover_lazy(to_port(rows), k,
+                                                   torch.tensor(excl))
+    tiles = lazy_greedy.num_row_tiles(n)
+    assert swept.shape == (m,)
+    assert all(tiles <= int(s) <= k * tiles for s in swept)
+    for j in range(m):
+        want = greedy_maxcover_lazy_pallas(jnp.asarray(rows[j]), k,
+                                           jnp.asarray(excl, jnp.int32),
+                                           interpret=True)
+        for a, b in zip([o[j] for o in got], want[:4]):
+            np.testing.assert_array_equal(u32(a), u32(b))
+
+
+def test_skewed_gains_skip_tiles():
+    rows = _rows(1, 32 * TILE, 2, 5, skew=True)
+    *_, swept = lazy_greedy.greedy_maxcover_lazy(to_port(rows), 10)
+    assert int(swept[0]) < 10 * lazy_greedy.num_row_tiles(32 * TILE)
+
+
+@pytest.mark.parametrize("solver", ["lazy", "scan"])
+def test_lazy_solver_matches_reference(solver):
+    rows = _rows(1, 80, 4, 3)[0]
+    want = ref.greedy_maxcover(jnp.asarray(rows), 6, solver="lazy",
+                               excluded=jnp.asarray([2, 40], jnp.int32))
+    got = maxcover.greedy_maxcover(to_port(rows), 6, solver=solver,
+                                   excluded=[2, 40])
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(u32(a), u32(b))
+
+
+@pytest.mark.parametrize("skew", [False, True])
+def test_tiles_needed_counts_the_forced_sweeps(skew):
+    """``lazy_plain``'s count of the sweeps an exact schedule makes: all
+    tiles in the first pick, at least the largest-bound tile in every
+    later one, never more than every tile; skewed gains skip."""
+    m, n, k = 2, 20 * TILE + 5, 8
+    rows = to_port(_rows(m, n, 3, 11, skew))
+    stats = {}
+    want = lazy_greedy.lazy_plain(rows, 1, torch.full((m, 1), -1), stats)
+    tiles = lazy_greedy.num_row_tiles(n)
+    assert stats["tiles_needed"].tolist() == [tiles] * m
+    got = lazy_greedy.lazy_plain(rows, k, torch.full((m, 1), -1), stats)
+    need = stats["tiles_needed"]
+    assert all(tiles + k - 1 <= int(t) <= k * tiles for t in need)
+    if skew:
+        assert int(need.max()) < k * tiles
+    assert torch.equal(got[0][:, :1], want[0])

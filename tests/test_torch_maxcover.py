@@ -71,5 +71,14 @@ def test_lazy_oracle_coverage():
 
 
 def test_unported_solvers_raise():
-    with pytest.raises(NotImplementedError, match="Queue"):
-        maxcover.resolve_solver("lazy")
+    """The whole solver quad is ported: "fused" and "lazy" resolve and
+    run, equal to the scan solver on a machine batch; only an unknown
+    solver raises."""
+    rows = to_port(_rows(3, 50, 2, 11))
+    want = maxcover.greedy_maxcover(rows, 6, solver="scan", excluded=[4])
+    for solver in ("fused", "lazy"):
+        assert maxcover.resolve_solver(solver) == solver
+        _assert_same(maxcover.greedy_maxcover(rows, 6, solver=solver,
+                                              excluded=[4]), want)
+    with pytest.raises(ValueError, match="unknown solver"):
+        maxcover.resolve_solver("heap")

@@ -47,3 +47,16 @@ def test_survivors_validation():
     with pytest.raises(ValueError, match="survivor ids"):
         randgreedi.randgreedi_maxcover(rows, port_key(jax.random.key(0)),
                                        m=2, k=1, survivors=(5,))
+
+
+@pytest.mark.parametrize("m,n,w,k", [(1, 30, 3, 4), (4, 64, 9, 6),
+                                     (3, 17, 2, 20)])
+def test_ripples_select_matches_reference(m, n, w, k):
+    """The words split into m shards (tail words dropped), one summed
+    gain vector per pick; k beyond the useful rows pads with -1."""
+    rows = words(np.random.default_rng(m + n), (n, w), density=0.2)
+    rows[5] = rows[2]
+    want = ref.ripples_select(jnp.asarray(rows), m=m, k=k)
+    got = randgreedi.ripples_select(to_port(rows), m=m, k=k)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert int(got[1]) == int(want[1])
