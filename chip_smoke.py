@@ -7,15 +7,16 @@ Builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version on the card (exact
 equality: every output is integer words or ids, so the tolerance is
 zero), checks the kernel paths against the plain paths end to end at a
-small size (the IMM loop, then the fixed-theta GreediRIS round and the
-Ripples round over every solver, receiver, schedule and shuffle),
-drives both paths at full size through the entry points a user calls
-(the IMM loop with the GreediRIS selector; the fixed-theta round with
-the lazy and the fused senders; the Ripples round), then times every
-kernel at the shapes those runs gave it.  Prints JSON lines; the line
-before the last lists the kernels, the last line is the device summary.
-Exits non-zero without a CUDA device or on any failure.  Imports
-nothing of JAX.
+small size (the IMM loop, the fixed-theta GreediRIS round and the
+Ripples round over every solver, receiver, schedule and shuffle, the
+serving replay over every solver, and OPIM), drives every path at full
+size through the entry points a user calls (the IMM loop with the
+GreediRIS selector; the fixed-theta round with the lazy and the fused
+senders; the Ripples round; the serving replay with the resident and
+the lazy senders), then times every kernel at the shapes those runs
+gave it.  Prints JSON lines; the line before the last lists the
+kernels, the last line is the device summary.  Exits non-zero without
+a CUDA device or on any failure.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -35,10 +36,11 @@ import torch  # noqa: E402
 from repro_torch.core import bitset, greediris, imm, prng, rrr  # noqa: E402
 from repro_torch.core import cascade, maxcover, streaming  # noqa: E402
 from repro_torch.graphs import csr, generators  # noqa: E402
-from repro_torch.kernels import (build, bucket_insert, coins,  # noqa: E402
-                                 coverage, greedy_pick, lazy_greedy, ops,
-                                 rrr_expand, topk_gain)
-from repro_torch.launch import im_driver  # noqa: E402
+from repro_torch.core import service  # noqa: E402
+from repro_torch.kernels import (build, bucket, bucket_insert,  # noqa: E402
+                                 coins, coverage, greedy_pick, lazy_greedy,
+                                 ops, rrr_expand, topk_gain)
+from repro_torch.launch import im_driver, serve  # noqa: E402
 
 # The slice's command: SNAP com-DBLP scale (317k vertices, 1.05M edges),
 # edge probabilities U[0, 0.1] (paper §4.1), k=100 (B=63 buckets).
@@ -54,11 +56,26 @@ ROUND = ["--graph", "er", "--n", "262144", "--avg-deg", "4", "--k", "100",
          "--sampler", "kernel", "--solver", "lazy", "--use-kernel",
          "--chunk-size", "auto", "--eval-engine", "kernel", "--eval-sims",
          "64"]
+# Slice 3: the online influence service at the same scale — the pool
+# grows 32,768 -> 65,536 -> 131,072 samples per half (W = 4096 words at
+# the end), 32 queries in batches of 8 with k up to 100, refreshed after
+# every batch so tickets drain on older generations; --check replays
+# every query through the sequential path.
+SERVE = ["--graph", "er", "--n", "262144", "--avg-deg", "4", "--model", "IC",
+         "--sampler", "kernel", "--theta0", "32768", "--max-theta", "131072",
+         "--slab", "4096", "--queries", "32", "--batch", "8", "--k-max",
+         "100", "--refresh-every", "1", "--check"]
+SERVE_PEAK_LIMIT = 40e9
 # The kernels of each full-size path and the run that must launch them.
 SLICE1 = ("rrr_expand_resident", "rrr_expand_streamed", "coin_pack",
           "greedy_pick", "bucket_insert")
 ROUND_RUN = {"lazy_greedy": "lazy", "bucket_insert_stream": "lazy",
              "topk_gain": "fused", "coverage": "ripples"}
+SERVE_RUN = {"greedy_pick_batch": "resident", "lazy_greedy_batch": "lazy"}
+# The fused serving path runs at n = 3000 only (phase `paths`).
+SMALL_SERVE_RUN = {"topk_gain_batch": "fused"}
+# On no path of the reference: the public op ``ops.bucket_gains``.
+OFF_PATH = ("bucket_gains",)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak bandwidth
 # INT32 ALU peak: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock (NVIDIA
@@ -96,6 +113,21 @@ SOURCES = {
     "bucket_insert_stream": (
         "src/repro_torch/kernels/csrc/bucket_insert.cu",
         "src/repro/kernels/bucket_insert.py:266"),
+    "bucket_gains": (
+        "src/repro_torch/kernels/csrc/bucket_gains.cu",
+        "src/repro/kernels/bucket.py:37"),
+    "greedy_pick_batch": (
+        "src/repro_torch/kernels/csrc/greedy_pick.cu",
+        "src/repro/kernels/greedy_pick.py:197 (vmapped over queries at "
+        "src/repro/kernels/ops.py:68)"),
+    "lazy_greedy_batch": (
+        "src/repro_torch/kernels/csrc/lazy_greedy.cu",
+        "src/repro/kernels/lazy_greedy.py:229 (vmapped over queries at "
+        "src/repro/kernels/ops.py:83)"),
+    "topk_gain_batch": (
+        "src/repro_torch/kernels/csrc/topk_gain.cu",
+        "src/repro/kernels/topk_gain.py:55 (vmapped over queries at "
+        "src/repro/core/maxcover.py:141)"),
 }
 
 
@@ -217,6 +249,7 @@ def parity_small(dev) -> dict:
         "bucket_insert", bucket_insert.bucket_insert_chunk(*args),
         bucket_insert.bucket_insert_plain(*args), B=b, C=c, W=w_b, k=k)
     errs.update(parity_slice2(gen, dev))
+    errs.update(parity_slice3(gen, dev))
     torch.cuda.synchronize()
     return errs
 
@@ -289,6 +322,50 @@ def parity_slice2(gen, dev) -> dict:
                 bucket_insert.bucket_insert_stream(*args),
                 bucket_insert.bucket_insert_stream_plain(*args), B=b, R=r,
                 C=c, W=w_b, k=k))
+    return errs
+
+
+def parity_slice3(gen, dev) -> dict:
+    """bucket_gains at the receiver's shape (B = 63, W = 4096) and at odd
+    shapes and unaligned starts; the three query-axis kernels at B = 8
+    queries over one shared pool, with ties, exclusions (pads, ids past
+    n) and a query that excludes nothing."""
+    errs = dict.fromkeys(("bucket_gains", "greedy_pick_batch",
+                          "lazy_greedy_batch", "topk_gain_batch"), 0)
+    for b, w, off in ((63, 4096, 0), (1, 1, 0), (7, 33, 0), (64, 2053, 0),
+                      (63, 4096, 1), (5, 1029, 3)):
+        row = rand_words(gen, w + off, dev=dev)[off:]
+        covers = (rand_words(gen, b, w + off, dev=dev)
+                  & rand_words(gen, b, w + off, dev=dev))[:, off:].contiguous()
+        covers[0] = 0
+        errs["bucket_gains"] = max(errs["bucket_gains"], require_equal(
+            "bucket_gains", [bucket.bucket_gains(row, covers)],
+            [bucket.bucket_gains_plain(row, covers)], B=b, W=w,
+            row_offset_words=off))
+    for n_g, w_g, k in ((1001, 5, 12), (20000, 36, 30)):
+        rows_g = rand_words(gen, n_g, w_g, dev=dev)
+        for _ in range(3):
+            rows_g &= rand_words(gen, n_g, w_g, dev=dev)
+        rows_g[40] = rows_g[7]                     # a tie across tiles
+        exc = torch.randint(-1, n_g + 50, (8, 4), generator=gen,
+                            dtype=torch.int32).to(dev)
+        exc[0] = -1
+        shared = rows_g[None].expand(8, n_g, w_g)
+        errs["greedy_pick_batch"] = max(errs["greedy_pick_batch"], require_equal(
+            "greedy_pick_batch",
+            greedy_pick.greedy_maxcover_resident_batch(rows_g, k, exc),
+            greedy_pick.greedy_plain(shared, k, exc), B=8, n=n_g, W=w_g, k=k))
+        *got, swept = lazy_greedy.greedy_maxcover_lazy_batch(rows_g, k, exc)
+        errs["lazy_greedy_batch"] = max(errs["lazy_greedy_batch"], require_equal(
+            "lazy_greedy_batch", got, lazy_greedy.lazy_plain(shared, k, exc)[:4],
+            B=8, n=n_g, W=w_g, k=k, tiles_swept=swept.tolist()))
+        cov = rand_words(gen, 8, w_g, dev=dev) & rand_words(gen, 8, w_g, dev=dev)
+        picked = (torch.rand((8, n_g), generator=gen) < 0.3).to(dev)
+        picked[-1] = True                                  # all picked
+        errs["topk_gain_batch"] = max(errs["topk_gain_batch"], require_equal(
+            "topk_gain_batch", topk_gain.best_gain_index_batch(rows_g, cov, picked),
+            topk_gain.best_gain_index_plain(shared, cov, picked), B=8, n=n_g,
+            W=w_g))
     return errs
 
 
@@ -392,6 +469,59 @@ def round_paths_agree(dev):
             raise AssertionError(f"ripples {model}: paths disagree")
 
 
+SMALL_SERVE = ["--n", "3000", "--avg-deg", "4", "--queries", "16",
+               "--batch", "8", "--theta0", "1024", "--slab", "512",
+               "--max-theta", "4096", "--k-max", "10", "--refresh-every", "1",
+               "--check"]
+
+
+def serve_paths_agree(dev) -> dict:
+    """The serving replay at n = 3000 (IC and LT) on the card for every
+    solver, against one plain run on the CPU: identical answers (seeds,
+    coverages, sigma bounds, certified), and --check OK everywhere; then
+    ``im_driver --use-opim`` on the card against the CPU.  Returns each
+    card run's launch counts (set to 0 just before it)."""
+    launches = {}
+    for model in ("IC", "LT"):
+        flags = SMALL_SERVE + ["--model", model]
+        want = serve.run(flags + ["--device", "cpu", "--sampler", "packed",
+                                  "--solver", "scan"])
+        results = {}
+        for solver in maxcover.SOLVERS:
+            ops.reset_launches()
+            got = serve.run(flags + ["--solver", solver])
+            torch.cuda.synchronize()
+            if model == "IC":
+                launches[solver] = dict(ops.LAUNCHES)
+            same = len(got["answers"]) == len(want["answers"]) and all(
+                serve.answers_equal(a, b)
+                for a, b in zip(got["answers"], want["answers"]))
+            results[solver] = dict(rc=got["rc"], same_as_cpu=same,
+                                   generations=got["generations"],
+                                   certified=got["certified"])
+            if got["rc"] or not same:
+                emit(phase="paths", path="serve", model=model, **results)
+                raise AssertionError(f"serve {model} {solver}: card != CPU")
+        emit(phase="paths", path="serve", model=model, cpu_rc=want["rc"],
+             answers=len(want["answers"]), **results)
+        if want["rc"]:
+            raise AssertionError(f"serve {model}: the CPU check failed")
+    opim_flags = ["--n", "3000", "--avg-deg", "4", "--k", "10", "--max-theta",
+                  "4096", "--machines", "4", "--use-opim", "--eval-sims", "64"]
+    runs = {"kernel-gpu": im_driver.run(opim_flags + [
+                "--solver", "lazy", "--use-kernel"]),
+            "plain-cpu": im_driver.run(opim_flags + [
+                "--sampler", "packed", "--solver", "scan", "--eval-engine",
+                "packed", "--device", "cpu"])}
+    res = {k: dict(seeds=v["seeds"].tolist(), theta=v["theta"],
+                   rounds=v["rounds"], guarantee=v["guarantee"],
+                   spread=v["spread"]) for k, v in runs.items()}
+    emit(phase="paths", path="opim", **res)
+    if len({json.dumps(r) for r in res.values()}) != 1:
+        raise AssertionError("opim: card != CPU")
+    return launches
+
+
 # ---------------------------------------------------------------- phase 5
 
 def full_run():
@@ -481,14 +611,80 @@ def round_runs(dev):
     return launches
 
 
+def serve_runs(dev):
+    """The serving replay at full size through ``serve.run`` with the
+    resident and the lazy senders.  Each run's launch counts and peak
+    memory are reset just before it and read just after.  Returns the
+    launches and the lazy run's service (its final pool is timed)."""
+    launches, outs = {}, {}
+    for solver in ("resident", "lazy"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        out = serve.run(SERVE + ["--solver", solver])
+        torch.cuda.synchronize()
+        launches[solver] = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        st = out["stats"]
+        answers = out["answers"]
+        emit(phase="serve", solver=solver, rc=out["rc"],
+             mismatches=out["mismatches"], answers=len(answers),
+             queries_per_s=len(answers) / out["elapsed_s"],
+             elapsed_s=out["elapsed_s"], generations=out["generations"],
+             theta=out["theta"], certified=out["certified"],
+             solves=st["solves"], solve_s=st["solve_s"],
+             s_per_solve=st["solve_s"] / st["solves"],
+             refreshes=st["refreshes"], refresh_s=st["refresh_s"],
+             s_per_refresh=st["refresh_s"] / st["refreshes"],
+             k_used=[a.k_used for a in answers], peak_bytes=peak,
+             launches=launches[solver])
+        if out["rc"] or out["mismatches"]:
+            raise AssertionError(f"serve {solver}: --check failed")
+        if peak >= SERVE_PEAK_LIMIT:
+            raise AssertionError(f"serve {solver}: peak {peak} bytes")
+        for a in answers:
+            real = a.seeds[a.seeds >= 0]
+            if not (len(real) == a.k_used and len(set(real.tolist())) == len(real)
+                    and (real < 262144).all() and a.coverage > 0
+                    and np.isfinite(a.sigma_lower) and np.isfinite(a.sigma_upper)):
+                raise AssertionError(f"serve {solver}: bad answer {a}")
+        if solver == "resident":
+            del out["service"]              # free its pools before the next
+        outs[solver] = out
+    if not all(serve.answers_equal(a, b) for a, b in zip(
+            outs["resident"]["answers"], outs["lazy"]["answers"])):
+        raise AssertionError("serve: resident and lazy answers differ")
+    missing = [k for k, run in SERVE_RUN.items() if launches[run][k] == 0]
+    missing += [k for k in ("coin_pack", "rrr_expand_resident")
+                if launches["lazy"][k] == 0]
+    if missing:
+        raise AssertionError(f"the serving path never launched {missing}")
+    return launches, outs["lazy"]["service"], outs["lazy"]["trace"]
+
+
 # ---------------------------------------------------------------- phase 6
 
 def timed(name, kernel_fn, plain_fn, reps, plain_reps, bytes_, ops_=0.0):
     """Kernel vs plain on the same main-path inputs: equality, medians,
     and the bound (the larger of bytes over HBM rate and integer ops
     over the INT32 rate).  ``bytes_`` and ``ops_`` may be callables,
-    read once the plain version has run."""
-    err = max_err(kernel_fn(), plain_fn())
+    read once the plain version has run.  ``plain_reps=0`` times the
+    parity call of a slow plain version, once."""
+    got = kernel_fn()
+    if plain_reps:
+        err = max_err(got, plain_fn())
+    else:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain_fn()
+        stop.record()
+        torch.cuda.synchronize()
+        plain_once = start.elapsed_time(stop)
+        err = max_err(got, want)
+        del want
+    del got
     if err:
         raise AssertionError(f"{name}: kernel != plain at main-path shapes")
     bytes_ = bytes_() if callable(bytes_) else bytes_
@@ -498,7 +694,8 @@ def timed(name, kernel_fn, plain_fn, reps, plain_reps, bytes_, ops_=0.0):
     row = dict(name=name, route="cuda", source=SOURCES[name][0],
                replaces=SOURCES[name][1], max_abs_err=err,
                ms=median_ms(kernel_fn, reps),
-               plain_ms=median_ms(plain_fn, plain_reps),
+               plain_ms=(median_ms(plain_fn, plain_reps) if plain_reps
+                         else plain_once),
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                library_ms=None)
@@ -559,11 +756,23 @@ def main_path_timings(dev, final_seeds) -> dict:
     local_rows = incidence[assign].contiguous()
     del incidence
     ex = greedy_pick.excluded_ids(None, m, dev)
+    # Bounded as row 6 (the same function): the rows of the tiles an
+    # exact lazy schedule sweeps (lazy_plain's tiles_needed); the
+    # kernel itself re-reads every row in each of the k picks.
+    need = {}
+    lazy_greedy.lazy_plain(local_rows, k, ex, stats=need)
+    per = local_rows.shape[1]
+    needed_rows = min(int(need["tiles_needed"].sum()) * lazy_greedy.TILE_ROWS,
+                      k * m * per)
     rows_out["greedy_pick"] = timed(
         "greedy_pick",
         lambda: greedy_pick.greedy_maxcover_resident(local_rows, k, ex),
         lambda: greedy_pick.greedy_plain(local_rows, k, ex), 5, 1,
-        bytes_=4 * (local_rows.numel() + m * k * W + m * W + 2 * m * k))
+        bytes_=4 * (needed_rows * W + m * k * W + m * W + 2 * m * k),
+        ops_=GAIN_OPS_PER_WORD * needed_rows * W)
+    rows_out["greedy_pick"].update(
+        tiles_needed=need["tiles_needed"].tolist(),
+        sweep_bytes=4 * k * local_rows.numel())
     local = maxcover.greedy_maxcover(local_rows, k, solver="resident")
     del local_rows
     ids = torch.where(local.seeds >= 0, torch.gather(
@@ -687,6 +896,78 @@ def round_timings(dev) -> dict:
     return rows_out
 
 
+def serve_timings(dev, svc_lazy, trace) -> dict:
+    """The slice-3 kernels: bucket_gains at the receiver's shape (B = 63
+    buckets of W = 4096 words), and the query-axis solves over the serve
+    phase's final pool (n = 262,144, W = 4096) with its last batch of 8
+    queries (their exclusions, k = the batch's largest k)."""
+    rows_out = {}
+    gen = torch.Generator().manual_seed(13)
+    b, w = 63, 4096
+    row = rand_words(gen, w, dev=dev) & rand_words(gen, w, dev=dev)
+    covers = rand_words(gen, b, w, dev=dev) & rand_words(gen, b, w, dev=dev)
+    rows_out["bucket_gains"] = timed(
+        "bucket_gains", lambda: [bucket.bucket_gains(row, covers)],
+        lambda: [bucket.bucket_gains_plain(row, covers)], 50, 10,
+        bytes_=4 * (b * w + w + b), ops_=GAIN_OPS_PER_WORD * b * w)
+    rows_out["bucket_gains"].update(B=b, W=w)
+
+    pool = svc_lazy.pool
+    r1 = pool.r1
+    svc_lazy._pools.clear()                 # keep only R1 of the last pool
+    del pool
+    n, w = r1.shape
+    queries = trace[-8:]
+    k, excl, _, _ = service._query_arrays(queries, n, 32 * w)
+    ex = torch.from_numpy(excl).to(dev)
+    bq = ex.shape[0]
+    shared = r1[None].expand(bq, n, w)
+    need = {}
+    out_bytes = 4 * (bq * k * w + bq * w + 2 * bq * k)
+
+    def shared_rows():
+        return need["tiles_needed_shared"] * lazy_greedy.TILE_ROWS
+
+    torch.cuda.empty_cache()
+    rows_out["lazy_greedy_batch"] = timed(
+        "lazy_greedy_batch",
+        lambda: lazy_greedy.greedy_maxcover_lazy_batch(r1, k, ex)[:4],
+        lambda: lazy_greedy.lazy_plain(shared, k, ex, stats=need)[:4], 3, 0,
+        bytes_=lambda: 4 * shared_rows() * w + out_bytes,
+        ops_=lambda: GAIN_OPS_PER_WORD * lazy_greedy.TILE_ROWS * int(
+            need["tiles_needed"].sum()) * w)
+    swept = lazy_greedy.greedy_maxcover_lazy_batch(r1, k, ex)[4]
+    rows_out["lazy_greedy_batch"].update(
+        B=bq, n=n, W=w, k=k, tiles_swept=swept.tolist(),
+        tiles_needed=need["tiles_needed"].tolist(),
+        tiles_needed_shared=need["tiles_needed_shared"],
+        num_tiles=lazy_greedy.num_row_tiles(n))
+    torch.cuda.empty_cache()
+    rows_out["greedy_pick_batch"] = timed(
+        "greedy_pick_batch",
+        lambda: greedy_pick.greedy_maxcover_resident_batch(r1, k, ex),
+        lambda: greedy_pick.greedy_plain(shared, k, ex), 3, 0,
+        bytes_=4 * shared_rows() * w + out_bytes,
+        ops_=GAIN_OPS_PER_WORD * lazy_greedy.TILE_ROWS
+        * int(need["tiles_needed"].sum()) * w)
+    rows_out["greedy_pick_batch"].update(
+        B=bq, n=n, W=w, k=k, sweep_bytes=4 * k * bq * r1.numel(),
+        tiles_needed_shared=need["tiles_needed_shared"])
+    cov0 = torch.zeros((bq, w), dtype=torch.int32, device=dev)
+    picked = torch.zeros((bq, n), dtype=torch.bool, device=dev)
+    rows_ex = ex.long().clamp(min=0)
+    picked[torch.arange(bq, device=dev)[:, None].expand_as(ex)[ex >= 0],
+           rows_ex[ex >= 0]] = True
+    rows_out["topk_gain_batch"] = timed(
+        "topk_gain_batch",
+        lambda: topk_gain.best_gain_index_batch(r1, cov0, picked),
+        lambda: topk_gain.best_gain_index_plain(shared, cov0, picked), 10, 1,
+        bytes_=4 * (r1.numel() + bq * w + 2 * bq) + picked.numel(),
+        ops_=GAIN_OPS_PER_WORD * bq * r1.numel())
+    rows_out["topk_gain_batch"].update(B=bq, n=n, W=w)
+    return rows_out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -698,7 +979,7 @@ def card_line() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--stop-after", choices=("build", "parity", "paths",
-                                             "full", "round"),
+                                             "full", "round", "serve"),
                     help="end early after this phase (no result lines)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -726,6 +1007,7 @@ def main(argv=None) -> int:
         return 0
     paths_agree(dev)
     round_paths_agree(dev)
+    small_serve_launches = serve_paths_agree(dev)
     if args.stop_after == "paths":
         return 0
     launches, seeds = full_run()
@@ -734,15 +1016,35 @@ def main(argv=None) -> int:
     round_launches = round_runs(dev)
     if args.stop_after == "round":
         return 0
-    rows = main_path_timings(dev, torch.from_numpy(seeds))
+    serve_launches, svc_lazy, trace = serve_runs(dev)
+    if args.stop_after == "serve":
+        return 0
+    rows = serve_timings(dev, svc_lazy, trace)
+    del svc_lazy
+    rows.update(main_path_timings(dev, torch.from_numpy(seeds)))
     rows.update(round_timings(dev))
     kernels = []
     for name in ops.KERNELS:
         row = rows[name]
         row["max_abs_err"] = max(row["max_abs_err"], errs[name])
-        row["launches"] = (launches[name] if name in SLICE1
-                           else round_launches[ROUND_RUN[name]][name])
+        if name in SLICE1:
+            row["launches"] = launches[name]
+        elif name in ROUND_RUN:
+            row["launches"] = round_launches[ROUND_RUN[name]][name]
+        elif name in SERVE_RUN:
+            row["launches"] = serve_launches[SERVE_RUN[name]][name]
+        elif name in SMALL_SERVE_RUN:
+            row["launches"] = small_serve_launches[SMALL_SERVE_RUN[name]][name]
+            row["launches_from"] = "serve --check at n = 3000 (phase paths)"
+        else:
+            row["launches"] = 0
+            row["launches_from"] = "on no path of the reference"
         kernels.append(row)
+    # Redesign order: the time each kernel loses on its path,
+    # launches x (ms - bound_ms), largest first.
+    emit(phase="order", kernels=sorted(
+        ([r["name"], r["launches"] * (r["ms"] - r["bound_ms"])]
+         for r in kernels), key=lambda x: -x[1]))
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(card)
     print(json.dumps({"kernels": kernels}))

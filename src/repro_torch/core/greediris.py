@@ -5,7 +5,7 @@ the m machines as a batch axis on one device instead of a mesh.
 What a mesh does becomes tensor algebra on the machine axis:
 
   S1 sampling   machine p draws theta/m RRR sets from key.fold_in(p)
-                (the packed or kernel sampler, ``max_steps=32``); the
+                (any sampler, ``max_steps=32``); the
                 machines sample one after another, and each machine's
                 incidence is freed once shuffled.
   S2 shuffle    "dense": the tiled all_to_all — machine j's rows are,
@@ -28,9 +28,9 @@ What a mesh does becomes tensor algebra on the machine axis:
 
 ``build_ripples_round`` is the baseline: samples stay with their
 machine, and each of the k picks sums the machines' gain vectors (the
-all-reduce GreediRIS removes).  The reference samples it with the dense
-sampler; the port uses the packed or kernel sampler, which the
-reference's sampler contract makes bit-identical.
+all-reduce GreediRIS removes).  The reference samples it with its
+dense sampler; the port takes any sampler, which the reference's
+sampler contract makes bit-identical.
 """
 from __future__ import annotations
 
@@ -69,7 +69,7 @@ def _machine_sampler(*, n: int, theta_local: int, sample_chunks: int,
     of machine p's i-th sample chunk (b = theta_local / sample_chunks),
     drawn as the reference's shard body draws them."""
     sampler = rrr.resolve_sampler(sampler)
-    if fwd is None:
+    if fwd is None and sampler != "dense":
         raise ValueError(f"sampler={sampler!r} needs fwd=(fwd_nbr, "
                          "fwd_rslot) from graphs.csr.padded_forward_adjacency")
     if not isinstance(coin_chunk, int) or coin_chunk < 1:
@@ -83,6 +83,10 @@ def _machine_sampler(*, n: int, theta_local: int, sample_chunks: int,
     def sample(nbr, prob, wt, key, p: int, i: int):
         kr, kb = key.fold_in(p).fold_in(i).split()
         roots = kr.randint((b,), 0, n, device=nbr.device)
+        if sampler == "dense":
+            return bitset.pack_bool_matrix(rrr.rrr_batch(
+                nbr, prob, wt, roots, kb, model=model, max_steps=max_steps,
+                coin_chunk=coin_chunk).T)
         return rrr.rrr_batch_packed(
             nbr, prob, wt, fwd[0], fwd[1], roots, kb, model=model,
             max_steps=max_steps, coin_chunk=coin_chunk, expand=expand,
@@ -106,8 +110,8 @@ def build_round(*, m: int, n: int, theta: int, k: int, max_degree: int,
     ``fn.sample_shuffle(nbr, prob, wt, key)`` runs S1 and S2 alone.
 
     The reference's arguments, less ``mesh`` and ``axes`` (``m`` is the
-    machine count), ``block_v`` (the port's kernels fix their tiles) and
-    the ``"dense"`` sampler.  ``max_degree`` is accepted and unused, as
+    machine count) and ``block_v`` (the port's kernels fix their tiles).
+    ``max_degree`` is accepted and unused, as
     in the reference.  ``solver`` None means "fused" with ``use_kernel``
     and "scan" without; ``use_kernel`` also routes the receiver through
     its kernels.  ``chunk_size`` (int, None or "auto") chunks the

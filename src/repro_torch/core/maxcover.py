@@ -17,6 +17,8 @@ tie-break):
 
 Rows may carry a leading machine axis ([m, n, W]); the m solves are
 then independent (RandGreedi's local machines) and run together.
+:func:`greedy_maxcover_batch` solves B seed-constrained queries over one
+shared [n, W] pool (serving) the same way, the pool never copied.
 """
 from __future__ import annotations
 
@@ -68,6 +70,37 @@ def greedy_maxcover(rows: torch.Tensor, k: int, solver: str | None = None,
     else:
         out = greedy_pick.greedy_plain(r, k, ex)
     seeds, sel_rows, covered, gains = (o if batched else o[0] for o in out)
+    return CoverSolution(seeds, sel_rows, covered,
+                         bitset.coverage_size(covered), gains)
+
+
+def greedy_maxcover_batch(rows: torch.Tensor, excluded, k: int,
+                          solver: str | None = None) -> CoverSolution:
+    """B seed-constrained queries against one shared pool ``rows`` int32
+    [n, W]; ``excluded`` int32 [B, E] (-1 pads).  Every field has a
+    leading [B] axis and slice b equals ``greedy_maxcover(rows, k,
+    solver, excluded=excluded[b])``.  Only the per-query state fans out:
+    the pool is read in place by every solver."""
+    solver = resolve_solver(solver)
+    n, w = rows.shape
+    ex = torch.as_tensor(excluded, dtype=torch.int32).to(rows.device)
+    if ex.dim() != 2:
+        raise ValueError(f"excluded must be [B, E], got {tuple(ex.shape)}")
+    b = ex.shape[0]
+    if solver == "resident":
+        out = greedy_pick.greedy_maxcover_resident_batch(rows, k, ex)
+    elif solver == "lazy":
+        out = lazy_greedy.greedy_maxcover_lazy_batch(rows, k, ex)[:4]
+    else:
+        shared = rows[None].expand(b, n, w)
+        if solver == "fused":
+            def pick(_, covered, picked):
+                return topk_gain.best_gain_index_batch(rows, covered, picked)
+            out = greedy_pick.greedy_plain(shared, k, ex.contiguous(),
+                                           pick=pick)
+        else:
+            out = greedy_pick.greedy_plain(shared, k, ex.contiguous())
+    seeds, sel_rows, covered, gains = out
     return CoverSolution(seeds, sel_rows, covered,
                          bitset.coverage_size(covered), gains)
 

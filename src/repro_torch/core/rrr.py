@@ -1,12 +1,21 @@
 """Batched Random-Reverse-Reachable (RRR) set sampling (twin of
-``repro.core.rrr``'s packed engine).
+``repro.core.rrr``).
 
-Frontier and visited state are word-packed int32 ``[n, batch/32]`` for
-the whole BFS, and one expansion is a gather over the padded *forward*
-adjacency: ``hit[u] |= frontier[v] & mask[v, rev_slot]`` for every
-forward pair ``(v, rev_slot)`` of ``u``.  Two samplers share this
-engine and are bit-identical to the reference's ``packed`` and
-``kernel`` samplers for the same key and ``coin_chunk``:
+Three samplers, bit-identical to the reference's samplers of the same
+name and to each other for the same key and ``coin_chunk``:
+
+  * ``sampler="dense"`` — the reference path in plain PyTorch: the
+    frontier and visited state of a batch is a bool ``[batch, n]``
+    matrix and one expansion scatters over the padded *reverse*
+    adjacency, drawing the whole ``[batch, n, chunk]`` coin block (IC)
+    or ``[batch, n]`` uniforms (LT) per step, as the reference does.
+    It holds a float32 coin block per slot chunk, so it suits small
+    graphs only;
+
+and two packed samplers, whose frontier and visited state are
+word-packed int32 ``[n, batch/32]`` for the whole BFS, one expansion a
+gather over the padded *forward* adjacency: ``hit[u] |= frontier[v] &
+mask[v, rev_slot]`` for every forward pair ``(v, rev_slot)`` of ``u``:
 
   * ``sampler="packed"`` — the plain PyTorch path (coins through
     ``prng``, expansion as tensor gathers);
@@ -30,19 +39,16 @@ import torch
 
 from repro_torch.core import bitset
 from repro_torch.core.prng import Key
+from repro_torch.graphs.csr import padded_adjacency, padded_forward_adjacency
 from repro_torch.kernels import coins, rrr_expand
 
-SAMPLERS = ("packed", "kernel")
+SAMPLERS = ("dense", "packed", "kernel")
 GATHERS = ("resident", "streamed", "auto")
 
 
 def resolve_sampler(sampler: Optional[str], default: str = "kernel") -> str:
     if sampler is None:
         sampler = default
-    if sampler == "dense":
-        raise NotImplementedError(
-            "sampler='dense' is not ported yet: ROADMAP Queue 1, "
-            "'the dense sampler'")
     if sampler not in SAMPLERS:
         raise ValueError(
             f"unknown sampler {sampler!r}; expected one of {SAMPLERS}")
@@ -197,22 +203,134 @@ def rrr_batch_packed(nbr, prob, wt, fwd_nbr, fwd_rslot, roots, key: Key, *,
     return visited
 
 
+def _rrr_batch_dense(nbr, prob, wt, roots, key: Key, *, model: str,
+                     max_steps: int, coin_chunk: int,
+                     stats: Optional[dict] = None) -> torch.Tensor:
+    """The reference's dense BFS: bool [batch, n] state, one scatter over
+    the padded reverse adjacency per step (column n is the sink of the
+    padded slots)."""
+    n, d = nbr.shape
+    batch = roots.shape[0]
+    dev = nbr.device
+    visited = torch.zeros((batch, n), dtype=torch.bool, device=dev)
+    visited[torch.arange(batch, device=dev), roots.long()] = True
+    if d == 0:          # edgeless graph: RRR(root) = {root}
+        return visited
+    valid = nbr >= 0
+    if model == "IC":
+        chunk, n_chunks, d_pad = _coin_chunks(d, coin_chunk)
+        prob_p = torch.nn.functional.pad(prob, (0, d_pad - d))
+        tgt_p = torch.nn.functional.pad(torch.where(valid, nbr, n),
+                                        (0, d_pad - d), value=n).long()
+    elif model == "LT":
+        cumw = xla_cumsum(wt)
+        in_deg = valid.sum(1)
+        rows = torch.arange(n, device=dev)[None, :]
+    else:
+        raise ValueError(f"unknown model {model!r}; expected IC or LT")
+    frontier = visited
+    step = 0
+    while step < max_steps and bool(frontier.any()):
+        key, sub = key.split()
+        hit = torch.zeros((batch, n + 1), dtype=torch.bool, device=dev)
+        if model == "IC":
+            for c in range(n_chunks):
+                # v in the frontier examines in-edge (u -> v): with
+                # probability p the reverse traversal reaches u.
+                coins_c = sub.fold_in(c).uniform((batch, n, chunk),
+                                                 device=dev)
+                fire = frontier[:, :, None] & (
+                    coins_c < prob_p[None, :, c * chunk:(c + 1) * chunk])
+                b, v, j = torch.nonzero(fire, as_tuple=True)
+                hit[b, tgt_p[v, c * chunk + j]] = True
+        else:  # LT live edge: v follows in-edge j with probability wt[v, j]
+            r = sub.uniform((batch, n), device=dev)
+            chosen = (r[:, :, None] >= cumw[None]).sum(-1)
+            pick_nbr = nbr[rows, chosen.clamp(0, d - 1)]
+            go = frontier & (chosen < in_deg[None]) & (pick_nbr >= 0)
+            b, v = torch.nonzero(go, as_tuple=True)
+            hit[b, pick_nbr[b, v].long()] = True
+        new = hit[:, :n] & ~visited
+        frontier, visited = new, visited | new
+        step += 1
+    if stats is not None:
+        stats["bfs_steps"] = stats.get("bfs_steps", 0) + step
+    return visited
+
+
+def rrr_batch(nbr, prob, wt, roots, key: Key, *, model: str,
+              max_steps: int = 64, sampler: str = "dense", fwd=None,
+              coin_chunk: int = 32, gather: str = "auto",
+              stats: Optional[dict] = None) -> torch.Tensor:
+    """One batch of RRR sets as bool [batch, n]: ``visited[i, v]`` iff v
+    is in RRR(roots[i]).  The packed samplers (which need
+    ``fwd=(fwd_nbr, fwd_rslot)``) return their words unpacked."""
+    sampler = resolve_sampler(sampler, default="dense")
+    if sampler == "dense":
+        return _rrr_batch_dense(nbr, prob, wt, roots, key, model=model,
+                                max_steps=max_steps, coin_chunk=coin_chunk,
+                                stats=stats)
+    if fwd is None:
+        raise ValueError(f"sampler={sampler!r} needs fwd=(fwd_nbr, "
+                         "fwd_rslot) from graphs.csr.padded_forward_adjacency")
+    packed = rrr_batch_packed(
+        nbr, prob, wt, fwd[0], fwd[1], roots, key, model=model,
+        max_steps=max_steps, coin_chunk=coin_chunk,
+        expand=("kernel" if sampler == "kernel" else "plain"), gather=gather,
+        stats=stats)
+    return bitset.unpack_words(packed, roots.shape[0]).T
+
+
 def sample_incidence(nbr, prob, wt, key: Key, *, theta: int, n: int,
                      model: str, max_steps: int = 64,
                      sampler: str = "kernel", fwd=None, coin_chunk: int = 32,
                      gather: str = "auto", stats: Optional[dict] = None):
     """Sample ``theta`` RRR sets (theta a multiple of 32); return the
-    packed incidence X int32 [n, theta/32] on the tables' device."""
+    packed incidence X int32 [n, theta/32] on the tables' device.  The
+    packed samplers need ``fwd``; the dense one packs its [theta, n]
+    bool state at the end, as the reference does."""
     if theta % bitset.WORD_BITS:
         raise ValueError(f"theta must be a multiple of 32, got {theta}")
     sampler = resolve_sampler(sampler)
+    kr, kb = key.split()
+    roots = kr.randint((theta,), 0, n, device=nbr.device)
+    if sampler == "dense":
+        visited = _rrr_batch_dense(nbr, prob, wt, roots, kb, model=model,
+                                   max_steps=max_steps,
+                                   coin_chunk=coin_chunk, stats=stats)
+        return bitset.pack_bool_matrix(visited.T)
     if fwd is None:
         raise ValueError("sample_incidence needs fwd=(fwd_nbr, fwd_rslot) "
                          "from graphs.csr.padded_forward_adjacency")
-    kr, kb = key.split()
-    roots = kr.randint((theta,), 0, n, device=nbr.device)
     return rrr_batch_packed(
         nbr, prob, wt, fwd[0], fwd[1], roots, kb, model=model,
         max_steps=max_steps, coin_chunk=coin_chunk,
         expand=("kernel" if sampler == "kernel" else "plain"), gather=gather,
         stats=stats)
+
+
+def sample_incidence_host(g, theta: int, key: Key, model: str = "IC",
+                          max_steps: int = 64, batch: int = 256,
+                          sampler: str = "kernel", coin_chunk: int = 32,
+                          gather: str = "auto"):
+    """``theta`` samples drawn in batches of ``batch`` (batch i keyed
+    ``key.fold_in(i)``) to bound peak memory.  ``theta`` rounds up to
+    whole words; returns (X int32 [n, theta/32] on the graph's device,
+    the rounded theta)."""
+    sampler = resolve_sampler(sampler)
+    theta = bitset.num_words(theta) * bitset.WORD_BITS
+    nbr, prob, wt = padded_adjacency(g)
+    fwd = padded_forward_adjacency(g) if sampler != "dense" else None
+    n = g.num_vertices
+    chunks = []
+    done = i = 0
+    while done < theta:
+        b = bitset.num_words(min(batch, theta - done)) * bitset.WORD_BITS
+        chunks.append(sample_incidence(
+            nbr, prob, wt, key.fold_in(i), theta=b, n=n, model=model,
+            max_steps=max_steps, sampler=sampler, fwd=fwd,
+            coin_chunk=coin_chunk, gather=gather))
+        done += b
+        i += 1
+    x = torch.cat(chunks, 1)[:, :bitset.num_words(theta)]
+    return x, theta

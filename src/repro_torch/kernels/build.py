@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 LIBS = ("rrr_expand", "coin_pack", "greedy_pick", "bucket_insert",
-        "coverage", "topk_gain", "lazy_greedy")
+        "coverage", "topk_gain", "lazy_greedy", "bucket_gains")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

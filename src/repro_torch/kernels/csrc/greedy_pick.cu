@@ -1,7 +1,13 @@
-// Greedy max-k-cover of m independent machines, all k picks in one
+// Greedy max-k-cover of m independent solves, all k picks in one
 // cooperative launch.  Replaces repro/kernels/greedy_pick.py:
 // greedy_maxcover_resident_pallas (sweep_tile_argmax, commit_pick,
-// _kernel), vmapped over machines at repro/core/randgreedi.py:131.
+// _kernel), vmapped over machines at repro/core/randgreedi.py:131 and
+// over queries at repro/kernels/ops.py:68.
+//
+// Solve s reads its rows at rows + s * rstride: rstride = n * W for m
+// machines with rows of their own, 0 for m queries over one shared
+// [n, W] pool (the serving batch), which is then never copied.  All
+// other state (cover, taken flags, keys, outputs) is per solve.
 //
 // Per pick: every block sweeps its share of its machine's rows (one warp
 // per row, the cover in shared memory), folds its best key into the
@@ -9,8 +15,9 @@
 // sync commits the winner (greedy_core.cuh).  Each pick owns its key
 // slot, zeroed by the caller, so nothing is reset between picks.
 //
-// Bound on the H100: bytes — each pick re-reads the machine's rows
-// (k * m * n * W * 4 bytes per solve; the roofline counts them once).
+// Bound on the H100: bytes — each pick re-reads the solve's rows
+// (k * m * n * W * 4 bytes per launch); the bound counts the rows an
+// exact lazy schedule must sweep (lazy_plain's tiles_needed).
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -22,8 +29,9 @@ namespace cg = cooperative_groups;
 __global__ void greedy_pick_kernel(const uint32_t* __restrict__ rows,
                                    const int32_t* __restrict__ excluded,
                                    int64_t E, int64_t n, int64_t W, int64_t k,
-                                   int bpm, bool vec, unsigned long long* keys,
-                                   uint8_t* taken, int32_t* seeds,
+                                   int64_t rstride, int bpm, bool vec,
+                                   unsigned long long* keys, uint8_t* taken,
+                                   int32_t* seeds,
                                    uint32_t* rows_out, uint32_t* covered,
                                    int32_t* gains) {
   cg::grid_group grid = cg::this_grid();
@@ -33,7 +41,7 @@ __global__ void greedy_pick_kernel(const uint32_t* __restrict__ rows,
   const int lb = blockIdx.x % bpm;  // block rank within the machine
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wpb = blockDim.x >> 5;
-  const uint32_t* R = rows + (int64_t)mach * n * W;
+  const uint32_t* R = rows + (int64_t)mach * rstride;
   uint8_t* T = taken + (int64_t)mach * n;
   unsigned long long* K = keys + (int64_t)mach * k;
 
@@ -61,7 +69,8 @@ __global__ void greedy_pick_kernel(const uint32_t* __restrict__ rows,
 extern "C" int greedy_pick(const void* rows, const void* excluded, void* keys,
                            void* taken, void* seeds, void* rows_out,
                            void* covered, void* gains, int64_t m, int64_t n,
-                           int64_t W, int64_t k, int64_t E, void* stream) {
+                           int64_t W, int64_t k, int64_t E, int64_t rstride,
+                           void* stream) {
   const int threads = 256;
   const size_t smem = (size_t)W * sizeof(uint32_t);
   int dev = 0, sms = 0, optin = 0, per_sm = 0;
@@ -81,11 +90,11 @@ extern "C" int greedy_pick(const void* rows, const void* excluded, void* keys,
   int bpm = (int)(resident / m);
   const int64_t useful = (n + (threads / 32) - 1) / (threads / 32);
   if (bpm > useful) bpm = (int)(useful > 0 ? useful : 1);
-  int64_t E_ = E, n_ = n, W_ = W, k_ = k;
+  int64_t E_ = E, n_ = n, W_ = W, k_ = k, rs_ = rstride;
   bool vec = vec_rows(rows, W);
   void* args[] = {(void*)&rows, (void*)&excluded, &E_, &n_, &W_, &k_,
-                  &bpm, &vec, &keys, &taken, &seeds, &rows_out, &covered,
-                  &gains};
+                  &rs_, &bpm, &vec, &keys, &taken, &seeds, &rows_out,
+                  &covered, &gains};
   err = cudaLaunchCooperativeKernel((void*)greedy_pick_kernel,
                                     dim3((unsigned)(m * bpm)), dim3(threads),
                                     args, smem, (cudaStream_t)stream);

@@ -1,8 +1,13 @@
-// Lazy greedy max-k-cover of m independent machines, all k picks in one
+// Lazy greedy max-k-cover of m independent solves, all k picks in one
 // cooperative launch.  Replaces repro/kernels/lazy_greedy.py:
 // greedy_maxcover_lazy_pallas — the resident solve plus a stale upper
 // bound per row tile, ub[m, num_tiles] (INT32_MAX at first), so a pick
-// re-reads only the tiles whose bound can still reach the best gain.
+// re-reads only the tiles whose bound can still reach the best gain —
+// vmapped over queries at repro/kernels/ops.py:83.
+//
+// Solve s reads its rows at rows + s * rstride: n * W for machines, 0
+// for queries over one shared [n, W] pool.  Each query keeps its own
+// bounds (they depend on its exclusions and picks).
 //
 // A tile is ``tile`` rows; tiles are dealt round-robin to the machine's
 // blocks, and only a tile's owner sweeps it or writes its bound.  On
@@ -37,9 +42,9 @@ namespace cg = cooperative_groups;
 __global__ void lazy_greedy_kernel(
     const uint32_t* __restrict__ rows, const int32_t* __restrict__ excluded,
     int64_t E, int64_t n, int64_t W, int64_t k, int64_t tile,
-    int64_t num_tiles, int bpm, bool vec, unsigned long long* keys,
-    uint8_t* taken, int32_t* ub, int32_t* swept, int32_t* seeds,
-    uint32_t* rows_out, uint32_t* covered, int32_t* gains) {
+    int64_t num_tiles, int64_t rstride, int bpm, bool vec,
+    unsigned long long* keys, uint8_t* taken, int32_t* ub, int32_t* swept,
+    int32_t* seeds, uint32_t* rows_out, uint32_t* covered, int32_t* gains) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) uint32_t cov[];
   __shared__ unsigned long long scratch[32];
@@ -49,7 +54,7 @@ __global__ void lazy_greedy_kernel(
   const int lb = blockIdx.x % bpm;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wpb = blockDim.x >> 5;
-  const uint32_t* R = rows + (int64_t)mach * n * W;
+  const uint32_t* R = rows + (int64_t)mach * rstride;
   uint8_t* T = taken + (int64_t)mach * n;
   unsigned long long* K = keys + (int64_t)mach * k;
   int32_t* U = ub + (int64_t)mach * num_tiles;
@@ -154,17 +159,18 @@ extern "C" int lazy_greedy(const void* rows, const void* excluded, void* keys,
                            void* rows_out, void* covered, void* gains,
                            int64_t m, int64_t n, int64_t W, int64_t k,
                            int64_t E, int64_t tile, int64_t min_tiles_per_block,
-                           void* stream) {
+                           int64_t rstride, void* stream) {
   size_t smem = 0;
   int64_t bpm = 0;
   const int planned = plan(m, n, W, tile, min_tiles_per_block, &smem, &bpm);
   if (planned) return planned;
   const int64_t num_tiles = (n + tile - 1) / tile;
   int bpm_ = (int)bpm;
-  int64_t E_ = E, n_ = n, W_ = W, k_ = k, tile_ = tile, nt_ = num_tiles;
+  int64_t E_ = E, n_ = n, W_ = W, k_ = k, tile_ = tile, nt_ = num_tiles,
+          rs_ = rstride;
   bool vec = vec_rows(rows, W);
   void* args[] = {(void*)&rows, (void*)&excluded, &E_, &n_, &W_, &k_,
-                  &tile_, &nt_, &bpm_, &vec, &keys, &taken, &ub, &swept,
+                  &tile_, &nt_, &rs_, &bpm_, &vec, &keys, &taken, &ub, &swept,
                   &seeds, &rows_out, &covered, &gains};
   cudaError_t err = cudaLaunchCooperativeKernel(
       (void*)lazy_greedy_kernel, dim3((unsigned)(m * bpm)), dim3(kThreads),

@@ -1,7 +1,10 @@
 // One greedy pick of m independent machines: the masked marginal-gain
 // sweep fused with the argmax.  Replaces repro/kernels/topk_gain.py:
 // best_gain_index_pallas (the solver="fused" per-pick engine), with the
-// machine axis added.
+// machine axis added; the same launch serves the query axis of
+// repro/core/maxcover.py:141 (vmapped, rows shared).  Solve s reads its
+// rows at rows + s * rstride: n * W for machines, 0 for queries over
+// one shared [n, W] pool.
 //
 //   gain[m, v] = picked[m, v] ? -1 : sum_w popc(rows[m, v, w] & ~cov[m, w])
 //   best[m], index[m] = max and lowest argmax of gain[m, :]
@@ -21,7 +24,7 @@
 __global__ void best_gain_kernel(const uint32_t* __restrict__ rows,
                                  const uint32_t* __restrict__ covered,
                                  const uint8_t* __restrict__ picked, int64_t n,
-                                 int64_t W, bool vec,
+                                 int64_t W, int64_t rstride, bool vec,
                                  unsigned long long* keys) {
   extern __shared__ __align__(16) uint32_t cov[];
   __shared__ unsigned long long scratch[32];
@@ -32,7 +35,7 @@ __global__ void best_gain_kernel(const uint32_t* __restrict__ rows,
     cov[w] = covered[mach * W + w];
   __syncthreads();
   const unsigned long long best = block_max_key(
-      warp_sweep_argmax(rows + mach * n * W, picked + mach * n, cov, W, vec,
+      warp_sweep_argmax(rows + mach * rstride, picked + mach * n, cov, W, vec,
                         (int64_t)blockIdx.x * wpb + warp, n,
                         (int64_t)gridDim.x * wpb, lane),
       scratch);
@@ -50,7 +53,7 @@ __global__ void decode_kernel(const unsigned long long* __restrict__ keys,
 extern "C" int best_gain_index(const void* rows, const void* covered,
                                const void* picked, void* keys, void* best,
                                void* index, int64_t m, int64_t n, int64_t W,
-                               void* stream) {
+                               int64_t rstride, void* stream) {
   const int threads = 256;
   const size_t smem = (size_t)W * sizeof(uint32_t);
   int dev = 0, sms = 0, optin = 0;
@@ -71,7 +74,7 @@ extern "C" int best_gain_index(const void* rows, const void* covered,
   cudaStream_t s = (cudaStream_t)stream;
   best_gain_kernel<<<dim3((unsigned)bx, (unsigned)m), threads, smem, s>>>(
       (const uint32_t*)rows, (const uint32_t*)covered, (const uint8_t*)picked,
-      n, W, vec_rows(rows, W), (unsigned long long*)keys);
+      n, W, rstride, vec_rows(rows, W), (unsigned long long*)keys);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   decode_kernel<<<1, 256, 0, s>>>((const unsigned long long*)keys, m,

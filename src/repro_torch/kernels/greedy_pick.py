@@ -1,13 +1,17 @@
-"""Greedy max-k-cover over a machine axis (``csrc/greedy_pick.cu``) and
-its plain PyTorch version (the scan solver).
+"""Greedy max-k-cover over a machine or query axis
+(``csrc/greedy_pick.cu``) and its plain PyTorch version (the scan
+solver).
 
 Replaces ``repro/kernels/greedy_pick.py``: ``greedy_maxcover_resident_pallas``
-(TPU kernel #3), which the reference vmaps over the m machines; here
-the machine axis is part of the one cooperative launch.  Each pick
-masks picked and excluded rows to gain -1, takes the largest gain with
-the lowest-index tie-break, and commits as ``commit_pick``: a best gain
-<= 0 gives seed -1, gain 0 and a zero row.  Bound on the H100: bytes
-(every pick re-reads the rows).
+(TPU kernel #3), which the reference vmaps over the m machines and, for
+serving, over B queries sharing one row pool
+(``repro/kernels/ops.py:68``); here either axis is part of the one
+cooperative launch, and shared rows are read in place (row stride 0).
+Each pick masks picked and excluded rows to gain -1, takes the largest
+gain with the lowest-index tie-break, and commits as ``commit_pick``: a
+best gain <= 0 gives seed -1, gain 0 and a zero row.  Bound on the H100:
+bytes — the rows an exact lazy schedule must sweep (``lazy_plain``'s
+``tiles_needed``); the kernel itself re-reads every row each pick.
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ import torch
 
 from repro_torch.kernels import ops, topk_gain
 
-_ARGS = [ops.PTR] * 8 + [ops.I64] * 5
+_ARGS = [ops.PTR] * 8 + [ops.I64] * 6
 
 
 def excluded_ids(excluded, m: int, device) -> torch.Tensor:
@@ -34,7 +38,8 @@ def excluded_ids(excluded, m: int, device) -> torch.Tensor:
 
 def greedy_plain(rows: torch.Tensor, k: int, excluded: torch.Tensor,
                  pick=topk_gain.best_gain_index_plain):
-    """rows int32 [m, n, W], excluded int32 [m, E] -> (seeds [m, k],
+    """rows int32 [m, n, W] (an expanded view of one shared pool works
+    and is never copied), excluded int32 [m, E] -> (seeds [m, k],
     sel_rows [m, k, W], covered [m, W], gains [m, k]): k calls of
     ``pick(rows, covered, picked) -> (best gain, best index)`` (the
     plain sweep by default, ``topk_gain.best_gain_index`` for the fused
@@ -66,14 +71,8 @@ def greedy_plain(rows: torch.Tensor, k: int, excluded: torch.Tensor,
     return seeds, sel_rows, covered, gains
 
 
-def greedy_maxcover_resident(rows: torch.Tensor, k: int, excluded=None):
-    """All k picks of every machine of ``rows`` int32 [m, n, W] in one
-    launch; ``excluded`` int32 [E] or [m, E] row ids never picked."""
-    m, n, w = rows.shape
-    ex = excluded_ids(excluded, m, rows.device)
-    if not ops.on_card(rows, ex):
-        return greedy_plain(rows, k, ex)
-    ops.check(rows, "rows", torch.int32, (m, n, w))
+def _launch(counter: str, rows: torch.Tensor, m: int, n: int, w: int,
+            k: int, ex: torch.Tensor, rstride: int):
     dev = rows.device
     seeds = torch.full((m, k), -1, dtype=torch.int32, device=dev)
     sel_rows = torch.zeros((m, k, w), dtype=torch.int32, device=dev)
@@ -83,8 +82,36 @@ def greedy_maxcover_resident(rows: torch.Tensor, k: int, excluded=None):
         return seeds, sel_rows, covered, gains
     keys = torch.zeros((m, k), dtype=torch.int64, device=dev)
     taken = torch.zeros((m, n), dtype=torch.uint8, device=dev)
-    ops.launch("greedy_pick", "greedy_pick", "greedy_pick", _ARGS,
+    ops.launch(counter, "greedy_pick", "greedy_pick", _ARGS,
                rows.data_ptr(), ex.data_ptr(), keys.data_ptr(), taken.data_ptr(),
                seeds.data_ptr(), sel_rows.data_ptr(), covered.data_ptr(),
-               gains.data_ptr(), m, n, w, k, ex.shape[1])
+               gains.data_ptr(), m, n, w, k, ex.shape[1], rstride)
     return seeds, sel_rows, covered, gains
+
+
+def greedy_maxcover_resident(rows: torch.Tensor, k: int, excluded=None):
+    """All k picks of every machine of ``rows`` int32 [m, n, W] in one
+    launch; ``excluded`` int32 [E] or [m, E] row ids never picked."""
+    m, n, w = rows.shape
+    ex = excluded_ids(excluded, m, rows.device)
+    if not ops.on_card(rows, ex):
+        return greedy_plain(rows, k, ex)
+    ops.check(rows, "rows", torch.int32, (m, n, w))
+    return _launch("greedy_pick", rows, m, n, w, k, ex, n * w)
+
+
+def greedy_maxcover_resident_batch(rows: torch.Tensor, k: int,
+                                   excluded: torch.Tensor):
+    """B seed-constrained queries over one shared pool ``rows`` int32
+    [n, W], all k picks of every query in one launch; ``excluded`` int32
+    [B, E] (-1 pads).  The pool is read in place, never copied per
+    query; slice b equals the solve of query b alone."""
+    n, w = rows.shape
+    if excluded.dim() != 2:
+        raise ValueError(f"excluded must be [B, E], got {tuple(excluded.shape)}")
+    b = excluded.shape[0]
+    ex = excluded_ids(excluded, b, rows.device)
+    if not ops.on_card(rows, ex):
+        return greedy_plain(rows[None].expand(b, n, w), k, ex)
+    ops.check(rows, "rows", torch.int32, (n, w))
+    return _launch("greedy_pick_batch", rows, b, n, w, k, ex, 0)

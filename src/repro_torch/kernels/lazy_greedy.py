@@ -1,10 +1,12 @@
-"""Lazy greedy max-k-cover over a machine axis (``csrc/lazy_greedy.cu``)
-and its plain PyTorch version.
+"""Lazy greedy max-k-cover over a machine or query axis
+(``csrc/lazy_greedy.cu``) and its plain PyTorch version.
 
 Replaces ``repro/kernels/lazy_greedy.py``: ``greedy_maxcover_lazy_pallas``
 (TPU kernel #6) — the resident solve plus a stale upper bound per tile
 of ``TILE_ROWS`` rows, so a pick re-sweeps only the tiles whose bound
-can still reach the best gain.  Seeds, rows, covered and gains equal
+can still reach the best gain.  The query axis (B queries over one
+shared pool, ``repro/kernels/ops.py:83``) is the same launch with row
+stride 0; each query keeps its own bounds.  Seeds, rows, covered and gains equal
 the resident solve's bit for bit; ``tiles_swept`` (int32 [m]) depends
 on the order the sweeps run in, lies in [num_tiles, k * num_tiles] per
 machine, and is never compared for equality.  Bound on the H100: bytes
@@ -22,7 +24,7 @@ TILE_ROWS = 32
 # block's largest-bound tile) leaves most tiles to the bound test.
 MIN_TILES_PER_BLOCK = 8
 _UB_INIT = 2**31 - 1
-_ARGS = [ops.PTR] * 10 + [ops.I64] * 7
+_ARGS = [ops.PTR] * 10 + [ops.I64] * 8
 
 
 def num_row_tiles(n: int) -> int:
@@ -31,7 +33,10 @@ def num_row_tiles(n: int) -> int:
 
 def lazy_plain(rows: torch.Tensor, k: int, excluded: torch.Tensor,
                stats: dict | None = None):
-    """The resident solve's picks, with the reference's in-order bound
+    """``rows`` int32 [m, n, W] (an expanded view of one shared pool
+    works and is never copied), excluded int32 [m, E].
+
+    The resident solve's picks, with the reference's in-order bound
     test counting the tiles it would sweep: tile t is swept when its
     bound reaches the best of the tiles before it.  Returns (seeds,
     sel_rows, covered, gains, tiles_swept [m]).
@@ -39,7 +44,11 @@ def lazy_plain(rows: torch.Tensor, k: int, excluded: torch.Tensor,
     ``stats["tiles_needed"]`` (int32 [m]) counts the sweeps of an
     exact schedule that knows each pick's final best: every tile in the
     first pick, then in each pick the tiles whose stale bound reaches
-    that best (a swept tile's bound becomes its fresh masked max)."""
+    that best (a swept tile's bound becomes its fresh masked max).
+    ``stats["tiles_needed_shared"]`` counts the (pick, tile) pairs that
+    at least one of the m solves needs: the sweeps of a schedule that
+    reads each tile once per pick for all solves, when the m solves
+    share one pool (the query axis)."""
     m, n, _ = rows.shape
     tiles = num_row_tiles(n)
     ub = torch.full((m, tiles), _UB_INIT, dtype=torch.int32,
@@ -47,6 +56,7 @@ def lazy_plain(rows: torch.Tensor, k: int, excluded: torch.Tensor,
     ub_need = ub.clone()
     swept = torch.zeros((m,), dtype=torch.int32, device=rows.device)
     needed = torch.zeros_like(swept)
+    shared = torch.zeros((), dtype=torch.int64, device=rows.device)
     ar = torch.arange(m, device=rows.device)
 
     def pick(rows, covered, picked):
@@ -64,11 +74,13 @@ def lazy_plain(rows: torch.Tensor, k: int, excluded: torch.Tensor,
         need = ub_need >= g[ar, best][:, None]
         ub_need.copy_(torch.where(need, tmax, ub_need))
         needed.add_(need.sum(1, dtype=torch.int32))
+        shared.add_(need.any(0).sum())
         return g[ar, best], best
 
     out = greedy_pick.greedy_plain(rows, k, excluded, pick=pick)
     if stats is not None:
         stats["tiles_needed"] = needed
+        stats["tiles_needed_shared"] = int(shared)
     return (*out, swept)
 
 
@@ -86,15 +98,8 @@ def blocks_per_machine(m: int, n: int, num_words: int, device) -> int:
     return bpm
 
 
-def greedy_maxcover_lazy(rows: torch.Tensor, k: int, excluded=None):
-    """All k picks of every machine of ``rows`` int32 [m, n, W] in one
-    launch -> (seeds, sel_rows, covered, gains, tiles_swept);
-    ``excluded`` int32 [E] or [m, E] row ids are never picked."""
-    m, n, w = rows.shape
-    ex = greedy_pick.excluded_ids(excluded, m, rows.device)
-    if not ops.on_card(rows, ex):
-        return lazy_plain(rows, k, ex)
-    ops.check(rows, "rows", torch.int32, (m, n, w))
+def _launch(counter: str, rows: torch.Tensor, m: int, n: int, w: int,
+            k: int, ex: torch.Tensor, rstride: int):
     dev = rows.device
     seeds = torch.full((m, k), -1, dtype=torch.int32, device=dev)
     sel_rows = torch.zeros((m, k, w), dtype=torch.int32, device=dev)
@@ -107,10 +112,39 @@ def greedy_maxcover_lazy(rows: torch.Tensor, k: int, excluded=None):
     taken = torch.zeros((m, n), dtype=torch.uint8, device=dev)
     ub = torch.full((m, num_row_tiles(n)), _UB_INIT, dtype=torch.int32,
                     device=dev)
-    ops.launch("lazy_greedy", "lazy_greedy", "lazy_greedy", _ARGS,
+    ops.launch(counter, "lazy_greedy", "lazy_greedy", _ARGS,
                rows.data_ptr(), ex.data_ptr(), keys.data_ptr(),
                taken.data_ptr(), ub.data_ptr(), swept.data_ptr(),
                seeds.data_ptr(), sel_rows.data_ptr(), covered.data_ptr(),
                gains.data_ptr(), m, n, w, k, ex.shape[1], TILE_ROWS,
-               MIN_TILES_PER_BLOCK)
+               MIN_TILES_PER_BLOCK, rstride)
     return seeds, sel_rows, covered, gains, swept
+
+
+def greedy_maxcover_lazy(rows: torch.Tensor, k: int, excluded=None):
+    """All k picks of every machine of ``rows`` int32 [m, n, W] in one
+    launch -> (seeds, sel_rows, covered, gains, tiles_swept);
+    ``excluded`` int32 [E] or [m, E] row ids are never picked."""
+    m, n, w = rows.shape
+    ex = greedy_pick.excluded_ids(excluded, m, rows.device)
+    if not ops.on_card(rows, ex):
+        return lazy_plain(rows, k, ex)
+    ops.check(rows, "rows", torch.int32, (m, n, w))
+    return _launch("lazy_greedy", rows, m, n, w, k, ex, n * w)
+
+
+def greedy_maxcover_lazy_batch(rows: torch.Tensor, k: int,
+                               excluded: torch.Tensor):
+    """B seed-constrained queries over one shared pool ``rows`` int32
+    [n, W] in one launch -> (seeds, sel_rows, covered, gains,
+    tiles_swept), each with a leading [B] axis; ``excluded`` int32
+    [B, E].  The pool is read in place, never copied per query."""
+    n, w = rows.shape
+    if excluded.dim() != 2:
+        raise ValueError(f"excluded must be [B, E], got {tuple(excluded.shape)}")
+    b = excluded.shape[0]
+    ex = greedy_pick.excluded_ids(excluded, b, rows.device)
+    if not ops.on_card(rows, ex):
+        return lazy_plain(rows[None].expand(b, n, w), k, ex)
+    ops.check(rows, "rows", torch.int32, (n, w))
+    return _launch("lazy_greedy_batch", rows, b, n, w, k, ex, 0)

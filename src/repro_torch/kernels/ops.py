@@ -6,6 +6,8 @@ the kernel — there is no fallback between the two.  :func:`launch`
 calls the C entry point on ``torch.cuda.current_stream()``, raises if it
 returns an error, and only then adds one to that kernel's count in
 :data:`LAUNCHES` (so a run can show that it went through the kernels).
+The ``*_batch`` counts are the query-axis launches of the sender
+kernels: B queries over one shared row pool (row stride 0).
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ from repro_torch.kernels import build
 
 KERNELS = ("rrr_expand_resident", "rrr_expand_streamed", "coin_pack",
            "greedy_pick", "bucket_insert", "coverage", "topk_gain",
-           "lazy_greedy", "bucket_insert_stream")
+           "lazy_greedy", "bucket_insert_stream", "bucket_gains",
+           "greedy_pick_batch", "lazy_greedy_batch", "topk_gain_batch")
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 

@@ -3,8 +3,10 @@ argmax (``csrc/topk_gain.cu``) — and the plain PyTorch version.
 
 Replaces ``repro/kernels/topk_gain.py``: ``best_gain_index_pallas`` (TPU
 kernel #7), the per-pick engine of ``solver="fused"``, with a leading
-machine axis.  Picked rows score -1; ties go to the lowest row index,
-as ``jnp.argmax`` breaks them.  Bound on the H100: bytes (the rows,
+machine axis, or a query axis over one shared row pool (row stride 0;
+the reference vmaps the kernel over queries in
+``repro/core/maxcover.py:141``).  Picked rows score -1; ties go to the
+lowest row index, as ``jnp.argmax`` breaks them.  Bound on the H100: bytes (the rows,
 read once per pick).
 """
 from __future__ import annotations
@@ -13,15 +15,31 @@ import torch
 
 from repro_torch.kernels import coverage, ops
 
-_ARGS = [ops.PTR] * 6 + [ops.I64] * 3
+_ARGS = [ops.PTR] * 6 + [ops.I64] * 4
 
 
 def best_gain_index_plain(rows, covered, picked):
-    """rows int32 [m, n, W], covered int32 [m, W], picked bool [m, n] ->
-    (best gain, best index), int32 [m] each."""
+    """rows int32 [m, n, W] (or an expanded view of one shared pool),
+    covered int32 [m, W], picked bool [m, n] -> (best gain, best index),
+    int32 [m] each."""
     g = torch.where(picked, -1, coverage.marginal_gain_plain(rows, covered))
     best = torch.argmax(g, dim=1)
     return g.gather(1, best[:, None])[:, 0], best.to(torch.int32)
+
+
+def _launch(counter: str, rows, covered, picked, m: int, n: int, w: int,
+            rstride: int):
+    dev = rows.device
+    keys = torch.zeros((m,), dtype=torch.int64, device=dev)
+    best = torch.empty((m,), dtype=torch.int32, device=dev)
+    index = torch.empty((m,), dtype=torch.int32, device=dev)
+    if m == 0:
+        return best, index
+    ops.launch(counter, "topk_gain", "best_gain_index", _ARGS,
+               rows.data_ptr(), covered.data_ptr(), picked.data_ptr(),
+               keys.data_ptr(), best.data_ptr(), index.data_ptr(), m, n, w,
+               rstride)
+    return best, index
 
 
 def best_gain_index(rows: torch.Tensor, covered: torch.Tensor,
@@ -35,13 +53,22 @@ def best_gain_index(rows: torch.Tensor, covered: torch.Tensor,
     ops.check(rows, "rows", torch.int32, (m, n, w))
     ops.check(covered, "covered", torch.int32, (m, w))
     ops.check(picked, "picked", torch.bool, (m, n))
-    dev = rows.device
-    keys = torch.zeros((m,), dtype=torch.int64, device=dev)
-    best = torch.empty((m,), dtype=torch.int32, device=dev)
-    index = torch.empty((m,), dtype=torch.int32, device=dev)
-    if m == 0:
-        return best, index
-    ops.launch("topk_gain", "topk_gain", "best_gain_index", _ARGS,
-               rows.data_ptr(), covered.data_ptr(), picked.data_ptr(),
-               keys.data_ptr(), best.data_ptr(), index.data_ptr(), m, n, w)
-    return best, index
+    return _launch("topk_gain", rows, covered, picked, m, n, w, n * w)
+
+
+def best_gain_index_batch(rows: torch.Tensor, covered: torch.Tensor,
+                          picked: torch.Tensor):
+    """One pick of each of B queries over one shared pool ``rows`` int32
+    [n, W]: covered int32 [B, W], picked bool [B, n] -> (best gain,
+    best index), int32 [B] each.  The pool is read in place."""
+    n, w = rows.shape
+    b = covered.shape[0]
+    if n == 0:
+        raise ValueError("best_gain_index needs at least one row")
+    if not ops.on_card(rows, covered, picked):
+        return best_gain_index_plain(rows[None].expand(b, n, w), covered,
+                                     picked)
+    ops.check(rows, "rows", torch.int32, (n, w))
+    ops.check(covered, "covered", torch.int32, (b, w))
+    ops.check(picked, "picked", torch.bool, (b, n))
+    return _launch("topk_gain_batch", rows, covered, picked, b, n, w, 0)

@@ -15,9 +15,11 @@ distributed GreediRIS round, then the spread estimate, on one device.
 Same flag names and ``[im]`` lines as the reference.  The port's
 defaults are the kernel paths; ``--device`` (default ``cuda``) picks
 the device and never falls back.  On one card ``--machines`` sets the
-round's machine count m (the reference takes its device count).  Flags
-of paths not ported yet raise ``NotImplementedError`` naming their
-ROADMAP entry.
+round's machine count m (the reference takes its device count).
+``--use-opim`` runs the OPIM-C loop instead of IMM, and ``--serve``
+hands the graph, model, solver and sampler flags to the serving replay
+(``repro_torch.launch.serve --check``).  Flags of paths not ported yet
+raise ``NotImplementedError`` naming their ROADMAP entry.
 """
 from __future__ import annotations
 
@@ -28,8 +30,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import (cascade, greediris, imm, maxcover, prng,
-                              resolve_device, theory)
+from repro_torch.core import (cascade, greediris, imm, maxcover, opim,
+                              prng, resolve_device, theory)
 from repro_torch.core.diffusion import influence
 from repro_torch.core.rrr import resolve_sampler
 from repro_torch.graphs import generators
@@ -37,8 +39,6 @@ from repro_torch.graphs.csr import padded_adjacency, padded_forward_adjacency
 
 # flag -> (value that means "not asked for", ROADMAP entry porting it)
 _NOT_PORTED = {
-    "use_opim": (False, "Queue 1, 'OPIM'"),
-    "serve": (False, "Queue 1, 'serving'"),
     "faults": ([], "Queue 1, 'runtime'"),
     "fault_report": (None, "Queue 1, 'runtime'"),
     "eval_spread": (False, "Queue 1, 'the WC model and the map cascade "
@@ -114,8 +114,10 @@ def parser() -> argparse.ArgumentParser:
                          "bit-identical")
     ap.add_argument("--sampler", default="kernel",
                     choices=("dense", "packed", "kernel"),
-                    help="S1 path: 'packed' (plain PyTorch) or 'kernel' "
-                         "(coin and expansion CUDA kernels); bit-identical")
+                    help="S1 path: 'dense' (the reference's bool-state "
+                         "BFS in plain PyTorch; small graphs), 'packed' "
+                         "(plain PyTorch) or 'kernel' (coin and expansion "
+                         "CUDA kernels); bit-identical")
     ap.add_argument("--gather", default="auto",
                     choices=("resident", "streamed", "auto"),
                     help="expansion kernel layout ('auto' = resident)")
@@ -131,7 +133,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--eval-engine", default="kernel",
                     choices=("map", "packed", "kernel"))
     ap.add_argument("--eval-spread", action="store_true")
-    ap.add_argument("--serve", action="store_true")
+    ap.add_argument("--serve", action="store_true",
+                    help="run the serving replay (repro_torch.launch.serve "
+                         "--check) on the same graph, model, solver and "
+                         "sampler flags instead of one selection")
     ap.add_argument("--faults", action="append", default=[])
     ap.add_argument("--fault-report", default=None)
     ap.add_argument("--seed", type=int, default=0)
@@ -143,12 +148,22 @@ def parser() -> argparse.ArgumentParser:
 def run(argv=None) -> dict:
     """Parse ``argv``, run the driver, print the ``[im]`` lines, and
     return the result with per-stage seconds and counts (``round``: the
-    fixed-theta round's coverages and stage seconds, else None)."""
+    fixed-theta round's coverages and stage seconds, else None;
+    ``guarantee``: OPIM's certified ratio, else None).  With
+    ``--serve``, returns ``serve.run``'s result under ``serve``."""
     args = parser().parse_args(argv)
     for flag, (off, item) in _NOT_PORTED.items():
         if getattr(args, flag) != off:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet: ROADMAP {item}")
+    if args.serve:
+        from repro_torch.launch import serve
+        return dict(serve=serve.run([
+            "--graph", args.graph, "--n", str(args.n),
+            "--avg-deg", str(args.avg_deg), "--model", args.model,
+            "--solver", args.solver, "--sampler", args.sampler,
+            "--k-max", str(args.k), "--max-theta", str(args.max_theta),
+            "--seed", str(args.seed), "--device", args.device, "--check"]))
     resolve_sampler(args.sampler)
     maxcover.resolve_solver(args.solver)
     cascade.resolve_engine(args.eval_engine)
@@ -183,12 +198,21 @@ def run(argv=None) -> dict:
                 m, "streaming", args.delta, args.alpha,
                 use_kernel=args.use_kernel, solver=solver),
         }[args.selector]()
-        res = imm.imm(g, args.k, args.eps, key, model=args.model,
-                      selector=sel, max_theta=args.max_theta,
-                      sampler=args.sampler, coin_chunk=args.coin_chunk,
-                      gather=args.gather, stats=stats)
-        print(f"[im] IMM rounds={res.rounds} theta={res.theta} "
-              f"coverage_frac={res.coverage_fraction:.4f}")
+        if args.use_opim:
+            res = opim.opim(g, args.k, args.eps, key, model=args.model,
+                            selector=sel, max_theta=args.max_theta,
+                            sampler=args.sampler, coin_chunk=args.coin_chunk,
+                            gather=args.gather, stats=stats)
+            print(f"[im] OPIM rounds={res.rounds} theta={res.theta} "
+                  f"guarantee={res.guarantee:.3f} "
+                  f"sigma_l={res.sigma_lower:.1f}")
+        else:
+            res = imm.imm(g, args.k, args.eps, key, model=args.model,
+                          selector=sel, max_theta=args.max_theta,
+                          sampler=args.sampler, coin_chunk=args.coin_chunk,
+                          gather=args.gather, stats=stats)
+            print(f"[im] IMM rounds={res.rounds} theta={res.theta} "
+                  f"coverage_frac={res.coverage_fraction:.4f}")
     elapsed = time.perf_counter() - t0
 
     seeds = np.asarray(res.seeds)
@@ -206,7 +230,8 @@ def run(argv=None) -> dict:
           f"worst-case ratio {ratio:.3f}")
     return dict(
         seeds=seeds, theta=res.theta, rounds=res.rounds,
-        coverage_fraction=res.coverage_fraction, spread=spread, n=n,
+        coverage_fraction=getattr(res, "coverage_fraction", None),
+        guarantee=getattr(res, "guarantee", None), spread=spread, n=n,
         edges=g.num_edges, graph_s=graph_s,
         sample_s=stats.get("sample_s", 0.0),
         select_s=stats.get("select_s", 0.0), spread_s=spread_s,
@@ -261,8 +286,8 @@ def _fixed_theta_round(args, g, m: int, key, stats: dict) -> RoundResult:
 
 
 def main(argv=None) -> int:
-    run(argv)
-    return 0
+    out = run(argv)
+    return out["serve"]["rc"] if "serve" in out else 0
 
 
 if __name__ == "__main__":

@@ -7,11 +7,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import greediris, imm, prng, rrr  # noqa: E402
+from repro_torch.core import greediris, imm, maxcover, prng, rrr  # noqa: E402
 from repro_torch.graphs import csr, generators  # noqa: E402
-from repro_torch.kernels import (bucket_insert, coins, coverage,  # noqa: E402
-                                 greedy_pick, lazy_greedy, rrr_expand,
-                                 topk_gain)
+from repro_torch.kernels import (bucket, bucket_insert, coins,  # noqa: E402
+                                 coverage, greedy_pick, lazy_greedy, ops,
+                                 rrr_expand, topk_gain)
+from repro_torch.launch import serve  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -186,3 +187,81 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
             wide[0, :2], torch.zeros(2, dtype=torch.int32, device=dev),
             torch.full((2, 1), -1, dtype=torch.int32, device=dev),
             torch.zeros(2, device=dev))
+
+
+@pytest.mark.parametrize("b,w", [(1, 1), (7, 33), (63, 4096), (64, 2053),
+                                 (3, 4099)])
+def test_bucket_gains(dev, b, w):
+    gen = torch.Generator().manual_seed(b * w)
+    row = _words(gen, w, dev=dev)
+    covers = _words(gen, b, w, dev=dev) & _words(gen, b, w, dev=dev)
+    covers[0] = 0
+    _equal([bucket.bucket_gains(row, covers)],
+           [bucket.bucket_gains_plain(row, covers)])
+    # unaligned starts take the 4-byte path
+    _equal([bucket.bucket_gains(row[1:], covers[:, 1:].contiguous())],
+           [bucket.bucket_gains_plain(row[1:], covers[:, 1:])])
+
+
+@pytest.mark.parametrize("n,w,k", [(301, 5, 12), (2000, 36, 20)])
+def test_query_axis_kernels(dev, n, w, k):
+    """B = 8 queries over one shared pool: the three query-axis kernels
+    equal their plain versions, counted apart from the machine axis."""
+    gen = torch.Generator().manual_seed(n)
+    rows = _words(gen, n, w, dev=dev) & _words(gen, n, w, dev=dev)
+    rows[40] = rows[7]                           # a tie across two tiles
+    ex = torch.randint(-1, n, (8, 3), generator=gen, dtype=torch.int32
+                       ).to(dev)
+    ex[0] = -1
+    ops.reset_launches()
+    _equal(greedy_pick.greedy_maxcover_resident_batch(rows, k, ex),
+           greedy_pick.greedy_plain(rows[None].expand(8, n, w), k, ex))
+    *got, swept = lazy_greedy.greedy_maxcover_lazy_batch(rows, k, ex)
+    *want, _ = lazy_greedy.lazy_plain(rows[None].expand(8, n, w), k, ex)
+    _equal(got, want)
+    cov = _words(gen, 8, w, dev=dev) & _words(gen, 8, w, dev=dev)
+    picked = (torch.rand((8, n), generator=gen) < 0.3).to(dev)
+    _equal(topk_gain.best_gain_index_batch(rows, cov, picked),
+           topk_gain.best_gain_index_plain(rows[None].expand(8, n, w), cov,
+                                           picked))
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+        "greedy_pick_batch": 1, "lazy_greedy_batch": 1, "topk_gain_batch": 1}
+    for solver in maxcover.SOLVERS:
+        sol = maxcover.greedy_maxcover_batch(rows, ex, k, solver=solver)
+        for b in (0, 5):
+            one = maxcover.greedy_maxcover(rows, k, solver=solver,
+                                           excluded=ex[b])
+            _equal([f[b] for f in sol], one)
+
+
+def test_batched_solve_peak_memory_stays_near_the_pool(dev):
+    """The pool is shared, not copied per query: a B = 8 solve over a
+    128 MiB pool peaks under the pool's bytes plus 10%."""
+    gen = torch.Generator().manual_seed(5)
+    rows = _words(gen, 32768, 1024, dev=dev) & _words(gen, 32768, 1024,
+                                                       dev=dev)
+    ex = torch.full((8, 4), -1, dtype=torch.int32, device=dev)
+    pool_bytes = rows.numel() * 4
+    for solver in ("resident", "lazy", "fused"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        sol = maxcover.greedy_maxcover_batch(rows, ex, 10, solver=solver)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        assert base >= pool_bytes
+        assert peak <= 1.1 * pool_bytes + (base - pool_bytes), solver
+        del sol
+
+
+def test_serve_check_on_card_equals_the_cpu(dev):
+    flags = ["--n", "300", "--queries", "8", "--batch", "4", "--theta0",
+             "256", "--slab", "128", "--max-theta", "1024", "--k-max", "6",
+             "--refresh-every", "1", "--check"]
+    for solver in ("lazy", "fused"):
+        got = serve.run(flags + ["--solver", solver])
+        want = serve.run(flags + ["--solver", solver, "--device", "cpu",
+                                  "--sampler", "packed"])
+        assert got["rc"] == 0 and want["rc"] == 0
+        assert all(serve.answers_equal(a, b)
+                   for a, b in zip(got["answers"], want["answers"]))

@@ -1,7 +1,8 @@
 """The port stands alone and never falls back: it imports nothing of jax
 or ``repro``, CUDA requests without a card raise, CPU tensors take the
-plain versions without counting a launch, and flags of paths not ported
-yet raise ``NotImplementedError``."""
+plain versions without counting a launch, flags of paths not ported yet
+raise ``NotImplementedError``, and flags that used to be refused run
+and equal their plain twins."""
 import os
 import subprocess
 import sys
@@ -11,9 +12,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import prng  # noqa: E402
-from repro_torch.kernels import (bucket_insert, coins, coverage,  # noqa: E402
-                                 greedy_pick, lazy_greedy, ops, rrr_expand,
-                                 topk_gain)
+from repro_torch.kernels import (bucket, bucket_insert, coins,  # noqa: E402
+                                 coverage, greedy_pick, lazy_greedy, ops,
+                                 rrr_expand, topk_gain)
 from repro_torch.launch import im_driver  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -86,12 +87,18 @@ def test_cpu_tensors_take_plain_versions_without_launches():
         torch.arange(4, dtype=torch.int32).reshape(2, 2), w(2, 2, width),
         w(3, width), torch.zeros(3, dtype=torch.int32),
         torch.full((3, 2), -1, dtype=torch.int32), torch.zeros(3))
+    bucket.bucket_gains(w(width), w(3, width))
+    shared, ex = w(n, width), torch.tensor([[1], [-1]], dtype=torch.int32)
+    greedy_pick.greedy_maxcover_resident_batch(shared, 3, ex)
+    lazy_greedy.greedy_maxcover_lazy_batch(shared, 3, ex)
+    topk_gain.best_gain_index_batch(shared, cov,
+                                    torch.zeros((2, n), dtype=torch.bool))
     assert ops.LAUNCHES == dict.fromkeys(ops.KERNELS, 0)
 
 
 @pytest.mark.parametrize("flags", [
-    ["--use-opim"], ["--serve"], ["--faults", "x"], ["--sampler", "dense"],
-    ["--eval-engine", "map"], ["--eval-spread"],
+    ["--faults", "x"], ["--fault-report", "x"], ["--eval-engine", "map"],
+    ["--eval-spread"],
 ])
 def test_unported_paths_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, '"):
@@ -108,6 +115,10 @@ PLAIN = ["--sampler", "packed", "--solver", "scan", "--eval-engine",
     ["--selector", "ripples", "--machines", "4"],
     ["--solver", "lazy", "--use-kernel", "--machines", "4"],
     ["--solver", "fused", "--use-kernel", "--machines", "4"],
+    ["--use-opim", "--solver", "lazy", "--use-kernel", "--machines", "4"],
+    ["--use-opim", "--selector", "greedy"],
+    ["--sampler", "dense", "--machines", "4"],
+    ["--sampler", "dense", "--theta", "256", "--machines", "2"],
 ])
 def test_ported_paths_equal_their_plain_twin(flags):
     """Paths that used to be refused now run on the CPU and give what
@@ -122,8 +133,8 @@ def test_ported_paths_equal_their_plain_twin(flags):
             i = plain.index(flag)
             del plain[i:i + 2]
     want = im_driver.run(base + plain + PLAIN)
-    for key in ("seeds", "theta", "rounds", "coverage_fraction", "spread",
-                "round"):
+    for key in ("seeds", "theta", "rounds", "coverage_fraction", "guarantee",
+                "spread", "round"):
         if key == "seeds":
             assert got[key].tolist() == want[key].tolist()
         elif key == "round" and got[key] is not None:

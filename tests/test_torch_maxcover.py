@@ -82,3 +82,46 @@ def test_unported_solvers_raise():
                                               excluded=[4]), want)
     with pytest.raises(ValueError, match="unknown solver"):
         maxcover.resolve_solver("heap")
+
+
+@pytest.mark.parametrize("solver", ["scan", "fused", "resident", "lazy"])
+@pytest.mark.parametrize("n,w,k", [(37, 3, 5), (70, 1, 8)])
+def test_batch_matches_reference_batch(solver, n, w, k):
+    """B = 3 queries over one shared pool: mixed exclusions (a tie's
+    lower row, an id past n, pads) and an empty exclusion; every field
+    equals the reference's vmapped solve and the port's one-query
+    solve."""
+    rows = _rows(1, n, w, n + k)[0]
+    ex = np.array([[1, 4, -1, -1], [-1, -1, -1, -1], [2, n + 5, 0, 3]],
+                  np.int32)
+    want = ref.greedy_maxcover_batch(jnp.asarray(rows), jnp.asarray(ex), k,
+                                     solver=solver)
+    got = maxcover.greedy_maxcover_batch(to_port(rows), torch.from_numpy(ex),
+                                         k, solver=solver)
+    _assert_same(got, want)
+    for b in range(3):
+        one = maxcover.greedy_maxcover(to_port(rows), k, solver=solver,
+                                       excluded=ex[b])
+        _assert_same([f[b] for f in got], one)
+
+
+def test_batch_shares_the_pool():
+    """The query axis never copies the pool: the batched plain solve
+    reads one [n, W] tensor through an expanded view."""
+    rows = to_port(_rows(1, 40, 2, 1)[0])
+    ex = torch.tensor([[-1], [3]], dtype=torch.int32)
+    seen = []
+    orig = greedy_pick.greedy_plain
+
+    def spy(r, *a, **kw):
+        seen.append(r)
+        return orig(r, *a, **kw)
+    greedy_pick.greedy_plain = spy
+    try:
+        greedy_pick.greedy_maxcover_resident_batch(rows, 3, ex)
+    finally:
+        greedy_pick.greedy_plain = orig
+    assert seen[0].shape == (2, 40, 2) and seen[0].stride(0) == 0
+    assert seen[0].data_ptr() == rows.data_ptr()
+    with pytest.raises(ValueError, match=r"\[B, E\]"):
+        greedy_pick.greedy_maxcover_resident_batch(rows, 3, ex[0])

@@ -88,3 +88,87 @@ def test_theta_must_be_word_multiple():
         rrr.sample_incidence(nbr, prob, wt, port_key(jax.random.key(0)),
                              theta=33, n=10, model="IC",
                              fwd=csr.padded_forward_adjacency(g))
+
+
+def _dense_both(g_ref, jkey, theta, model, coin_chunk, max_steps=64):
+    nbr, prob, wt = ref_csr.padded_adjacency(g_ref)
+    want = ref.sample_incidence(
+        nbr, prob, wt, jkey, theta=theta, n=g_ref.num_vertices, model=model,
+        max_steps=max_steps, sampler="dense", coin_chunk=coin_chunk)
+    g = port_graph(g_ref)
+    tables = csr.padded_adjacency(g)
+    got = {s: rrr.sample_incidence(
+        *tables, port_key(jkey), theta=theta, n=g.num_vertices, model=model,
+        max_steps=max_steps, sampler=s, fwd=csr.padded_forward_adjacency(g),
+        coin_chunk=coin_chunk) for s in ("dense", "packed")}
+    return got, want
+
+
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+@pytest.mark.parametrize("model", ["IC", "LT"])
+def test_dense_sampler_matches_reference_dense(graph, model):
+    """The dense sampler equals the reference's dense sampler (same
+    [batch, n, chunk] coin blocks, same LT uniforms and blocked cumsum)
+    and the port's own packed sampler."""
+    got, want = _dense_both(GRAPHS[graph](), jax.random.key(5), 96, model,
+                            coin_chunk=7)
+    np.testing.assert_array_equal(u32(got["dense"]), u32(want))
+    np.testing.assert_array_equal(u32(got["dense"]), u32(got["packed"]))
+    assert u32(want).any()
+
+
+@pytest.mark.parametrize("max_steps", [1, 3])
+def test_dense_sampler_max_steps(max_steps):
+    got, want = _dense_both(ref_gen.erdos_renyi(50, 6.0, seed=4),
+                            jax.random.key(8), 64, "IC", coin_chunk=32,
+                            max_steps=max_steps)
+    np.testing.assert_array_equal(u32(got["dense"]), u32(want))
+
+
+@pytest.mark.parametrize("sampler", ["dense", "packed", "kernel"])
+def test_rrr_batch_matches_reference(sampler):
+    """``rrr_batch`` returns the reference's bool [batch, n] visited
+    matrix for every sampler (the packed ones unpacked)."""
+    g_ref = GRAPHS["hub"]()
+    nbr, prob, wt = ref_csr.padded_adjacency(g_ref)
+    fwd = ref_csr.padded_forward_adjacency(g_ref)
+    roots = np.random.default_rng(1).integers(0, g_ref.num_vertices, 45)
+    want = ref.rrr_batch(nbr, prob, wt, jax.numpy.asarray(roots, np.int32),
+                         jax.random.key(2), model="IC", sampler="dense",
+                         coin_chunk=5)
+    g = port_graph(g_ref)
+    got = rrr.rrr_batch(*csr.padded_adjacency(g),
+                        torch.as_tensor(roots, dtype=torch.int32),
+                        port_key(jax.random.key(2)), model="IC",
+                        sampler=sampler, fwd=csr.padded_forward_adjacency(g),
+                        coin_chunk=5)
+    assert got.dtype == torch.bool and tuple(got.shape) == (45, 40)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("sampler,model,theta,batch", [
+    ("dense", "IC", 300, 64), ("dense", "LT", 100, 32),
+    ("kernel", "IC", 200, 96)])
+def test_sample_incidence_host_matches_reference(sampler, model, theta,
+                                                  batch):
+    """Batched host sampling: the same words and the same rounded theta
+    (batches keyed ``fold_in(key, i)``, a tail batch rounded to whole
+    words and the result trimmed to them)."""
+    g_ref = ref_gen.erdos_renyi(60, 4.0, seed=9)
+    want, want_theta = ref.sample_incidence_host(
+        g_ref, theta, jax.random.key(4), model=model, batch=batch,
+        sampler=sampler)
+    got, got_theta = rrr.sample_incidence_host(
+        port_graph(g_ref), theta, port_key(jax.random.key(4)), model=model,
+        batch=batch, sampler=sampler)
+    assert got_theta == want_theta == 32 * got.shape[1]
+    np.testing.assert_array_equal(u32(got), u32(want))
+
+
+def test_sampler_codes_follow_the_reference():
+    """Pool snapshots store ``SAMPLERS.index``: the codes must be the
+    reference's."""
+    assert rrr.SAMPLERS == ref.SAMPLERS
+    assert rrr.resolve_sampler("dense") == "dense"
+    with pytest.raises(ValueError, match="unknown sampler"):
+        rrr.resolve_sampler("sparse")
