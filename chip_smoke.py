@@ -81,7 +81,16 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak bandwidth
 # INT32 ALU peak: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock (NVIDIA
 # publishes no INT32 rate for H100; this follows the SM's lane count).
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-GAIN_OPS_PER_WORD = 3          # and-not, popcount, add
+# 32-bit population count: 16 results per clock per SM at compute
+# capability 9.0 (CUDA C++ Programming Guide, the arithmetic
+# instructions' throughput table), 132 SMs x 16 x 1.98 GHz boost clock.
+# The bounds leave the popcount pipe out: a zero gain word needs no
+# popcount, and a carry-save (Harley-Seal) tree counts 16 non-zero ones
+# with 5, which at 16 a clock take less time than the words' two INT32
+# ops at 64 a clock.  It times the reports' one-popcount-a-word counts.
+POPC_PER_S = 132 * 16 * 1.98e9
+GAIN_OPS_PER_WORD = 1          # and-not: a zero gain word needs no more
+GAIN_OPS_PER_NONZERO_WORD = 2  # popcount, add
 OPS_PER_COIN = 80              # threefry: 20 x (add, rotate, xor) + keys
                                # + float conversion and compare
 
@@ -327,9 +336,13 @@ def parity_slice2(gen, dev) -> dict:
 
 def parity_slice3(gen, dev) -> dict:
     """bucket_gains at the receiver's shape (B = 63, W = 4096) and at odd
-    shapes and unaligned starts; the three query-axis kernels at B = 8
-    queries over one shared pool, with ties, exclusions (pads, ids past
-    n) and a query that excludes nothing."""
+    shapes and unaligned starts; the three query-axis kernels over one
+    shared pool, with a tie across tiles, exclusions (pads, ids past n)
+    and a query that excludes nothing, at B = 8, at B = 1, at B = 16
+    with W = 4096 (two query groups; dense rows, and sparse ones whose
+    zero chunks the senders skip), at B = 12 (a last group of 4), at odd
+    W from an unaligned start, and
+    with exclusions that make the queries' picks diverge."""
     errs = dict.fromkeys(("bucket_gains", "greedy_pick_batch",
                           "lazy_greedy_batch", "topk_gain_batch"), 0)
     for b, w, off in ((63, 4096, 0), (1, 1, 0), (7, 33, 0), (64, 2053, 0),
@@ -342,30 +355,55 @@ def parity_slice3(gen, dev) -> dict:
             "bucket_gains", [bucket.bucket_gains(row, covers)],
             [bucket.bucket_gains_plain(row, covers)], B=b, W=w,
             row_offset_words=off))
-    for n_g, w_g, k in ((1001, 5, 12), (20000, 36, 30)):
-        rows_g = rand_words(gen, n_g, w_g, dev=dev)
+    for n_g, w_g, k, b, case in ((1001, 5, 12, 8, "random"),
+                                 (20000, 36, 30, 8, "random"),
+                                 (2000, 36, 20, 8, "diverge"),
+                                 (1001, 5, 12, 1, "random"),
+                                 (600, 4096, 8, 16, "random"),
+                                 (600, 4096, 8, 16, "sparse"),
+                                 (600, 4096, 8, 12, "random"),
+                                 (1001, 7, 12, 8, "unaligned")):
+        words = rand_words(gen, n_g * w_g + 1, dev=dev)
         for _ in range(3):
-            rows_g &= rand_words(gen, n_g, w_g, dev=dev)
+            words &= rand_words(gen, n_g * w_g + 1, dev=dev)
+        if case == "sparse":      # most 16-byte chunks zero, as in a pool
+            words = torch.where(torch.rand(n_g * w_g + 1, generator=gen
+                                           ).to(dev) < 0.002, words, 0)
+        # an unaligned start takes the 4-byte loads
+        rows_g = (words[1:] if case == "unaligned" else words[:-1]).view(
+            n_g, w_g)
         rows_g[40] = rows_g[7]                     # a tie across tiles
-        exc = torch.randint(-1, n_g + 50, (8, 4), generator=gen,
-                            dtype=torch.int32).to(dev)
-        exc[0] = -1
-        shared = rows_g[None].expand(8, n_g, w_g)
+        if case == "diverge":          # a quarter of the rows per query
+            exc = torch.stack([torch.randperm(n_g, generator=gen)[:n_g // 4]
+                               for _ in range(b)]).to(torch.int32).to(dev)
+        else:
+            exc = torch.randint(-1, n_g + 50, (b, 4), generator=gen,
+                                dtype=torch.int32).to(dev)
+            exc[0] = -1
+        shared = rows_g[None].expand(b, n_g, w_g)
+        shape = dict(B=b, n=n_g, W=w_g, k=k, case=case,
+                     groups=greedy_pick.query_plan("greedy_pick", b, w_g,
+                                                   dev)[1])
         errs["greedy_pick_batch"] = max(errs["greedy_pick_batch"], require_equal(
             "greedy_pick_batch",
             greedy_pick.greedy_maxcover_resident_batch(rows_g, k, exc),
-            greedy_pick.greedy_plain(shared, k, exc), B=8, n=n_g, W=w_g, k=k))
+            greedy_pick.greedy_plain(shared, k, exc), **shape))
         *got, swept = lazy_greedy.greedy_maxcover_lazy_batch(rows_g, k, exc)
+        tiles = lazy_greedy.num_row_tiles(n_g)
+        if not all(tiles <= int(t) <= k * tiles for t in swept):
+            raise AssertionError(f"lazy_greedy_batch: tiles_swept "
+                                 f"{swept.tolist()} outside [{tiles}, "
+                                 f"{k * tiles}]")
         errs["lazy_greedy_batch"] = max(errs["lazy_greedy_batch"], require_equal(
             "lazy_greedy_batch", got, lazy_greedy.lazy_plain(shared, k, exc)[:4],
-            B=8, n=n_g, W=w_g, k=k, tiles_swept=swept.tolist()))
-        cov = rand_words(gen, 8, w_g, dev=dev) & rand_words(gen, 8, w_g, dev=dev)
-        picked = (torch.rand((8, n_g), generator=gen) < 0.3).to(dev)
+            tiles_swept=swept.tolist(), **shape))
+        cov = rand_words(gen, b, w_g, dev=dev) & rand_words(gen, b, w_g, dev=dev)
+        picked = (torch.rand((b, n_g), generator=gen) < 0.3).to(dev)
         picked[-1] = True                                  # all picked
         errs["topk_gain_batch"] = max(errs["topk_gain_batch"], require_equal(
             "topk_gain_batch", topk_gain.best_gain_index_batch(rows_g, cov, picked),
-            topk_gain.best_gain_index_plain(shared, cov, picked), B=8, n=n_g,
-            W=w_g))
+            topk_gain.best_gain_index_plain(shared, cov, picked), B=b, n=n_g,
+            W=w_g, case=case))
     return errs
 
 
@@ -665,12 +703,25 @@ def serve_runs(dev):
 
 # ---------------------------------------------------------------- phase 6
 
-def timed(name, kernel_fn, plain_fn, reps, plain_reps, bytes_, ops_=0.0):
+def bound(bytes_, ops_=0.0, words=0, nonzero=0):
+    """(bound_ms, bound_by, int_ops): the larger of bytes over the HBM
+    rate and integer ops over the INT32 rate.  ``ops_`` counts other
+    integer ops, ``words`` the gain words (an and-not each), ``nonzero``
+    those of them that are not zero (a popcount and an add each)."""
+    ops_ += GAIN_OPS_PER_WORD * words + GAIN_OPS_PER_NONZERO_WORD * nonzero
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_ / INT32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", ops_)
+
+
+def timed(name, kernel_fn, plain_fn, reps, plain_reps, bytes_, ops_=0.0,
+          words=0, nonzero=0):
     """Kernel vs plain on the same main-path inputs: equality, medians,
-    and the bound (the larger of bytes over HBM rate and integer ops
-    over the INT32 rate).  ``bytes_`` and ``ops_`` may be callables,
-    read once the plain version has run.  ``plain_reps=0`` times the
-    parity call of a slow plain version, once."""
+    and the bound (:func:`bound`).  ``bytes_``, ``ops_``, ``words`` and
+    ``nonzero`` may be callables, read once the plain version has run.
+    ``plain_reps=0`` times the parity call of a slow plain version,
+    once."""
     got = kernel_fn()
     if plain_reps:
         err = max_err(got, plain_fn())
@@ -687,20 +738,18 @@ def timed(name, kernel_fn, plain_fn, reps, plain_reps, bytes_, ops_=0.0):
     del got
     if err:
         raise AssertionError(f"{name}: kernel != plain at main-path shapes")
-    bytes_ = bytes_() if callable(bytes_) else bytes_
-    ops_ = ops_() if callable(ops_) else ops_
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = ops_ / INT32_OPS_PER_S * 1e3
+    bytes_, ops_, words, nonzero = (x() if callable(x) else x for x in (
+        bytes_, ops_, words, nonzero))
+    bound_ms, bound_by, ops_ = bound(bytes_, ops_, words, nonzero)
     row = dict(name=name, route="cuda", source=SOURCES[name][0],
                replaces=SOURCES[name][1], max_abs_err=err,
                ms=median_ms(kernel_fn, reps),
                plain_ms=(median_ms(plain_fn, plain_reps) if plain_reps
                          else plain_once),
-               bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               library_ms=None)
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     torch.cuda.empty_cache()
-    emit(phase="timing", bytes=bytes_, int_ops=ops_, **row)
+    emit(phase="timing", bytes=bytes_, int_ops=ops_, nonzero_words=nonzero,
+         **row)
     return row
 
 
@@ -769,7 +818,7 @@ def main_path_timings(dev, final_seeds) -> dict:
         lambda: greedy_pick.greedy_maxcover_resident(local_rows, k, ex),
         lambda: greedy_pick.greedy_plain(local_rows, k, ex), 5, 1,
         bytes_=4 * (needed_rows * W + m * k * W + m * W + 2 * m * k),
-        ops_=GAIN_OPS_PER_WORD * needed_rows * W)
+        words=needed_rows * W, nonzero=need["nonzero_words_needed"])
     rows_out["greedy_pick"].update(
         tiles_needed=need["tiles_needed"].tolist(),
         sweep_bytes=4 * k * local_rows.numel())
@@ -846,7 +895,8 @@ def round_timings(dev) -> dict:
         lambda: lazy_greedy.lazy_plain(x_s, k, ex, stats=need)[:4], 5, 1,
         bytes_=lambda: 4 * (needed_rows() * w + m * k * w + m * w
                             + 2 * m * k),
-        ops_=lambda: GAIN_OPS_PER_WORD * needed_rows() * w)
+        words=lambda: needed_rows() * w,
+        nonzero=lambda: need["nonzero_words_needed"])
     rows_out["lazy_greedy"]["tiles_swept"] = swept
     rows_out["lazy_greedy"]["tiles_needed"] = need["tiles_needed"].tolist()
     rows_out["lazy_greedy"]["num_tiles"] = lazy_greedy.num_row_tiles(per)
@@ -863,7 +913,7 @@ def round_timings(dev) -> dict:
         "topk_gain", lambda: topk_gain.best_gain_index(x_s, cov0, none),
         lambda: topk_gain.best_gain_index_plain(x_s, cov0, none), 10, 3,
         bytes_=4 * (x_s.numel() + m * w + 2 * m) + none.numel(),
-        ops_=GAIN_OPS_PER_WORD * x_s.numel())
+        words=x_s.numel(), nonzero=int((x_s != 0).sum()))
     del x_s
 
     seeds, sel_rows, _, gains = sol[:4]
@@ -892,7 +942,7 @@ def round_timings(dev) -> dict:
         "coverage", lambda: [coverage.marginal_gain(x, cov0)],
         lambda: [coverage.marginal_gain_plain(x, cov0)], 10, 3,
         bytes_=4 * (x.numel() + cov0.numel() + m * n),
-        ops_=GAIN_OPS_PER_WORD * x.numel())
+        words=x.numel(), nonzero=int((x != 0).sum()))
     return rows_out
 
 
@@ -900,7 +950,8 @@ def serve_timings(dev, svc_lazy, trace) -> dict:
     """The slice-3 kernels: bucket_gains at the receiver's shape (B = 63
     buckets of W = 4096 words), and the query-axis solves over the serve
     phase's final pool (n = 262,144, W = 4096) with its last batch of 8
-    queries (their exclusions, k = the batch's largest k)."""
+    queries (their exclusions, k = the batch's largest k), then again
+    with exclusions that make the 8 queries' picks diverge."""
     rows_out = {}
     gen = torch.Generator().manual_seed(13)
     b, w = 63, 4096
@@ -909,7 +960,8 @@ def serve_timings(dev, svc_lazy, trace) -> dict:
     rows_out["bucket_gains"] = timed(
         "bucket_gains", lambda: [bucket.bucket_gains(row, covers)],
         lambda: [bucket.bucket_gains_plain(row, covers)], 50, 10,
-        bytes_=4 * (b * w + w + b), ops_=GAIN_OPS_PER_WORD * b * w)
+        bytes_=4 * (b * w + w + b), words=b * w,
+        nonzero=int(((row[None] & ~covers) != 0).sum()))
     rows_out["bucket_gains"].update(B=b, W=w)
 
     pool = svc_lazy.pool
@@ -924,21 +976,35 @@ def serve_timings(dev, svc_lazy, trace) -> dict:
     shared = r1[None].expand(bq, n, w)
     need = {}
     out_bytes = 4 * (bq * k * w + bq * w + 2 * bq * k)
+    tile_bytes = 4 * lazy_greedy.TILE_ROWS * w
+    g_res, groups_res = greedy_pick.query_plan("greedy_pick", bq, w, dev)
+    g_lazy, groups_lazy = greedy_pick.query_plan("lazy_greedy", bq, w, dev)
 
-    def shared_rows():
-        return need["tiles_needed_shared"] * lazy_greedy.TILE_ROWS
+    def shared_rows(stats):
+        return stats["tiles_needed_shared"] * lazy_greedy.TILE_ROWS
+
+    def needed_words(stats):
+        return lazy_greedy.TILE_ROWS * int(stats["tiles_needed"].sum()) * w
+
+    def group_sweep_bytes(swept):
+        # a tile swept for a group is read once for all its queries
+        return tile_bytes * sum(int(t) for t in swept[::g_lazy])
 
     torch.cuda.empty_cache()
     rows_out["lazy_greedy_batch"] = timed(
         "lazy_greedy_batch",
         lambda: lazy_greedy.greedy_maxcover_lazy_batch(r1, k, ex)[:4],
         lambda: lazy_greedy.lazy_plain(shared, k, ex, stats=need)[:4], 3, 0,
-        bytes_=lambda: 4 * shared_rows() * w + out_bytes,
-        ops_=lambda: GAIN_OPS_PER_WORD * lazy_greedy.TILE_ROWS * int(
-            need["tiles_needed"].sum()) * w)
-    swept = lazy_greedy.greedy_maxcover_lazy_batch(r1, k, ex)[4]
+        bytes_=lambda: 4 * shared_rows(need) * w + out_bytes,
+        words=lambda: needed_words(need),
+        nonzero=lambda: need["nonzero_words_needed"])
+    swept = lazy_greedy.greedy_maxcover_lazy_batch(r1, k, ex)[4].tolist()
     rows_out["lazy_greedy_batch"].update(
-        B=bq, n=n, W=w, k=k, tiles_swept=swept.tolist(),
+        B=bq, n=n, W=w, k=k, G=g_lazy, groups=groups_lazy,
+        tiles_swept=swept, sweep_bytes=group_sweep_bytes(swept),
+        # one popcount for every word the kernel sweeps, zero or not
+        popc_each_word_ms=lazy_greedy.TILE_ROWS * w * sum(swept)
+        / POPC_PER_S * 1e3,
         tiles_needed=need["tiles_needed"].tolist(),
         tiles_needed_shared=need["tiles_needed_shared"],
         num_tiles=lazy_greedy.num_row_tiles(n))
@@ -947,12 +1013,66 @@ def serve_timings(dev, svc_lazy, trace) -> dict:
         "greedy_pick_batch",
         lambda: greedy_pick.greedy_maxcover_resident_batch(r1, k, ex),
         lambda: greedy_pick.greedy_plain(shared, k, ex), 3, 0,
-        bytes_=4 * shared_rows() * w + out_bytes,
-        ops_=GAIN_OPS_PER_WORD * lazy_greedy.TILE_ROWS
-        * int(need["tiles_needed"].sum()) * w)
+        bytes_=4 * shared_rows(need) * w + out_bytes,
+        words=needed_words(need), nonzero=need["nonzero_words_needed"])
     rows_out["greedy_pick_batch"].update(
-        B=bq, n=n, W=w, k=k, sweep_bytes=4 * k * bq * r1.numel(),
+        B=bq, n=n, W=w, k=k, G=g_res, groups=groups_res,
+        sweep_bytes=4 * k * r1.numel() * groups_res,
+        popc_each_word_ms=bq * k * r1.numel() / POPC_PER_S * 1e3,
         tiles_needed_shared=need["tiles_needed_shared"])
+
+    # A batch whose picks diverge: query q keeps every 8th of the first
+    # 8 x 12 unconstrained seeds (those at q, q + 8, ...) and excludes
+    # the other 84, so each query starts from seeds of its own.
+    none = torch.full((1, 1), -1, dtype=torch.int32, device=dev)
+    top = lazy_greedy.greedy_maxcover_lazy_batch(r1, 12 * bq, none)[0][0]
+    keep = torch.arange(12 * bq, device=dev) % bq
+    ex_div = torch.stack([top[keep != q] for q in range(bq)]).contiguous()
+    need_div = {}
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = lazy_greedy.lazy_plain(shared, k, ex_div, stats=need_div)[:4]
+    stop.record()
+    torch.cuda.synchronize()
+    plain_once = start.elapsed_time(stop)
+    got_res = greedy_pick.greedy_maxcover_resident_batch(r1, k, ex_div)
+    *got_lazy, swept_div = lazy_greedy.greedy_maxcover_lazy_batch(r1, k, ex_div)
+    errs = {"greedy_pick_batch": max_err(got_res, want),
+            "lazy_greedy_batch": max_err(got_lazy, want)}
+    div_seeds = [tuple(x) for x in got_res[0].tolist()]
+    del want, got_res, got_lazy
+    bound_ms, bound_by, _ = bound(
+        4 * shared_rows(need_div) * w + out_bytes,
+        words=needed_words(need_div),
+        nonzero=need_div["nonzero_words_needed"])
+    common = dict(
+        exclusions_per_query=int((ex_div >= 0).sum(1).max()),
+        distinct_seed_sets=len(set(div_seeds)),
+        distinct_seeds=len({v for sd in div_seeds for v in sd if v >= 0}),
+        tiles_needed=need_div["tiles_needed"].tolist(),
+        tiles_needed_shared=need_div["tiles_needed_shared"],
+        bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_once)
+    swept_div = swept_div.tolist()
+    divs = {
+        "greedy_pick_batch": dict(
+            common, max_abs_err=errs["greedy_pick_batch"],
+            ms=median_ms(lambda: greedy_pick.greedy_maxcover_resident_batch(
+                r1, k, ex_div), 3),
+            sweep_bytes=4 * k * r1.numel() * groups_res),
+        "lazy_greedy_batch": dict(
+            common, max_abs_err=errs["lazy_greedy_batch"],
+            ms=median_ms(lambda: lazy_greedy.greedy_maxcover_lazy_batch(
+                r1, k, ex_div), 3),
+            tiles_swept=swept_div, sweep_bytes=group_sweep_bytes(swept_div))}
+    for name, div in divs.items():
+        emit(phase="timing", batch="diverging", name=name, **div)
+        rows_out[name]["diverging"] = div
+        rows_out[name]["max_abs_err"] = max(rows_out[name]["max_abs_err"],
+                                            div["max_abs_err"])
+        if div["max_abs_err"]:
+            raise AssertionError(f"{name}: kernel != plain on the diverging "
+                                 "batch")
     cov0 = torch.zeros((bq, w), dtype=torch.int32, device=dev)
     picked = torch.zeros((bq, n), dtype=torch.bool, device=dev)
     rows_ex = ex.long().clamp(min=0)
@@ -963,7 +1083,8 @@ def serve_timings(dev, svc_lazy, trace) -> dict:
         lambda: topk_gain.best_gain_index_batch(r1, cov0, picked),
         lambda: topk_gain.best_gain_index_plain(shared, cov0, picked), 10, 1,
         bytes_=4 * (r1.numel() + bq * w + 2 * bq) + picked.numel(),
-        ops_=GAIN_OPS_PER_WORD * bq * r1.numel())
+        words=bq * r1.numel(),
+        nonzero=int(((r1 != 0).sum(1)[None] * ~picked).sum()))
     rows_out["topk_gain_batch"].update(B=bq, n=n, W=w)
     return rows_out
 

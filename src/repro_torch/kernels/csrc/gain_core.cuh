@@ -19,6 +19,13 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
+__device__ __forceinline__ int warp_max(int v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = max(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
 __device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -47,6 +54,69 @@ __device__ __forceinline__ int warp_row_gain(const uint32_t* row,
     for (int64_t w = lane; w < W; w += 32) g += andnot_popc(row[w], cov[w]);
   }
   return warp_sum(g);
+}
+
+// Gains of one row against G covers at once (cover q at covs + q * W,
+// in shared memory), one warp per row, lanes along the words: each word
+// of the row is loaded once, through the read-only path, and folded
+// against the G covers' matching words — one global load and G shared
+// loads a word.  With ``vec`` each lane keeps eight 16-byte chunks in
+// flight, and the count of four chunks is skipped where they are zero
+// in every lane of the warp.  Every lane returns the G sums.
+template <int G>
+__device__ __forceinline__ void warp_row_gains(const uint32_t* row,
+                                               const uint32_t* covs,
+                                               int64_t W, bool vec, int lane,
+                                               int (&g)[G]) {
+#pragma unroll
+  for (int q = 0; q < G; ++q) g[q] = 0;
+  if (vec) {
+    constexpr int U = 8;
+    const uint4* r4 = reinterpret_cast<const uint4*>(row);
+    const uint4* c4 = reinterpret_cast<const uint4*>(covs);
+    const int64_t W4 = W >> 2;
+    int64_t base = 0;  // warp-uniform, for the vote below
+    for (; base + 32 * U <= W4; base += 32 * U) {
+      const int64_t i = base + lane;
+      uint4 a[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) a[u] = __ldg(r4 + i + 32 * u);
+#pragma unroll
+      for (int h = 0; h < U; h += 4) {
+        // chunks zero in every lane gain nothing for any query: skip
+        // their count and their covers' loads (incidence rows are sparse)
+        uint32_t any = 0;
+#pragma unroll
+        for (int u = h; u < h + 4; ++u) any |= a[u].x | a[u].y | a[u].z | a[u].w;
+        if (!__any_sync(0xffffffffu, any)) continue;
+#pragma unroll
+        for (int q = 0; q < G; ++q)
+#pragma unroll
+          for (int u = h; u < h + 4; ++u) {
+            const uint4 c = c4[q * W4 + i + 32 * u];
+            g[q] += andnot_popc(a[u].x, c.x) + andnot_popc(a[u].y, c.y) +
+                    andnot_popc(a[u].z, c.z) + andnot_popc(a[u].w, c.w);
+          }
+      }
+    }
+    for (int64_t i = base + lane; i < W4; i += 32) {
+      const uint4 a = __ldg(r4 + i);
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        const uint4 c = c4[q * W4 + i];
+        g[q] += andnot_popc(a.x, c.x) + andnot_popc(a.y, c.y) +
+                andnot_popc(a.z, c.z) + andnot_popc(a.w, c.w);
+      }
+    }
+  } else {
+    for (int64_t w = lane; w < W; w += 32) {
+      const uint32_t x = __ldg(row + w);
+#pragma unroll
+      for (int q = 0; q < G; ++q) g[q] += andnot_popc(x, covs[q * W + w]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < G; ++q) g[q] = warp_sum(g[q]);
 }
 
 // True when 16-byte loads of rows of W words starting at ``base`` stay

@@ -1,35 +1,51 @@
-// Lazy greedy max-k-cover of m independent solves, all k picks in one
-// cooperative launch.  Replaces repro/kernels/lazy_greedy.py:
-// greedy_maxcover_lazy_pallas — the resident solve plus a stale upper
-// bound per row tile, ub[m, num_tiles] (INT32_MAX at first), so a pick
-// re-reads only the tiles whose bound can still reach the best gain —
-// vmapped over queries at repro/kernels/ops.py:83.
-//
-// Solve s reads its rows at rows + s * rstride: n * W for machines, 0
-// for queries over one shared [n, W] pool.  Each query keeps its own
-// bounds (they depend on its exclusions and picks).
-//
-// A tile is ``tile`` rows; tiles are dealt round-robin to the machine's
-// blocks, and only a tile's owner sweeps it or writes its bound.  On
-// the TPU the tiles are swept in order against a running best; here the
-// blocks run in any order, so each pick has two phases:
-//   1. every block sweeps its own tile with the largest bound and folds
-//      the tile's best key into the machine's key slot (atomicMax);
-//   2. after a grid-wide sync, every block walks its other tiles and
-//      sweeps tile t only unless ub[t] < best, where best is the gain of
-//      the machine's key slot read just before (from L2).  A tile whose
-//      bound equals best is swept.
-// Any best read during a pick is <= that pick's final best, so a
+// Lazy greedy max-k-cover, all k picks in one cooperative launch.
+// Replaces repro/kernels/lazy_greedy.py: greedy_maxcover_lazy_pallas —
+// the resident solve plus a stale upper bound per row tile (INT32_MAX at
+// first), so a pick re-reads only the tiles whose bound can still reach
+// the best gain — for m machines with rows of their own
+// (lazy_greedy_kernel) and, vmapped over queries at
+// repro/kernels/ops.py:83, for B queries over one shared [n, W] pool
+// (lazy_greedy_batch_kernel).  A tile is ``tile`` rows.  On the TPU the
+// tiles are swept in order against a running best; here blocks run in
+// any order, so a pick first sweeps some tiles, reads the best so far
+// (from L2), and then skips a tile only when its bound is below that
+// best.  Any best read during a pick is <= the pick's final best, so a
 // skipped tile (fresh masked max <= ub < best) could neither win nor
-// tie: seeds, rows, covered and gains are those of the resident solve
-// in every schedule.  A swept tile's bound becomes its fresh masked max,
+// tie: seeds, rows, covered and gains are those of the resident solve in
+// every schedule.  A swept tile's bound becomes its fresh masked max,
 // which bounds every later pick (the cover and the picked set only
-// grow).  tiles_swept[m] counts the sweeps; it depends on the schedule.
+// grow).  tiles_swept counts the sweeps; it depends on the schedule.
+//
+// lazy_greedy_kernel: tiles are dealt round-robin to the machine's
+// blocks, and only a tile's owner sweeps it or writes its bound.  Phase
+// 1: every block sweeps its own tile with the largest bound.  Phase 2,
+// after a grid-wide sync: every block sweeps each other tile of its own
+// unless ub[t] < best, best read again before each tile.
+//
+// lazy_greedy_batch_kernel: a group of G queries shares every sweep (G
+// covers in shared memory, each row word loaded once for all G, as in
+// greedy_pick.cu), and each query keeps its own bounds ub[q, t].  Tiles
+// are dealt to blocks for listing only; the rows of every listed tile
+// are spread over all warps of the grid, so a pick costs its rows over
+// the whole card, not a tile's time on one SM.  Per pick:
+//   1. each block lists its tiles whose bound is some query's largest
+//      over all tiles (ub_top, folded during the pick before) — an exact
+//      schedule sweeps those too — and the grid sweeps their rows;
+//   2. after a grid-wide sync, each block reads the G bests once and
+//      lists every other tile of its own unless ub[q, t] < best_q for
+//      every query q of the group, and the grid sweeps those rows.
+// A listed tile's bounds are set to -1 and raised by atomicMax from its
+// rows, so a sweep refreshes all G bounds (each a fresh masked max, still
+// an upper bound); the last row of a tile in phase 2 folds its bounds
+// into the next pick's ub_top, and so do the owners of the tiles phase 2
+// does not list.  tiles_swept[q] counts the tiles listed for q's group.
 //
 // The pick's argmax and commit are greedy_core.cuh's, shared with
-// greedy_pick.cu.  Bound on the H100: bytes — the rows of the tiles an
-// exact schedule that knows each pick's best sweeps (lazy_plain's
-// tiles_needed), read once a sweep.
+// greedy_pick.cu.  Bound on the H100: the rows of the tiles an exact
+// schedule that knows each pick's best sweeps (lazy_plain's
+// tiles_needed) — bytes for the machines; for the queries, bytes of the
+// tiles any query needs, once (tiles_needed_shared), against the integer
+// ops of each query's own, whichever is more.
 #include <climits>
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -42,7 +58,7 @@ namespace cg = cooperative_groups;
 __global__ void lazy_greedy_kernel(
     const uint32_t* __restrict__ rows, const int32_t* __restrict__ excluded,
     int64_t E, int64_t n, int64_t W, int64_t k, int64_t tile,
-    int64_t num_tiles, int64_t rstride, int bpm, bool vec,
+    int64_t num_tiles, int bpm, bool vec,
     unsigned long long* keys, uint8_t* taken, int32_t* ub, int32_t* swept,
     int32_t* seeds, uint32_t* rows_out, uint32_t* covered, int32_t* gains) {
   cg::grid_group grid = cg::this_grid();
@@ -54,7 +70,7 @@ __global__ void lazy_greedy_kernel(
   const int lb = blockIdx.x % bpm;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wpb = blockDim.x >> 5;
-  const uint32_t* R = rows + (int64_t)mach * rstride;
+  const uint32_t* R = rows + (int64_t)mach * n * W;
   uint8_t* T = taken + (int64_t)mach * n;
   unsigned long long* K = keys + (int64_t)mach * k;
   int32_t* U = ub + (int64_t)mach * num_tiles;
@@ -159,22 +175,261 @@ extern "C" int lazy_greedy(const void* rows, const void* excluded, void* keys,
                            void* rows_out, void* covered, void* gains,
                            int64_t m, int64_t n, int64_t W, int64_t k,
                            int64_t E, int64_t tile, int64_t min_tiles_per_block,
-                           int64_t rstride, void* stream) {
+                           void* stream) {
   size_t smem = 0;
   int64_t bpm = 0;
   const int planned = plan(m, n, W, tile, min_tiles_per_block, &smem, &bpm);
   if (planned) return planned;
   const int64_t num_tiles = (n + tile - 1) / tile;
   int bpm_ = (int)bpm;
-  int64_t E_ = E, n_ = n, W_ = W, k_ = k, tile_ = tile, nt_ = num_tiles,
-          rs_ = rstride;
+  int64_t E_ = E, n_ = n, W_ = W, k_ = k, tile_ = tile, nt_ = num_tiles;
   bool vec = vec_rows(rows, W);
   void* args[] = {(void*)&rows, (void*)&excluded, &E_, &n_, &W_, &k_,
-                  &tile_, &nt_, &rs_, &bpm_, &vec, &keys, &taken, &ub, &swept,
+                  &tile_, &nt_, &bpm_, &vec, &keys, &taken, &ub, &swept,
                   &seeds, &rows_out, &covered, &gains};
   cudaError_t err = cudaLaunchCooperativeKernel(
       (void*)lazy_greedy_kernel, dim3((unsigned)(m * bpm)), dim3(kThreads),
       args, smem, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+constexpr int kBatchThreads = 512;
+
+template <int G>
+__global__ void __launch_bounds__(kBatchThreads, 1) lazy_greedy_batch_kernel(
+    const uint32_t* __restrict__ rows, const int32_t* __restrict__ excluded,
+    int64_t E, int64_t n, int64_t W, int64_t k, int64_t B, int64_t tile,
+    int64_t num_tiles, bool vec, unsigned long long* keys, uint8_t* taken,
+    int32_t* ub, int32_t* ub_top, int32_t* work, int32_t* swept,
+    int32_t* seeds, uint32_t* rows_out, uint32_t* covered, int32_t* gains) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) uint32_t cov[];  // G covers of W words
+  __shared__ unsigned long long scratch[kMaxGroup][32];
+  __shared__ unsigned long long s_best[kMaxGroup];
+  __shared__ unsigned long long s_win[kMaxGroup];
+  __shared__ int s_top[kMaxGroup];
+  const int nb = gridDim.x, lb = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wpb = blockDim.x >> 5;
+  const int64_t gwarp = (int64_t)lb * wpb + warp, nwarps = (int64_t)nb * wpb;
+  // this block's tiles: lb, lb + nb, ...
+  const int64_t owned = lb < num_tiles ? (num_tiles - 1 - lb) / nb + 1 : 0;
+  // work: per (group, pick) the shortlist's length; the shortlist; per
+  // tile the pick that listed it in phase 1 (owner only) and the rows of
+  // it swept so far in phase 2.  Any block sweeps any listed row, so
+  // bounds and taken flags are read from L2 (__ldcg), never a stale L1.
+  int32_t* list = work + (B + G - 1) / G * k;
+  int32_t* stamp = list + num_tiles;
+  int32_t* done = stamp + num_tiles;
+
+  for (int64_t q0 = 0; q0 < B; q0 += G) {
+    const int gq = (int)(B - q0 < G ? B - q0 : G);
+    uint8_t* T = taken + q0 * n;
+    unsigned long long* K = keys + q0 * k;
+    int32_t* U = ub + q0 * num_tiles;
+    int32_t* UT = ub_top + q0 * k;
+    int32_t* count = work + q0 / G * k;
+    int64_t listed = 0;
+    for (int64_t w = threadIdx.x; w < (int64_t)G * W; w += blockDim.x)
+      cov[w] = 0;
+    if (threadIdx.x == 0)
+      for (int q = 0; q < gq; ++q)
+        mark_excluded(excluded + (q0 + q) * E, E, n, tile, nb, lb, T + q * n);
+    __syncthreads();
+
+    // Sweep the rows of shortlist entries [from, to) with every warp of
+    // the grid: each query's masked gain of a row raises the query's
+    // bound of the row's tile (set to -1 when listed) and the warp's best
+    // key, which the block then posts.  With ``fold``, the lane that
+    // counts a tile's last row folds its fresh bounds into ub_top[., p + 1].
+    auto sweep_rows = [&](int64_t from, int64_t to, int64_t p, bool fold) {
+      unsigned long long best = 0;
+      for (int64_t i = from * tile + gwarp; i < to * tile; i += nwarps) {
+        const int64_t t = __ldcg(list + i / tile);
+        const int64_t r = t * tile + i % tile;
+        if (r >= n) continue;  // the last tile is short
+        int g[G];
+        warp_row_gains<G>(rows + r * W, cov, W, vec, lane, g);
+        const unsigned long long key = lane_key<G>(g, T, n, r, gq, lane);
+        best = key > best ? key : best;
+        if (lane < gq) {
+          atomicMax(U + lane * num_tiles + t, key_gain(key));
+          if (fold) {
+            __threadfence();
+            const int64_t rows_t = n - t * tile < tile ? n - t * tile : tile;
+            if (atomicAdd(done + t, 1) == rows_t * gq - 1 && p + 1 < k) {
+              __threadfence();
+              for (int q = 0; q < gq; ++q)
+                atomicMax(UT + q * k + p + 1, __ldcg(U + q * num_tiles + t));
+            }
+          }
+        }
+      }
+      block_post_keys<G>(best, scratch, gq,
+                         [&](int q, unsigned long long b) {
+                           if (b) atomicMax(K + q * k + p, b);
+                         });
+    };
+
+    for (int64_t p = 0; p < k; ++p) {
+      const int32_t pick_id = (int32_t)(q0 / G * k + p + 1);
+      // phase 1: list every tile of ours whose bound is a query's largest
+      // over all tiles (ub_top; every tile at the first pick): an exact
+      // schedule sweeps it too
+      if (threadIdx.x < gq)
+        s_top[threadIdx.x] = p == 0 ? INT_MAX : __ldcg(UT + threadIdx.x * k + p);
+      __syncthreads();
+      for (int64_t j = threadIdx.x; j < owned; j += blockDim.x) {
+        const int64_t t = lb + j * nb;
+        bool at_top = false;
+#pragma unroll
+        for (int q = 0; q < G; ++q)
+          if (q < gq) at_top |= __ldcg(U + q * num_tiles + t) >= s_top[q];
+        if (at_top) {
+          list[atomicAdd(count + p, 1)] = (int32_t)t;
+          stamp[t] = pick_id;
+          for (int q = 0; q < gq; ++q) U[q * num_tiles + t] = -1;
+        }
+      }
+      grid.sync();
+      const int64_t leads = __ldcg(count + p);
+      sweep_rows(0, leads, p, false);
+      grid.sync();
+      // phase 2: against the group's bests now (<= the pick's final
+      // ones), list every other tile of ours that some query may still
+      // need, and fold the bounds of the rest, final for the next pick,
+      // into ub_top
+      if (threadIdx.x < gq) s_best[threadIdx.x] = __ldcg(K + threadIdx.x * k + p);
+      __syncthreads();
+      int m[G];
+#pragma unroll
+      for (int q = 0; q < G; ++q) m[q] = INT_MIN;
+      for (int64_t j = threadIdx.x; j < owned; j += blockDim.x) {
+        const int64_t t = lb + j * nb;
+        bool go = false;
+        if (stamp[t] != pick_id)
+#pragma unroll
+          for (int q = 0; q < G; ++q)
+            if (q < gq) {
+              const unsigned long long cur = s_best[q];
+              go |= !(cur && __ldcg(U + q * num_tiles + t) < key_gain(cur));
+            }
+        if (go) {
+          list[atomicAdd(count + p, 1)] = (int32_t)t;
+          done[t] = 0;
+          for (int q = 0; q < gq; ++q) U[q * num_tiles + t] = -1;
+        } else {
+#pragma unroll
+          for (int q = 0; q < G; ++q)
+            if (q < gq) m[q] = max(m[q], __ldcg(U + q * num_tiles + t));
+        }
+      }
+      if (p + 1 < k) {
+        unsigned long long mine = 0;
+#pragma unroll
+        for (int q = 0; q < G; ++q) {
+          const int v = warp_max(m[q]);
+          if (lane == q && q < gq) mine = (uint32_t)v ^ 0x80000000u;
+        }
+        block_post_keys<G>(mine, scratch, gq,
+                           [&](int q, unsigned long long b) {
+                             atomicMax(UT + q * k + p + 1,
+                                       (int)((uint32_t)b ^ 0x80000000u));
+                           });
+      }
+      grid.sync();
+      const int64_t total = __ldcg(count + p);
+      sweep_rows(leads, total, p, true);
+      listed += total;
+      grid.sync();
+      commit_group<G>(K + p, k, p, rows, W, n, tile, nb, lb, q0, gq, cov, T,
+                      seeds, gains, rows_out, s_win);
+    }
+    if (lb == 0 && threadIdx.x < gq) swept[q0 + threadIdx.x] = (int32_t)listed;
+    for (int q = 0; q < gq; ++q)
+      if ((q0 + q) % nb == lb)
+        for (int64_t w = threadIdx.x; w < W; w += blockDim.x)
+          covered[(q0 + q) * W + w] = cov[q * W + w];
+    __syncthreads();  // the next group zeroes the covers
+  }
+}
+
+// Shared memory a block of the batch kernel may give to query covers:
+// the opt-in maximum less the kernel's static scratch.  The caller picks
+// G so that G x W x 4 bytes fit (greedy_pick.py: query_groups).
+extern "C" int lazy_greedy_batch_budget() {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes attr;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&attr, lazy_greedy_batch_kernel<kMaxGroup>);
+  if (err != cudaSuccess) return -(int)err;
+  return optin - (int)attr.sharedSizeBytes;
+}
+
+// The batch launch's blocks (all that fit, at most one warp a row) and
+// dynamic shared memory; returns 0, -2 or a cudaError_t.
+template <int G>
+static int plan_batch(int64_t n, int64_t W, size_t* smem, int64_t* nb) {
+  *smem = (size_t)G * W * sizeof(uint32_t);
+  const int budget = lazy_greedy_batch_budget();
+  if (budget < 0) return -budget;
+  if (*smem > (size_t)budget) return -2;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaError_t err = cudaFuncSetAttribute(
+      lazy_greedy_batch_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)*smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, lazy_greedy_batch_kernel<G>, kBatchThreads, *smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm == 0) return -2;
+  const int64_t useful = (n + kBatchThreads / 32 - 1) / (kBatchThreads / 32);
+  *nb = (int64_t)per_sm * sms;
+  if (*nb > useful) *nb = useful;
+  return 0;
+}
+
+template <int G>
+static int launch_batch(const void* rows, const void* excluded, void* keys,
+                        void* taken, void* ub, void* ub_top, void* work,
+                        void* swept, void* seeds, void* rows_out,
+                        void* covered, void* gains, int64_t B, int64_t n,
+                        int64_t W, int64_t k, int64_t E, int64_t tile,
+                        void* stream) {
+  size_t smem = 0;
+  int64_t nb = 0;
+  const int planned = plan_batch<G>(n, W, &smem, &nb);
+  if (planned) return planned;
+  const int64_t num_tiles = (n + tile - 1) / tile;
+  int64_t E_ = E, n_ = n, W_ = W, k_ = k, B_ = B, tile_ = tile,
+          nt_ = num_tiles;
+  bool vec = vec_rows(rows, W);
+  void* args[] = {(void*)&rows, (void*)&excluded, &E_, &n_, &W_, &k_, &B_,
+                  &tile_, &nt_, &vec, &keys, &taken, &ub, &ub_top, &work,
+                  &swept, &seeds, &rows_out, &covered, &gains};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      (void*)lazy_greedy_batch_kernel<G>, dim3((unsigned)nb),
+      dim3(kBatchThreads), args, smem, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// B queries over one shared pool in groups of G (1 .. kMaxGroup).
+extern "C" int lazy_greedy_batch(const void* rows, const void* excluded,
+                                 void* keys, void* taken, void* ub,
+                                 void* ub_top, void* work, void* swept,
+                                 void* seeds, void* rows_out, void* covered,
+                                 void* gains, int64_t B, int64_t n, int64_t W,
+                                 int64_t k, int64_t E, int64_t tile,
+                                 int64_t G, void* stream) {
+  return with_group(G, [&](auto g) {
+    return launch_batch<decltype(g)::value>(
+        rows, excluded, keys, taken, ub, ub_top, work, swept, seeds,
+        rows_out, covered, gains, B, n, W, k, E, tile, stream);
+  });
 }

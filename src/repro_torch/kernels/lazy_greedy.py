@@ -4,14 +4,19 @@
 Replaces ``repro/kernels/lazy_greedy.py``: ``greedy_maxcover_lazy_pallas``
 (TPU kernel #6) — the resident solve plus a stale upper bound per tile
 of ``TILE_ROWS`` rows, so a pick re-sweeps only the tiles whose bound
-can still reach the best gain.  The query axis (B queries over one
-shared pool, ``repro/kernels/ops.py:83``) is the same launch with row
-stride 0; each query keeps its own bounds.  Seeds, rows, covered and gains equal
-the resident solve's bit for bit; ``tiles_swept`` (int32 [m]) depends
-on the order the sweeps run in, lies in [num_tiles, k * num_tiles] per
-machine, and is never compared for equality.  Bound on the H100: bytes
-(the rows of the tiles an exact schedule that knows each pick's best
-sweeps, ``lazy_plain``'s ``tiles_needed``).
+can still reach the best gain.  On the query axis (B queries over one
+shared pool, ``repro/kernels/ops.py:83``) each query keeps its own
+bounds, and a tile is swept once for a group of G queries
+(``greedy_pick.query_groups``): it is skipped only when every query of
+the group may skip it, and a sweep refreshes all G bounds.  Seeds,
+rows, covered and gains equal the resident solve's bit for bit;
+``tiles_swept`` (int32 [m]; on the query axis the sweeps of the query's
+group) depends on the order the sweeps run in, lies in [num_tiles, k *
+num_tiles] per solve, and is never compared for equality.  Bound on the
+H100: the rows of the tiles an exact schedule that knows each pick's
+best sweeps (``lazy_plain``'s ``tiles_needed``; on the query axis the
+bytes of ``tiles_needed_shared`` against the integer ops of each
+query's ``tiles_needed`` and ``nonzero_words_needed``).
 """
 from __future__ import annotations
 
@@ -20,11 +25,13 @@ import torch
 from repro_torch.kernels import build, coverage, greedy_pick, ops
 
 TILE_ROWS = 32
-# Tiles each block owns at least, so that a pick's first phase (every
-# block's largest-bound tile) leaves most tiles to the bound test.
+# Tiles each block of the machine axis owns at least, so that a pick's
+# first phase (every block's largest-bound tile) leaves most tiles to the
+# bound test.
 MIN_TILES_PER_BLOCK = 8
 _UB_INIT = 2**31 - 1
-_ARGS = [ops.PTR] * 10 + [ops.I64] * 8
+_ARGS = [ops.PTR] * 10 + [ops.I64] * 7
+_BATCH_ARGS = [ops.PTR] * 12 + [ops.I64] * 7
 
 
 def num_row_tiles(n: int) -> int:
@@ -48,7 +55,10 @@ def lazy_plain(rows: torch.Tensor, k: int, excluded: torch.Tensor,
     ``stats["tiles_needed_shared"]`` counts the (pick, tile) pairs that
     at least one of the m solves needs: the sweeps of a schedule that
     reads each tile once per pick for all solves, when the m solves
-    share one pool (the query axis)."""
+    share one pool (the query axis).  ``stats["nonzero_words_needed"]``
+    counts the gain words (row & ~cover) that are not zero in the rows
+    of the tiles each solve needs, picked rows left out: the words whose
+    popcount such a schedule must take."""
     m, n, _ = rows.shape
     tiles = num_row_tiles(n)
     ub = torch.full((m, tiles), _UB_INIT, dtype=torch.int32,
@@ -57,7 +67,12 @@ def lazy_plain(rows: torch.Tensor, k: int, excluded: torch.Tensor,
     swept = torch.zeros((m,), dtype=torch.int32, device=rows.device)
     needed = torch.zeros_like(swept)
     shared = torch.zeros((), dtype=torch.int64, device=rows.device)
+    nonzero = torch.zeros((), dtype=torch.int64, device=rows.device)
     ar = torch.arange(m, device=rows.device)
+
+    def tile_sums(x):
+        return torch.nn.functional.pad(x, (0, tiles * TILE_ROWS - n)).reshape(
+            m, tiles, TILE_ROWS).sum(2)
 
     def pick(rows, covered, picked):
         g = torch.where(picked, -1,
@@ -75,12 +90,17 @@ def lazy_plain(rows: torch.Tensor, k: int, excluded: torch.Tensor,
         ub_need.copy_(torch.where(need, tmax, ub_need))
         needed.add_(need.sum(1, dtype=torch.int32))
         shared.add_(need.any(0).sum())
+        if stats is not None:
+            nz = torch.stack([((rows[j] & ~covered[j]) != 0).sum(1)
+                              for j in range(m)])
+            nonzero.add_((tile_sums(torch.where(picked, 0, nz)) * need).sum())
         return g[ar, best], best
 
     out = greedy_pick.greedy_plain(rows, k, excluded, pick=pick)
     if stats is not None:
         stats["tiles_needed"] = needed
         stats["tiles_needed_shared"] = int(shared)
+        stats["nonzero_words_needed"] = int(nonzero)
     return (*out, swept)
 
 
@@ -98,8 +118,11 @@ def blocks_per_machine(m: int, n: int, num_words: int, device) -> int:
     return bpm
 
 
-def _launch(counter: str, rows: torch.Tensor, m: int, n: int, w: int,
-            k: int, ex: torch.Tensor, rstride: int):
+def _launch(counter: str, fn: str, argtypes, rows: torch.Tensor, m: int,
+            n: int, w: int, k: int, ex: torch.Tensor, extra=(), tail=()):
+    """Outputs (seeds, sel_rows, covered, gains, tiles_swept) of m solves
+    from one launch of ``fn``; ``extra`` tensors go after the tile
+    bounds, ``tail`` integers after the tile size."""
     dev = rows.device
     seeds = torch.full((m, k), -1, dtype=torch.int32, device=dev)
     sel_rows = torch.zeros((m, k, w), dtype=torch.int32, device=dev)
@@ -112,12 +135,12 @@ def _launch(counter: str, rows: torch.Tensor, m: int, n: int, w: int,
     taken = torch.zeros((m, n), dtype=torch.uint8, device=dev)
     ub = torch.full((m, num_row_tiles(n)), _UB_INIT, dtype=torch.int32,
                     device=dev)
-    ops.launch(counter, "lazy_greedy", "lazy_greedy", _ARGS,
+    ops.launch(counter, "lazy_greedy", fn, argtypes,
                rows.data_ptr(), ex.data_ptr(), keys.data_ptr(),
-               taken.data_ptr(), ub.data_ptr(), swept.data_ptr(),
+               taken.data_ptr(), ub.data_ptr(),
+               *(t.data_ptr() for t in extra), swept.data_ptr(),
                seeds.data_ptr(), sel_rows.data_ptr(), covered.data_ptr(),
-               gains.data_ptr(), m, n, w, k, ex.shape[1], TILE_ROWS,
-               MIN_TILES_PER_BLOCK, rstride)
+               gains.data_ptr(), m, n, w, k, ex.shape[1], TILE_ROWS, *tail)
     return seeds, sel_rows, covered, gains, swept
 
 
@@ -130,7 +153,8 @@ def greedy_maxcover_lazy(rows: torch.Tensor, k: int, excluded=None):
     if not ops.on_card(rows, ex):
         return lazy_plain(rows, k, ex)
     ops.check(rows, "rows", torch.int32, (m, n, w))
-    return _launch("lazy_greedy", rows, m, n, w, k, ex, n * w)
+    return _launch("lazy_greedy", "lazy_greedy", _ARGS, rows, m, n, w, k, ex,
+                   tail=(MIN_TILES_PER_BLOCK,))
 
 
 def greedy_maxcover_lazy_batch(rows: torch.Tensor, k: int,
@@ -147,4 +171,11 @@ def greedy_maxcover_lazy_batch(rows: torch.Tensor, k: int,
     if not ops.on_card(rows, ex):
         return lazy_plain(rows[None].expand(b, n, w), k, ex)
     ops.check(rows, "rows", torch.int32, (n, w))
-    return _launch("lazy_greedy_batch", rows, b, n, w, k, ex, 0)
+    g, groups = greedy_pick.query_plan("lazy_greedy", b, w, rows.device)
+    # each pick's largest bound per query over all tiles, and the
+    # shortlists of tiles to sweep (lazy_greedy.cu)
+    ub_top = torch.full((b, k), -2**31, dtype=torch.int32, device=rows.device)
+    work = torch.zeros((groups * k + 3 * num_row_tiles(n),), dtype=torch.int32,
+                       device=rows.device)
+    return _launch("lazy_greedy_batch", "lazy_greedy_batch", _BATCH_ARGS,
+                   rows, b, n, w, k, ex, extra=(ub_top, work), tail=(g,))

@@ -7,7 +7,9 @@ calls the C entry point on ``torch.cuda.current_stream()``, raises if it
 returns an error, and only then adds one to that kernel's count in
 :data:`LAUNCHES` (so a run can show that it went through the kernels).
 The ``*_batch`` counts are the query-axis launches of the sender
-kernels: B queries over one shared row pool (row stride 0).
+kernels: B queries over one shared row pool, which ``greedy_pick_batch``
+and ``lazy_greedy_batch`` read once per pick for each group of queries
+and ``topk_gain_batch`` with a row stride of 0.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ _REFUSALS = {
     -4: "more than 65535 machines for the grid",
     -5: "the cover leaves no room in the block's shared memory for a "
         "double buffer of one candidate",
+    -6: "no kernel is built for this query group size",
 }
 
 PTR = ctypes.c_void_p

@@ -203,35 +203,56 @@ def test_bucket_gains(dev, b, w):
            [bucket.bucket_gains_plain(row[1:], covers[:, 1:])])
 
 
-@pytest.mark.parametrize("n,w,k", [(301, 5, 12), (2000, 36, 20)])
-def test_query_axis_kernels(dev, n, w, k):
-    """B = 8 queries over one shared pool: the three query-axis kernels
-    equal their plain versions, counted apart from the machine axis."""
+@pytest.mark.parametrize("n,w,k,b,case", [
+    (301, 5, 12, 8, "random"), (2000, 36, 20, 8, "random"),
+    (2000, 36, 20, 8, "diverge"),     # the queries' picks diverge
+    (301, 5, 12, 1, "random"),        # one query
+    (700, 4096, 6, 16, "random"),     # two groups at W = 4096
+    (700, 4096, 6, 12, "random"),     # a last group of 4 of its 8 slots
+    (700, 4096, 6, 16, "sparse"),     # most 16-byte chunks zero
+    (301, 7, 12, 8, "unaligned"),     # odd W, unaligned start: 4-byte loads
+])
+def test_query_axis_kernels(dev, n, w, k, b, case):
+    """B queries over one shared pool: the three query-axis kernels
+    equal their plain versions, counted apart from the machine axis,
+    with a tie across two tiles in every case."""
     gen = torch.Generator().manual_seed(n)
-    rows = _words(gen, n, w, dev=dev) & _words(gen, n, w, dev=dev)
+    words = _words(gen, n * w + 1, dev=dev) & _words(gen, n * w + 1, dev=dev)
+    if case == "sparse":                         # ~8 set words a row
+        words = torch.where(torch.rand(n * w + 1, generator=gen).to(dev)
+                            < 0.002, words, 0)
+    rows = (words[1:] if case == "unaligned" else words[:-1]).view(n, w)
     rows[40] = rows[7]                           # a tie across two tiles
-    ex = torch.randint(-1, n, (8, 3), generator=gen, dtype=torch.int32
-                       ).to(dev)
-    ex[0] = -1
+    if case == "diverge":                        # a quarter of the rows each
+        ex = torch.stack([torch.randperm(n, generator=gen)[:n // 4]
+                          for _ in range(b)]).to(torch.int32).to(dev)
+    else:
+        ex = torch.randint(-1, n, (b, 3), generator=gen, dtype=torch.int32
+                           ).to(dev)
+        ex[0] = -1
+    shared = rows[None].expand(b, n, w)
     ops.reset_launches()
-    _equal(greedy_pick.greedy_maxcover_resident_batch(rows, k, ex),
-           greedy_pick.greedy_plain(rows[None].expand(8, n, w), k, ex))
+    got = greedy_pick.greedy_maxcover_resident_batch(rows, k, ex)
+    _equal(got, greedy_pick.greedy_plain(shared, k, ex))
+    if case == "diverge":
+        assert len({tuple(s) for s in got[0].tolist()}) == b
     *got, swept = lazy_greedy.greedy_maxcover_lazy_batch(rows, k, ex)
-    *want, _ = lazy_greedy.lazy_plain(rows[None].expand(8, n, w), k, ex)
+    *want, _ = lazy_greedy.lazy_plain(shared, k, ex)
     _equal(got, want)
-    cov = _words(gen, 8, w, dev=dev) & _words(gen, 8, w, dev=dev)
-    picked = (torch.rand((8, n), generator=gen) < 0.3).to(dev)
+    tiles = lazy_greedy.num_row_tiles(n)
+    assert all(tiles <= int(t) <= k * tiles for t in swept)
+    cov = _words(gen, b, w, dev=dev) & _words(gen, b, w, dev=dev)
+    picked = (torch.rand((b, n), generator=gen) < 0.3).to(dev)
     _equal(topk_gain.best_gain_index_batch(rows, cov, picked),
-           topk_gain.best_gain_index_plain(rows[None].expand(8, n, w), cov,
-                                           picked))
+           topk_gain.best_gain_index_plain(shared, cov, picked))
     assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
         "greedy_pick_batch": 1, "lazy_greedy_batch": 1, "topk_gain_batch": 1}
     for solver in maxcover.SOLVERS:
         sol = maxcover.greedy_maxcover_batch(rows, ex, k, solver=solver)
-        for b in (0, 5):
+        for q in sorted({0, min(5, b - 1), b - 1}):
             one = maxcover.greedy_maxcover(rows, k, solver=solver,
-                                           excluded=ex[b])
-            _equal([f[b] for f in sol], one)
+                                           excluded=ex[q])
+            _equal([f[q] for f in sol], one)
 
 
 def test_batched_solve_peak_memory_stays_near_the_pool(dev):

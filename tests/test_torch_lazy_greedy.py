@@ -85,3 +85,26 @@ def test_tiles_needed_counts_the_forced_sweeps(skew):
     if skew:
         assert int(need.max()) < k * tiles
     assert torch.equal(got[0][:, :1], want[0])
+
+
+@pytest.mark.parametrize("skew", [False, True])
+def test_nonzero_words_needed_counts_the_needed_popcounts(skew):
+    """``lazy_plain``'s count of the non-zero gain words in the tiles an
+    exact schedule needs: every non-zero word of the rows not excluded in
+    the first pick, at most every word of the needed tiles after k
+    picks, and the outputs are those of a run without stats."""
+    m, n, w, k = 2, 20 * TILE + 5, 3, 8
+    rows = to_port(_rows(m, n, w, 12, skew))
+    rows[:, 5:9] = 0                              # rows with no set word
+    ex = torch.tensor([[3, -1], [4, 70]], dtype=torch.int32)
+    stats = {}
+    lazy_greedy.lazy_plain(rows, 1, ex, stats)
+    free = torch.ones((m, n), dtype=torch.bool)
+    free[0, 3] = free[1, 4] = free[1, 70] = False
+    assert stats["nonzero_words_needed"] == int(
+        ((rows != 0).sum(2) * free).sum())
+    got = lazy_greedy.lazy_plain(rows, k, ex, stats)
+    needed = int(stats["tiles_needed"].sum()) * TILE * w
+    assert 0 < stats["nonzero_words_needed"] <= needed
+    for a, b in zip(got, lazy_greedy.lazy_plain(rows, k, ex)):
+        assert torch.equal(a, b)

@@ -125,3 +125,28 @@ def test_batch_shares_the_pool():
     assert seen[0].data_ptr() == rows.data_ptr()
     with pytest.raises(ValueError, match=r"\[B, E\]"):
         greedy_pick.greedy_maxcover_resident_batch(rows, 3, ex[0])
+
+
+@pytest.mark.parametrize("b,w,budget,want", [
+    (8, 4096, 229_000, (8, 1)),      # the serving batch: one group
+    (16, 4096, 229_000, (8, 2)),     # past the largest group
+    (12, 36, 229_000, (8, 2)),       # a full group, then the other 4
+    (13, 36, 229_000, (8, 2)),
+    (1, 4096, 229_000, (1, 1)),
+    (8, 20000, 229_000, (2, 4)),     # the budget holds two covers
+    (3, 70000, 229_000, (1, 3)),     # no cover fits: the kernel refuses
+    (5, 4096, 0, (1, 5)),
+])
+def test_query_groups_plan(b, w, budget, want):
+    """The query-axis kernels' group planner: G covers of W words fit
+    the shared-memory budget where one does, G <= MAX_GROUP, and the
+    groups cover the batch with no group empty."""
+    g, groups = greedy_pick.query_groups(b, w, budget)
+    assert (g, groups) == want
+    assert 1 <= g <= greedy_pick.MAX_GROUP and (groups - 1) * g < b <= g * groups
+    assert g * 4 * w <= budget or g == 1
+
+
+def test_query_groups_needs_a_query():
+    with pytest.raises(ValueError, match="at least one query"):
+        greedy_pick.query_groups(0, 8, 1000)
