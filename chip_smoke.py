@@ -13,10 +13,12 @@ serving replay over every solver, and OPIM), drives every path at full
 size through the entry points a user calls (the IMM loop with the
 GreediRIS selector; the fixed-theta round with the lazy and the fused
 senders; the Ripples round; the serving replay with the resident and
-the lazy senders), then times every kernel at the shapes those runs
-gave it.  Prints JSON lines; the line before the last lists the
-kernels, the last line is the device summary.  Exits non-zero without
-a CUDA device or on any failure.  Imports nothing of JAX.
+the lazy senders; every one samples IC through the fused rrr_expand_ic
+and builds no coin plane), then times every kernel at the shapes those
+runs gave it and ranks the kernels by the time each loses over those
+runs (phase ``order``).  Prints JSON lines; the line before the last
+lists the kernels, the last line is the device summary.  Exits non-zero
+without a CUDA device or on any failure.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from repro_torch.kernels import (build, bucket, bucket_insert,  # noqa: E402
                                  coins, coverage, greedy_pick, lazy_greedy,
                                  ops, rrr_expand, topk_gain)
 from repro_torch.launch import im_driver, serve  # noqa: E402
+from tools.time_sampler import SamplerClock  # noqa: E402
 
 # The slice's command: SNAP com-DBLP scale (317k vertices, 1.05M edges),
 # edge probabilities U[0, 0.1] (paper §4.1), k=100 (B=63 buckets).
@@ -67,15 +70,31 @@ SERVE = ["--graph", "er", "--n", "262144", "--avg-deg", "4", "--model", "IC",
          "100", "--refresh-every", "1", "--check"]
 SERVE_PEAK_LIMIT = 40e9
 # The kernels of each full-size path and the run that must launch them.
-SLICE1 = ("rrr_expand_resident", "rrr_expand_streamed", "coin_pack",
-          "greedy_pick", "bucket_insert")
-ROUND_RUN = {"lazy_greedy": "lazy", "bucket_insert_stream": "lazy",
-             "topk_gain": "fused", "coverage": "ripples"}
-SERVE_RUN = {"greedy_pick_batch": "resident", "lazy_greedy_batch": "lazy"}
-# The fused serving path runs at n = 3000 only (phase `paths`).
-SMALL_SERVE_RUN = {"topk_gain_batch": "fused"}
-# On no path of the reference: the public op ``ops.bucket_gains``.
-OFF_PATH = ("bucket_gains",)
+# Every full-size run samples IC on the resident layout: the fused
+# rrr_expand_ic, and no coin plane (coin_pack) at all.
+SLICE1 = ("rrr_expand_ic", "rrr_expand_streamed", "greedy_pick",
+          "bucket_insert")
+ROUND_RUN = {"lazy_greedy": "round lazy", "bucket_insert_stream": "round lazy",
+             "topk_gain": "round fused", "coverage": "ripples"}
+SERVE_RUN = {"greedy_pick_batch": "serve resident",
+             "lazy_greedy_batch": "serve lazy"}
+# Kernels that no full-size run launches, with the run of phase `paths`
+# (n = 3000) that does: the coin plane of IC --gather streamed, the
+# resident expansion of LT sampling and of the cascade's resident
+# gather, and the fused serving path.
+SMALL_RUN = {
+    "coin_pack": ("IC kernel-gpu-streamed",
+                  "IMM at n = 3000, IC, --gather streamed (phase paths)"),
+    "rrr_expand_resident": ("LT kernel-gpu",
+                            "IMM at n = 3000, LT sampling and the cascade's "
+                            "resident gather (phase paths)"),
+    "topk_gain_batch": ("serve fused",
+                        "serve --check at n = 3000 (phase paths)")}
+# The full-size runs, and the shape of rrr_expand_ic's timing each takes
+# its time from (phase `order`).
+FULL_RUNS = {"imm": "imm", "round lazy": "round", "round fused": "round",
+             "ripples": "round", "serve resident": "serve",
+             "serve lazy": "serve"}
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak bandwidth
 # INT32 ALU peak: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock (NVIDIA
@@ -101,6 +120,10 @@ SOURCES = {
     "rrr_expand_streamed": (
         "src/repro_torch/kernels/csrc/rrr_expand.cu",
         "src/repro/kernels/rrr_expand.py:271"),
+    "rrr_expand_ic": (
+        "src/repro_torch/kernels/csrc/rrr_expand.cu",
+        "src/repro/kernels/rrr_expand.py:351 fused with the XLA coin draw "
+        "at src/repro/core/rrr.py:309"),
     "coin_pack": (
         "src/repro_torch/kernels/csrc/coin_pack.cu",
         "src/repro/core/rrr.py:309 (XLA draw, no TPU kernel)"),
@@ -230,6 +253,7 @@ def parity_small(dev) -> dict:
             d_pad=chunk * n_chunks, W=w_c,
             max_flat_index=(32 * w_c * n_c) * chunk))
     errs["coin_pack"] = err
+    errs["rrr_expand_ic"] = parity_ic(gen, dev)
 
     err = 0
     for m, n_g, w_g, k, ex in ((3, 1001, 5, 12, [[1, -1, 5000], [0, 2, 3],
@@ -261,6 +285,57 @@ def parity_small(dev) -> dict:
     errs.update(parity_slice3(gen, dev))
     torch.cuda.synchronize()
     return errs
+
+
+def ic_inputs(gen, n, df, w, chunk, n_chunks, dens, dev):
+    """An IC step's inputs: forward slots naming (v, reverse slot) with a
+    fifth invalid (gidx = n * d_pad), probabilities with zero slots, a
+    frontier of density 2^-dens with a tenth of its words all ones, and
+    one key per chunk."""
+    d_pad = chunk * n_chunks
+    f = rand_words(gen, n, w, dev=dev)
+    for _ in range(dens):
+        f &= rand_words(gen, n, w, dev=dev)
+    f[(torch.rand((n, w), generator=gen) < 0.1).to(dev)] = -1
+    vis = f & rand_words(gen, n, w, dev=dev)
+    valid = torch.rand((n, df), generator=gen) > 0.2
+    nbr = torch.where(valid, torch.randint(0, n, (n, df), generator=gen), 0)
+    gidx = torch.where(valid, nbr * d_pad + torch.randint(
+        0, d_pad, (n, df), generator=gen), n * d_pad)
+    prob = torch.rand((n, d_pad), generator=gen) * 0.6
+    prob[torch.rand((n, d_pad), generator=gen) < 0.2] = 0.0
+    prob[:, -1] = 0.0
+    keys = [prng.key(11).fold_in(n).fold_in(c) for c in range(n_chunks)]
+    return (f, vis, nbr.to(torch.int32).to(dev), gidx.to(torch.int32).to(dev),
+            prob.to(dev), keys, chunk)
+
+
+def parity_ic(gen, dev) -> int:
+    """rrr_expand_ic against its plain version and against the composed
+    coin_pack + rrr_expand_resident route: W = 1, odd W, several chunks,
+    all-ones frontier words, invalid and p = 0 slots, and (last shape) a
+    flat draw index past 2^32."""
+    err = 0
+    for n, df, w, chunk, n_chunks, dens in ((1001, 7, 1, 3, 2, 1),
+                                            (301, 5, 5, 4, 3, 0),
+                                            (4093, 9, 33, 16, 1, 2),
+                                            (262144, 3, 40, 16, 1, 4)):
+        args = ic_inputs(gen, n, df, w, chunk, n_chunks, dens, dev)
+        f, vis, nbr, gidx, prob, keys, _ = args
+        got = rrr_expand.rrr_expand_step_ic(*args)
+        plane = coins.coin_plane(keys, prob, f, chunk).reshape(-1, w)
+        shape = dict(n=n, df=df, W=w, chunk=chunk, n_chunks=n_chunks,
+                     max_flat_index=32 * w * n * chunk)
+        err = max(err, require_equal(
+            "rrr_expand_ic", got, rrr_expand.expand_step_ic_plain(*args),
+            against="plain", **shape))
+        err = max(err, require_equal(
+            "rrr_expand_ic", got, rrr_expand.rrr_expand_step_resident(
+                f, vis, nbr, gidx, plane), against="composed", **shape))
+        if not int((got[0] != 0).sum()):
+            raise AssertionError(f"rrr_expand_ic: no coin fired ({shape})")
+        del plane
+    return err
 
 
 def parity_slice2(gen, dev) -> dict:
@@ -409,26 +484,38 @@ def parity_slice3(gen, dev) -> dict:
 
 # ---------------------------------------------------------------- phase 4
 
-def paths_agree(dev):
+def paths_agree(dev) -> dict:
     """Kernel paths against plain paths, and the card against the CPU:
-    identical seeds, theta, coverage and spread."""
+    identical seeds, theta, coverage and spread.  The kernel paths sample
+    on the resident layout (IC: the fused rrr_expand_ic) and on the
+    streamed one (IC: coin_pack's plane).  Returns each card kernel
+    run's launch counts (set to 0 just before it), by "model name"."""
+    launches = {}
     for model in ("IC", "LT"):
         results = {}
-        for name, device, sampler, solver, use_kernel, engine in (
-                ("plain-cpu", "cpu", "packed", "scan", False, "packed"),
-                ("plain-gpu", dev, "packed", "scan", False, "packed"),
-                ("kernel-gpu", dev, "kernel", "resident", True, "kernel")):
+        for name, device, sampler, solver, use_kernel, engine, gather_s in (
+                ("plain-cpu", "cpu", "packed", "scan", False, "packed",
+                 "auto"),
+                ("plain-gpu", dev, "packed", "scan", False, "packed", "auto"),
+                ("kernel-gpu", dev, "kernel", "resident", True, "kernel",
+                 "auto"),
+                ("kernel-gpu-streamed", dev, "kernel", "resident", True,
+                 "kernel", "streamed")):
             g = generators.erdos_renyi(3000, 4.0, seed=5, device=device)
             key = prng.key(5)
             sel = imm.make_randgreedi_selector(4, "streaming", 0.077,
                                                use_kernel=use_kernel,
                                                solver=solver)
+            ops.reset_launches()
             res = imm.imm(g, 10, 0.13, key, model=model, selector=sel,
-                          max_theta=2048, sampler=sampler)
+                          max_theta=2048, sampler=sampler, gather=gather_s)
             spreads = [float(cascade.spread(
                 g, torch.from_numpy(res.seeds), key.fold_in(99),
                 model=model, num_sims=64, engine=engine, gather=gather))
                 for gather in ("auto", "resident")]
+            if use_kernel:
+                torch.cuda.synchronize()
+                launches[f"{model} {name}"] = dict(ops.LAUNCHES)
             results[name] = (res.seeds.tolist(), res.theta,
                              res.coverage_fraction, spreads)
         emit(phase="paths", model=model, **{k: dict(
@@ -436,6 +523,10 @@ def paths_agree(dev):
             for k, v in results.items()})
         if len({json.dumps(v) for v in results.values()}) != 1:
             raise AssertionError(f"{model}: paths disagree")
+    ic = launches["IC kernel-gpu"]
+    if not ic["rrr_expand_ic"] or ic["coin_pack"]:
+        raise AssertionError(f"IC resident sampling launched {ic}")
+    return launches
 
 
 # round phase of `paths`: (arguments that change the result, kernel-path
@@ -530,7 +621,7 @@ def serve_paths_agree(dev) -> dict:
             got = serve.run(flags + ["--solver", solver])
             torch.cuda.synchronize()
             if model == "IC":
-                launches[solver] = dict(ops.LAUNCHES)
+                launches[f"serve {solver}"] = dict(ops.LAUNCHES)
             same = len(got["answers"]) == len(want["answers"]) and all(
                 serve.answers_equal(a, b)
                 for a, b in zip(got["answers"], want["answers"]))
@@ -585,7 +676,17 @@ def full_run():
     missing = [k for k in SLICE1 if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
+    check_ic_sampling("imm", launches)
     return launches, seeds
+
+
+def check_ic_sampling(run: str, launches: dict):
+    """A full-size run sampled IC through the fused kernel and built no
+    coin plane."""
+    if not launches["rrr_expand_ic"] or launches["coin_pack"]:
+        raise AssertionError(f"{run}: IC sampling launched rrr_expand_ic "
+                             f"{launches['rrr_expand_ic']} times and "
+                             f"coin_pack {launches['coin_pack']} times")
 
 
 def check_seeds(seeds, n: int, k: int = 100):
@@ -606,7 +707,7 @@ def round_runs(dev):
         ops.reset_launches()
         out = im_driver.run(argv)
         torch.cuda.synchronize()
-        launches[solver] = dict(ops.LAUNCHES)
+        launches[f"round {solver}"] = dict(ops.LAUNCHES)
         rnd = out["round"]
         emit(phase="round", solver=solver, theta=out["theta"],
              coverage=rnd["coverage"],
@@ -615,7 +716,7 @@ def round_runs(dev):
              spread=out["spread"], n=out["n"], edges=out["edges"],
              seconds=dict(graph=out["graph_s"], **rnd["seconds"],
                           spread=out["spread_s"]),
-             peak_bytes=out["peak_bytes"], launches=launches[solver])
+             peak_bytes=out["peak_bytes"], launches=launches[f"round {solver}"])
         check_seeds(out["seeds"], out["n"])
         if rnd["coverage"] < rnd["best_local_coverage"]:
             raise AssertionError("round coverage below the best local one")
@@ -646,23 +747,45 @@ def round_runs(dev):
     missing = [k for k, run in ROUND_RUN.items() if launches[run][k] == 0]
     if missing:
         raise AssertionError(f"the round paths never launched {missing}")
+    for run, counts in launches.items():
+        check_ic_sampling(run, counts)
     return launches
 
 
 def serve_runs(dev):
     """The serving replay at full size through ``serve.run`` with the
     resident and the lazy senders.  Each run's launch counts and peak
-    memory are reset just before it and read just after.  Returns the
-    launches and the lazy run's service (its final pool is timed)."""
+    memory are reset just before it and read just after; the launches
+    returned are the replay's, read before ``--check`` replays every
+    query through the sequential solver (its launches are printed
+    apart).  The refreshes are split into the slab fills' sampler
+    kernels (CUDA events around each kernel wrapper call), the sampler's
+    tables (host clock between synchronizations) and the rest.  Returns
+    the launches and the lazy run's service (its final pool is
+    timed)."""
     launches, outs = {}, {}
+    check = serve.check_bit_identity
+
+    def counted_check(*args, **kwargs):
+        torch.cuda.synchronize()
+        replay.update(ops.LAUNCHES)
+        return check(*args, **kwargs)
+
     for solver in ("resident", "lazy"):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         ops.reset_launches()
-        out = serve.run(SERVE + ["--solver", solver])
-        torch.cuda.synchronize()
-        launches[solver] = dict(ops.LAUNCHES)
+        replay = {}
+        serve.check_bit_identity = counted_check
+        try:
+            with SamplerClock(dict(rrr=rrr, rrr_expand=rrr_expand,
+                                   coins=coins, service=service)) as clock:
+                out = serve.run(SERVE + ["--solver", solver])
+                kernel_s = clock.kernel_s()
+        finally:
+            serve.check_bit_identity = check
+        launches[f"serve {solver}"] = replay
         peak = torch.cuda.max_memory_allocated(dev)
         st = out["stats"]
         answers = out["answers"]
@@ -675,8 +798,15 @@ def serve_runs(dev):
              s_per_solve=st["solve_s"] / st["solves"],
              refreshes=st["refreshes"], refresh_s=st["refresh_s"],
              s_per_refresh=st["refresh_s"] / st["refreshes"],
+             refresh_split=dict(sampler_kernels_s=kernel_s,
+                                sampler_calls=len(clock.events),
+                                tables_s=clock.tables_s,
+                                rest_s=st["refresh_s"] - kernel_s
+                                - clock.tables_s),
              k_used=[a.k_used for a in answers], peak_bytes=peak,
-             launches=launches[solver])
+             launches=replay, check_launches={
+                 k: v - replay[k] for k, v in ops.LAUNCHES.items()
+                 if v - replay[k]})
         if out["rc"] or out["mismatches"]:
             raise AssertionError(f"serve {solver}: --check failed")
         if peak >= SERVE_PEAK_LIMIT:
@@ -694,10 +824,10 @@ def serve_runs(dev):
             outs["resident"]["answers"], outs["lazy"]["answers"])):
         raise AssertionError("serve: resident and lazy answers differ")
     missing = [k for k, run in SERVE_RUN.items() if launches[run][k] == 0]
-    missing += [k for k in ("coin_pack", "rrr_expand_resident")
-                if launches["lazy"][k] == 0]
     if missing:
         raise AssertionError(f"the serving path never launched {missing}")
+    for run, counts in launches.items():
+        check_ic_sampling(run, counts)
     return launches, outs["lazy"]["service"], outs["lazy"]["trace"]
 
 
@@ -753,9 +883,122 @@ def timed(name, kernel_fn, plain_fn, reps, plain_reps, bytes_, ops_=0.0,
     return row
 
 
+def coins_needed(t, frontier) -> int:
+    """The coins of one IC step: each set frontier bit of a vertex times
+    its reverse slots with p > 0 (each is one forward slot)."""
+    live_bits = bitset.popcount(frontier).sum(1, dtype=torch.int64)
+    return int((live_bits * (t.prob_p > 0).sum(1)).sum())
+
+
+def hash_rounds(t, frontier) -> dict:
+    """rrr_expand_ic's hash-loop rounds summed over warps: as the kernel
+    runs them (a warp waits for its lane with the most coins) and as a
+    perfect spread of each warp's coins over its 32 lanes would; threads
+    run along the flattened (u, w), 32 to a warp."""
+    n, d_pad = t.prob_p.shape
+    pc = bitset.popcount(frontier)
+    p = t.prob_p.reshape(-1)[t.gidx.long().clamp(max=n * d_pad - 1)]
+    live = (t.gidx < n * d_pad) & (p > 0)
+    per = torch.zeros_like(pc)
+    for s in range(t.nbr_c.shape[1]):
+        per += torch.where(live[:, s, None], pc[t.nbr_c[:, s].long()], 0)
+    flat = per.reshape(-1)
+    warps = flat[:flat.numel() // 32 * 32].reshape(-1, 32)
+    rounds = int(warps.max(1).values.sum(dtype=torch.int64))
+    spread = int(((warps.sum(1, dtype=torch.int64) + 31) // 32).sum())
+    return dict(hash_rounds=rounds, spread_rounds=spread,
+                imbalance=rounds / spread if spread else 1.0)
+
+
+def ic_first_step(t, key, theta: int, dev):
+    """The first BFS step of a ``theta``-sample draw: the roots' frontier,
+    visited and the step's chunk keys, derived as the sampler does."""
+    kr, kb = key.split()
+    frontier = rrr.packed_roots(kr.randint((theta,), 0, t.n, device=dev),
+                                t.n)
+    sub = kb.split()[1]
+    return frontier, frontier.clone(), [sub.fold_in(c)
+                                        for c in range(t.n_chunks)]
+
+
+def time_ic_step(t, frontier, visited, keys, label: str, reps: int = 10,
+                 plain_reps: int = 3, plane=None) -> dict:
+    """rrr_expand_ic on one step's inputs, held against its plain version
+    (in ``timed``) and against the composed coin_pack +
+    rrr_expand_resident route.  Bound: each frontier word read once,
+    visited read, two outputs written, nbr_c, gidx and prob_p (bytes);
+    OPS_PER_COIN for each coin the step needs (operations)."""
+    args = (frontier, visited, t.nbr_c, t.gidx, t.prob_p, keys, t.chunk)
+    if plane is None:
+        plane = coins.coin_plane(keys, t.prob_p, frontier, t.chunk
+                                 ).reshape(t.n * t.d_pad, -1)
+    composed_err = max_err(
+        rrr_expand.rrr_expand_step_ic(*args),
+        rrr_expand.rrr_expand_step_resident(frontier, visited, t.nbr_c,
+                                            t.gidx, plane))
+    del plane
+    if composed_err:
+        raise AssertionError(f"rrr_expand_ic != coin_pack + "
+                             f"rrr_expand_resident ({label})")
+    n_coins = coins_needed(t, frontier)
+    row = timed(
+        "rrr_expand_ic", lambda: rrr_expand.rrr_expand_step_ic(*args),
+        lambda: rrr_expand.expand_step_ic_plain(*args), reps, plain_reps,
+        bytes_=4 * (4 * frontier.numel() + t.nbr_c.numel() + t.gidx.numel()
+                    + t.prob_p.numel()),
+        ops_=OPS_PER_COIN * n_coins)
+    extra = dict(shape=label, W=frontier.shape[1], coins=n_coins,
+                 nonzero_frontier_words=int((frontier != 0).sum()),
+                 composed_err=composed_err, **hash_rounds(t, frontier))
+    emit(phase="timing", name="rrr_expand_ic", **extra)
+    row.update(extra)
+    return row
+
+
+def ic_timings(t, key, first, dev) -> dict:
+    """rrr_expand_ic beyond the IMM first step (``first``: its frontier,
+    visited and keys): the IMM draw's densest later step, the first
+    steps of the round's per-machine draw and of a serve slab, and two
+    frontiers at the serve slab's shape with the same expected number of
+    coins, one set bit in every word or all 32 bits in a 32nd of the
+    words (the lanes' imbalance)."""
+    shapes = {}
+    frontier, visited, _ = first
+    step_key, best = key.split()[1], None
+    for step in range(64):
+        step_key, sub = step_key.split()
+        keys = [sub.fold_in(c) for c in range(t.n_chunks)]
+        if step and (best is None or coins_needed(t, frontier) > best[0]):
+            best = (coins_needed(t, frontier), step + 1, frontier, visited,
+                    keys)
+        frontier, visited = rrr_expand.rrr_expand_step_ic(
+            frontier, visited, t.nbr_c, t.gidx, t.prob_p, keys, t.chunk)
+        if not bool(frontier.any()):
+            break
+    del frontier, visited
+    if best is not None:
+        shapes["imm late step"] = time_ic_step(t, *best[2:], "imm late step")
+        shapes["imm late step"]["step"] = best[1]
+    del best
+    for label, theta in (("round", 131072 // 8), ("serve", 4096)):
+        shapes[label] = time_ic_step(t, *ic_first_step(t, key, theta, dev),
+                                     label)
+    n, w = t.n, 128
+    gen = torch.Generator().manual_seed(17)
+    one_bit = (1 << torch.randint(0, 32, (n, w), generator=gen)).to(dev)
+    full = torch.where(torch.rand((n, w), generator=gen) < 1 / 32, -1, 0)
+    keys = ic_first_step(t, key, 32 * w, dev)[2]
+    for label, f in (("one bit a word", bitset.to_words(one_bit)),
+                     ("full words", full.to(torch.int32).to(dev))):
+        shapes[label] = time_ic_step(t, f, torch.zeros_like(f), keys, label,
+                                     plain_reps=0)
+    return shapes
+
+
 def main_path_timings(dev, final_seeds) -> dict:
     """Every kernel at the shapes the full run gives it: the first BFS
-    step of a 32768-sample draw, the local solves and the receiver of
+    step of a 32768-sample draw (rrr_expand_ic also at other steps and
+    shapes, :func:`ic_timings`), the local solves and the receiver of
     the selector over that incidence, and the first cascade step."""
     args = im_driver.parser().parse_args(FULL)
     n, theta, k, m = args.n, args.max_theta, args.k, args.machines
@@ -765,24 +1008,17 @@ def main_path_timings(dev, final_seeds) -> dict:
     key = prng.key(args.seed).fold_in(1)
     t = rrr._Tables(nbr, prob, wt, *fwd, model="IC",
                     coin_chunk=args.coin_chunk)
-    kr, kb = key.split()
-    roots = kr.randint((theta,), 0, n, device=dev)
-    frontier = rrr.packed_roots(roots, n)
-    visited = frontier.clone()
-    sub = kb.split()[1]
-    keys = [sub.fold_in(c) for c in range(t.n_chunks)]
+    frontier, visited, keys = ic_first_step(t, key, theta, dev)
     W = frontier.shape[1]
     rows_out = {}
 
     fb = 4 * frontier.numel()
-    live_bits = bitset.popcount(frontier).sum(1, dtype=torch.int64)
-    coins_needed = int((live_bits * (t.prob_p > 0).sum(1)).sum())
     rows_out["coin_pack"] = timed(
         "coin_pack", lambda: [coins.coin_plane(keys, t.prob_p, frontier,
                                                t.chunk)],
         lambda: [coins.coin_plane_plain(keys, t.prob_p, frontier, t.chunk)],
         10, 3, bytes_=fb + 4 * t.prob_p.numel() + 4 * n * t.d_pad * W,
-        ops_=OPS_PER_COIN * coins_needed)
+        ops_=OPS_PER_COIN * coins_needed(t, frontier))
 
     plane = coins.coin_plane(keys, t.prob_p, frontier, t.chunk
                              ).reshape(n * t.d_pad, W)
@@ -795,7 +1031,12 @@ def main_path_timings(dev, final_seeds) -> dict:
         lambda: rrr_expand.expand_step_resident_plain(
             frontier, visited, t.nbr_c, t.gidx, plane),
         10, 3, bytes_=4 * fb + 8 * t.nbr_c.numel() + 4 * plane_words)
-    del plane, t
+    rows_out["rrr_expand_ic"] = time_ic_step(t, frontier, visited, keys,
+                                             "imm", plane=plane)
+    del plane
+    rows_out["rrr_expand_ic"]["shapes"] = ic_timings(
+        t, key, (frontier, visited, keys), dev)
+    del t
 
     incidence = rrr.sample_incidence(nbr, prob, wt, key, theta=theta, n=n,
                                      model="IC", fwd=fwd)
@@ -1126,46 +1367,59 @@ def main(argv=None) -> int:
     errs = parity_small(dev)
     if args.stop_after == "parity":
         return 0
-    paths_agree(dev)
+    small = paths_agree(dev)
     round_paths_agree(dev)
-    small_serve_launches = serve_paths_agree(dev)
+    small.update(serve_paths_agree(dev))
     if args.stop_after == "paths":
         return 0
     launches, seeds = full_run()
+    full = {"imm": launches}
     if args.stop_after == "full":
         return 0
-    round_launches = round_runs(dev)
+    full.update(round_runs(dev))
     if args.stop_after == "round":
         return 0
     serve_launches, svc_lazy, trace = serve_runs(dev)
+    full.update(serve_launches)
     if args.stop_after == "serve":
         return 0
     rows = serve_timings(dev, svc_lazy, trace)
     del svc_lazy
     rows.update(main_path_timings(dev, torch.from_numpy(seeds)))
     rows.update(round_timings(dev))
-    kernels = []
+    kernels, order = [], []
     for name in ops.KERNELS:
         row = rows[name]
-        row["max_abs_err"] = max(row["max_abs_err"], errs[name])
+        row["max_abs_err"] = max([row["max_abs_err"], errs[name]] + [
+            r["max_abs_err"] for r in row.get("shapes", {}).values()])
         if name in SLICE1:
-            row["launches"] = launches[name]
+            row["launches"] = full["imm"][name]
         elif name in ROUND_RUN:
-            row["launches"] = round_launches[ROUND_RUN[name]][name]
+            row["launches"] = full[ROUND_RUN[name]][name]
         elif name in SERVE_RUN:
-            row["launches"] = serve_launches[SERVE_RUN[name]][name]
-        elif name in SMALL_SERVE_RUN:
-            row["launches"] = small_serve_launches[SMALL_SERVE_RUN[name]][name]
-            row["launches_from"] = "serve --check at n = 3000 (phase paths)"
+            row["launches"] = full[SERVE_RUN[name]][name]
+        elif name in SMALL_RUN:
+            run, row["launches_from"] = SMALL_RUN[name]
+            row["launches"] = small[run][name]
         else:
             row["launches"] = 0
             row["launches_from"] = "on no path of the reference"
         kernels.append(row)
-    # Redesign order: the time each kernel loses on its path,
-    # launches x (ms - bound_ms), largest first.
-    emit(phase="order", kernels=sorted(
-        ([r["name"], r["launches"] * (r["ms"] - r["bound_ms"])]
-         for r in kernels), key=lambda x: -x[1]))
+        # Redesign order: the time each kernel loses over the full-size
+        # runs, sum over runs of launches x (ms - bound_ms) at the run's
+        # shape where the kernel was timed at several.
+        per_run = {run: full[run][name] for run in FULL_RUNS
+                   if full[run][name]}
+        lost = 0.0
+        for run, count in per_run.items():
+            at = row.get("shapes", {}).get(FULL_RUNS[run], row)
+            lost += count * (at["ms"] - at["bound_ms"])
+        order.append(dict(name=name, lost_ms=lost, launches=per_run,
+                          total_launches=sum(per_run.values()),
+                          **({} if per_run else dict(
+                              small_launches=row["launches"],
+                              launches_from=row.get("launches_from")))))
+    emit(phase="order", kernels=sorted(order, key=lambda r: -r["lost_ms"]))
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -19,10 +19,14 @@ mask[v, rev_slot]`` for every forward pair ``(v, rev_slot)`` of ``u``:
 
   * ``sampler="packed"`` — the plain PyTorch path (coins through
     ``prng``, expansion as tensor gathers);
-  * ``sampler="kernel"`` — the coin plane and the expansion run as the
-    CUDA kernels ``kernels.coins`` and ``kernels.rrr_expand`` (resident
-    layout by default; ``gather="auto"`` means resident here, there is
-    no VMEM budget to solve for).
+  * ``sampler="kernel"`` — the step runs as CUDA kernels.  IC on the
+    resident layout (the default; ``gather="auto"`` means resident here,
+    there is no VMEM budget to solve for) is one kernel,
+    ``rrr_expand.rrr_expand_step_ic``, which draws each coin inside the
+    expansion and builds no coin plane.  IC with ``gather="streamed"``
+    draws the plane (``kernels.coins``) and gathers it into the streamed
+    mask; LT builds its selection plane with tensor ops and expands
+    through the resident or streamed kernel.
 
 The per-step mask is the reference's coin / selection mask restricted
 to the frontier's live words (the expansion ANDs it with the frontier,
@@ -158,6 +162,17 @@ def _lt_mask(t: _Tables, sub: Key, frontier):
     return plane.reshape(n, d_pad, w_total)
 
 
+def _step(t: _Tables, sub: Key, frontier, visited, model: str,
+          kernel: bool, gather: str):
+    if model == "IC" and kernel and gather != "streamed":
+        keys = [sub.fold_in(c) for c in range(t.n_chunks)]
+        return rrr_expand.rrr_expand_step_ic(frontier, visited, t.nbr_c,
+                                             t.gidx, t.prob_p, keys, t.chunk)
+    mask = (_ic_mask(t, sub, frontier, kernel) if model == "IC"
+            else _lt_mask(t, sub, frontier))
+    return _expand(t, frontier, visited, mask, kernel, gather)
+
+
 def _expand(t: _Tables, frontier, visited, mask, kernel: bool, gather: str):
     if kernel and gather != "streamed":
         plane = mask.reshape(t.n * t.d_pad, -1)
@@ -193,10 +208,8 @@ def rrr_batch_packed(nbr, prob, wt, fwd_nbr, fwd_rslot, roots, key: Key, *,
     step = 0
     while step < max_steps and bool(frontier.any()):
         key, sub = key.split()
-        mask = (_ic_mask(t, sub, frontier, kernel) if model == "IC"
-                else _lt_mask(t, sub, frontier))
-        frontier, visited = _expand(t, frontier, visited, mask, kernel,
-                                    gather)
+        frontier, visited = _step(t, sub, frontier, visited, model, kernel,
+                                  gather)
         step += 1
     if stats is not None:
         stats["bfs_steps"] = stats.get("bfs_steps", 0) + step

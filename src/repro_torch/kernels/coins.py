@@ -26,6 +26,12 @@ from repro_torch.kernels import ops
 _ARGS = [ops.PTR] * 4 + [ops.I64] * 4
 
 
+def key_words(keys: list[Key], device) -> torch.Tensor:
+    """The chunk keys as the kernels take them: int32 [n_chunks, 2]."""
+    return bitset.to_words(torch.tensor(
+        [[k.k0, k.k1] for k in keys], dtype=torch.int64)).to(device)
+
+
 def coin_plane_plain(keys: list[Key], prob_p: torch.Tensor,
                      frontier: torch.Tensor, chunk: int) -> torch.Tensor:
     """Hashes only the set frontier bits, through ``prng.Key.uniform_at``."""
@@ -64,13 +70,12 @@ def coin_plane(keys: list[Key], prob_p: torch.Tensor,
                          f"d_pad {d_pad}")
     ops.check(prob_p, "prob_p", torch.float32, (n, d_pad))
     ops.check(frontier, "frontier", torch.int32, (n, w))
-    key_words = bitset.to_words(torch.tensor(
-        [[k.k0, k.k1] for k in keys], dtype=torch.int64)).to(frontier.device)
+    kw = key_words(keys, frontier.device)
     plane = torch.empty((n, d_pad, w), dtype=torch.int32,
                         device=frontier.device)
     if plane.numel() == 0:
         return plane
     ops.launch("coin_pack", "coin_pack", "coin_pack", _ARGS,
-               key_words.data_ptr(), prob_p.data_ptr(), frontier.data_ptr(),
+               kw.data_ptr(), prob_p.data_ptr(), frontier.data_ptr(),
                plane.data_ptr(), n, d_pad, chunk, w)
     return plane

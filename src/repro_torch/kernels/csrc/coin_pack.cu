@@ -15,7 +15,10 @@
 //
 // Bound on the H100: the plane write (bytes) on sparse frontiers, the
 // threefry hashes (integer operations: 20 rounds of add/rotate/xor plus
-// 5 key injections, ~90 ops per coin) on dense ones.  One thread per
+// 5 key injections, ~90 ops per coin; threefry.cuh) on dense ones.
+// The expansion's IC route no longer reads this plane: rrr_expand_ic
+// (rrr_expand.cu) draws the same coins where it needs them, so the
+// plane is built only for the streamed layout.  One thread per
 // output word, threads along w so the frontier read and the plane write
 // coalesce; 32-bit rotates are funnel shifts.  The flat draw index
 // (b * n + v) * chunk + j passes 2^32 at real sizes, so it is split
@@ -23,30 +26,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return __funnelshift_l(x, x, r);
-}
-
-#define TF_ROUND(r) \
-  { x0 += x1; x1 = rotl(x1, r); x1 ^= x0; }
-
-// threefry-2x32, 20 rounds (jax/_src/prng.py _threefry2x32_lowering).
-__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
-                                                  uint32_t x0, uint32_t x1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  x0 += k0; x1 += k1;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k1; x1 += k2 + 1u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k2; x1 += k0 + 2u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k0; x1 += k1 + 3u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k1; x1 += k2 + 4u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k2; x1 += k0 + 5u;
-  return x0 ^ x1;
-}
+#include "threefry.cuh"
 
 __global__ void coin_pack_kernel(const uint32_t* __restrict__ keys,
                                  const float* __restrict__ prob_p,
@@ -72,10 +52,7 @@ __global__ void coin_pack_kernel(const uint32_t* __restrict__ keys,
       const uint64_t idx =
           ((uint64_t)(32 * w + bit) * (uint64_t)n + (uint64_t)v) *
               (uint64_t)chunk + (uint64_t)j;
-      const uint32_t bits =
-          threefry_bits(k0, k1, (uint32_t)(idx >> 32), (uint32_t)idx);
-      const float u = __uint_as_float((bits >> 9) | 0x3f800000u) - 1.0f;
-      if (u < p) out |= 1u << bit;
+      if (coin_fires(k0, k1, idx, p)) out |= 1u << bit;
     }
   }
   plane[t] = out;

@@ -59,6 +59,37 @@ def test_coin_plane(dev):
            [coins.coin_plane_plain(keys, prob, f, 2)])
 
 
+@pytest.mark.parametrize("n,df,w,chunk,n_chunks,dens", [
+    (1001, 7, 1, 3, 2, 1), (301, 5, 5, 4, 3, 0), (4093, 9, 33, 16, 1, 2),
+    (262144, 3, 40, 16, 1, 4)])      # the last draw index passes 2**32
+def test_expand_ic(dev, n, df, w, chunk, n_chunks, dens):
+    """The fused IC step against its plain version and against the
+    composed coin plane + resident expansion: all-ones frontier words,
+    invalid slots (gidx = n * d_pad) and p = 0 slots."""
+    gen = torch.Generator().manual_seed(n + w)
+    d_pad = chunk * n_chunks
+    f = _words(gen, n, w, dev=dev)
+    for _ in range(dens):
+        f &= _words(gen, n, w, dev=dev)
+    f[(torch.rand((n, w), generator=gen) < 0.1).to(dev)] = -1
+    vis = f & _words(gen, n, w, dev=dev)
+    valid = torch.rand((n, df), generator=gen) > 0.2
+    nbr = torch.where(valid, torch.randint(0, n, (n, df), generator=gen), 0)
+    gidx = torch.where(valid, nbr * d_pad + torch.randint(
+        0, d_pad, (n, df), generator=gen), n * d_pad)
+    prob = torch.rand((n, d_pad), generator=gen) * 0.6
+    prob[torch.rand((n, d_pad), generator=gen) < 0.2] = 0.0
+    keys = [prng.key(5).fold_in(c) for c in range(n_chunks)]
+    args = (f, vis, nbr.to(torch.int32).to(dev),
+            gidx.to(torch.int32).to(dev), prob.to(dev), keys, chunk)
+    got = rrr_expand.rrr_expand_step_ic(*args)
+    _equal(got, rrr_expand.expand_step_ic_plain(*args))
+    plane = coins.coin_plane(keys, args[4], f, chunk).reshape(-1, w)
+    _equal(got, rrr_expand.rrr_expand_step_resident(f, vis, *args[2:4],
+                                                    plane))
+    assert int((got[0] != 0).sum()) > 0
+
+
 def test_greedy_and_bucket(dev):
     gen = torch.Generator().manual_seed(2)
     rows = _words(gen, 4, 300, 3, dev=dev) & _words(gen, 4, 300, 3, dev=dev)
@@ -173,6 +204,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
             f[:, None]).repeat(1, 2, 1)[:, :1])
     with pytest.raises(ValueError, match="several devices"):
         rrr_expand.rrr_expand_step(f, f.cpu(), nbr, f[:, None])
+    prob = torch.zeros((4, 2), device=dev)
+    with pytest.raises(TypeError, match="prob_p"):
+        rrr_expand.rrr_expand_step_ic(f, f, nbr, nbr, prob.double(),
+                                      [prng.key(1)], 2)
+    with pytest.raises(ValueError, match="several devices"):
+        rrr_expand.rrr_expand_step_ic(f, f, nbr, nbr.cpu(), prob,
+                                      [prng.key(1)], 2)
     big = torch.zeros((1, 2, 70000), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         greedy_pick.greedy_maxcover_resident(big, 1)

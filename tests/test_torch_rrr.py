@@ -12,6 +12,7 @@ from repro.graphs import csr as ref_csr  # noqa: E402
 from repro.graphs import generators as ref_gen  # noqa: E402
 from repro_torch.core import rrr  # noqa: E402
 from repro_torch.graphs import csr  # noqa: E402
+from repro_torch.kernels import coins  # noqa: E402
 from tests.test_torch_ref import (partitionable, port_graph, port_key,  # noqa: E402,F401
                                   u32)
 
@@ -61,6 +62,24 @@ def test_sample_incidence_matches_reference(graph, model, sampler, gather):
                              gather=gather)
     np.testing.assert_array_equal(u32(got), u32(want))
     assert stats["bfs_steps"] >= 1
+
+
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+@pytest.mark.parametrize("gather", ["auto", "resident"])
+def test_ic_kernel_sampler_builds_no_coin_plane(graph, gather, monkeypatch):
+    """IC with sampler="kernel" on the resident layout draws its coins
+    in the expansion step: with the plane builders made to raise it
+    still equals the reference."""
+    def no_plane(*args, **kwargs):
+        raise AssertionError("the fused IC route built a coin plane")
+
+    monkeypatch.setattr(coins, "coin_plane", no_plane)
+    monkeypatch.setattr(coins, "coin_plane_plain", no_plane)
+    got, want, stats = _both(GRAPHS[graph](), jax.random.key(5), 96, "IC",
+                             coin_chunk=7, max_steps=64, sampler="kernel",
+                             gather=gather)
+    np.testing.assert_array_equal(u32(got), u32(want))
+    assert stats["bfs_steps"] >= 2
 
 
 @pytest.mark.parametrize("max_steps", [1, 2])

@@ -1,0 +1,185 @@
+#!/usr/bin/env python3
+"""Time the IC sampler inside the three full-size paths on one NVIDIA GPU.
+
+    python3 tools/time_sampler.py [--src DIR] [--label NAME]
+
+Runs ``chip_smoke.py``'s full-size commands through the entry points a
+user calls: the IMM command (FULL), the fixed-theta round (ROUND, lazy
+sender) and the serving replay (SERVE, lazy sender).  For each it
+prints the stage seconds, the peak device memory, the kernel launches
+and a digest of the result (seeds, or every answer).  The serving
+replay's refreshes are split into the slab fills' sampler kernels (CUDA
+events around every call of the sampler's kernel wrappers), the host
+tables (``padded_adjacency``, ``padded_forward_adjacency`` and the
+per-fill ``rrr._Tables``, each between two synchronizations) and the
+rest (roots, keys, the BFS loop's host syncs, concatenation).
+
+The three paths run twice in the process (``rep`` 0 and 1): the first
+pass pays the CUDA context, the kernels' loading and (for a version
+whose kernels are not built yet) ``nvcc``, so compare the second.
+``--src`` names the ``src`` directory whose ``repro_torch`` runs
+(default: this checkout's), so two versions can be compared in one
+machine session: run them alternately (A, B, B, A); equal digests mean
+equal seeds and answers.  Prints the card line, then one JSON line per
+path and pass.  Exits non-zero without a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import ast
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# (module, function) of every kernel wrapper an RRR step may call; the
+# ones a version lacks are skipped.
+KERNEL_FNS = (("rrr_expand", "rrr_expand_step_ic"),
+              ("rrr_expand", "rrr_expand_step_resident"),
+              ("rrr_expand", "rrr_expand_step"),
+              ("coins", "coin_plane"))
+
+
+class SamplerClock:
+    """While open, brackets every call of the sampler's kernel wrappers
+    with CUDA events and every build of its tables with a synchronized
+    host clock.  ``modules`` maps ``rrr``, ``rrr_expand``, ``coins`` and
+    ``service`` to the modules of the version under test."""
+
+    def __init__(self, modules: dict):
+        self.modules = modules
+        self.events = []
+        self.tables_s = 0.0
+        self._saved = []
+
+    def __enter__(self):
+        for mod, name in KERNEL_FNS:
+            if hasattr(self.modules[mod], name):
+                self._wrap(self.modules[mod], name, self._on_card)
+        for name in ("padded_adjacency", "padded_forward_adjacency"):
+            self._wrap(self.modules["service"], name, self._on_host)
+        self._wrap(self.modules["rrr"], "_Tables", self._on_host)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in reversed(self._saved):
+            setattr(module, name, fn)
+        self._saved.clear()
+
+    def _wrap(self, module, name, how):
+        fn = getattr(module, name)
+        self._saved.append((module, name, fn))
+        setattr(module, name, how(fn))
+
+    def _on_card(self, fn):
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            stop.record()
+            self.events.append((start, stop))
+            return out
+        return timed
+
+    def _on_host(self, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.tables_s += time.perf_counter() - t0
+            return out
+        return timed
+
+    def kernel_s(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events) / 1e3
+
+
+def smoke_commands() -> dict:
+    """FULL, ROUND and SERVE as ``chip_smoke.py`` defines them (read from
+    its source: importing it would import this checkout's package)."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
+        tree = ast.parse(fh.read())
+    return {t.id: ast.literal_eval(node.value) for node in tree.body
+            if isinstance(node, ast.Assign) for t in node.targets
+            if isinstance(t, ast.Name) and t.id in ("FULL", "ROUND", "SERVE")}
+
+
+def digest(items) -> str:
+    return hashlib.sha256(repr(items).encode()).hexdigest()[:16]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"))
+    ap.add_argument("--label", default="")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("time_sampler: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(args.src))
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    cmd = smoke_commands()
+    for rep in (0, 1):
+        run_paths(dict(label=args.label, src=args.src, rep=rep), cmd, dev)
+    return 0
+
+
+def run_paths(common: dict, cmd: dict, dev):
+    """The IMM, round and serve commands once, with ``--src``'s package
+    (on ``sys.path``); one JSON line each."""
+    from repro_torch.core import rrr, service
+    from repro_torch.kernels import coins, ops, rrr_expand
+    from repro_torch.launch import im_driver, serve
+
+    for path, argv_ in (("imm", cmd["FULL"]), ("round", cmd["ROUND"])):
+        ops.reset_launches()
+        out = im_driver.run(argv_)
+        torch.cuda.synchronize()
+        rnd = out["round"]
+        print(json.dumps(dict(
+            common, path=path, sample_s=out["sample_s"],
+            select_s=out["select_s"],
+            round_seconds=rnd["seconds"] if rnd else None,
+            bfs_steps=out["bfs_steps"], peak_bytes=out["peak_bytes"],
+            launches={k: v for k, v in ops.LAUNCHES.items() if v},
+            seeds=digest(out["seeds"].tolist()))), flush=True)
+        del out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    with SamplerClock(dict(rrr=rrr, rrr_expand=rrr_expand, coins=coins,
+                           service=service)) as clock:
+        out = serve.run(cmd["SERVE"] + ["--solver", "lazy"])
+        kernel_s = clock.kernel_s()
+    st = out["stats"]
+    print(json.dumps(dict(
+        common, path="serve", rc=out["rc"], elapsed_s=out["elapsed_s"],
+        queries_per_s=len(out["answers"]) / out["elapsed_s"],
+        refreshes=st["refreshes"], refresh_s=st["refresh_s"],
+        sampler_kernel_s=kernel_s, sampler_calls=len(clock.events),
+        tables_s=clock.tables_s,
+        rest_s=st["refresh_s"] - kernel_s - clock.tables_s,
+        solve_s=st["solve_s"],
+        peak_bytes=torch.cuda.max_memory_allocated(dev),
+        launches={k: v for k, v in ops.LAUNCHES.items() if v},
+        answers=digest([(a.seeds.tolist(), tuple(a[1:]))
+                        for a in out["answers"]]))), flush=True)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
