@@ -13,8 +13,9 @@ serving replay over every solver, and OPIM), drives every path at full
 size through the entry points a user calls (the IMM loop with the
 GreediRIS selector; the fixed-theta round with the lazy and the fused
 senders; the Ripples round; the serving replay with the resident and
-the lazy senders; every one samples IC through the fused rrr_expand_ic
-and builds no coin plane), then times every kernel at the shapes those
+the lazy senders; every one samples IC through rrr_expand_ic, a push
+over the frontier's live words that draws the coins in the step and
+builds no coin plane), then times every kernel at the shapes those
 runs gave it and ranks the kernels by the time each loses over those
 runs (phase ``order``).  Prints JSON lines; the line before the last
 lists the kernels, the last line is the device summary.  Exits non-zero
@@ -112,6 +113,8 @@ GAIN_OPS_PER_WORD = 1          # and-not: a zero gain word needs no more
 GAIN_OPS_PER_NONZERO_WORD = 2  # popcount, add
 OPS_PER_COIN = 80              # threefry: 20 x (add, rotate, xor) + keys
                                # + float conversion and compare
+SPIN_CYCLES = 2_000_000        # ~1 ms at 1.98 GHz: longer than the host
+                               # takes to queue one kernel wrapper call
 
 SOURCES = {
     "rrr_expand_resident": (
@@ -186,10 +189,22 @@ def require_equal(name, got, want, **shape):
     return err
 
 
-def median_ms(fn, reps: int) -> float:
+def median_ms(fn, reps: int, setup=None, hide_host=False) -> float:
+    """Median CUDA-event ms of ``fn``; ``setup`` (untimed) runs before
+    each call, to restore what an in-place kernel changed.  With
+    ``hide_host`` a spin kernel queued before the start event keeps the
+    card busy while the host queues ``fn``, so the span holds its device
+    work alone and not the host's time to reach the launch (which a
+    kernel of a few microseconds would otherwise be timed by)."""
+    if setup:
+        setup()
     fn()                                            # warm-up
     times = []
     for _ in range(reps):
+        if setup:
+            setup()
+        if hide_host:
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -287,54 +302,116 @@ def parity_small(dev) -> dict:
     return errs
 
 
-def ic_inputs(gen, n, df, w, chunk, n_chunks, dens, dev):
-    """An IC step's inputs: forward slots naming (v, reverse slot) with a
-    fifth invalid (gidx = n * d_pad), probabilities with zero slots, a
-    frontier of density 2^-dens with a tenth of its words all ones, and
-    one key per chunk."""
-    d_pad = chunk * n_chunks
+def ic_graph_step(gen, g, w, chunk, dens, dev):
+    """An IC step on graph ``g``: its tables (with the pull's forward
+    tables), a frontier of density 2^-dens with a tenth of its words all
+    ones, visited a superset of it, and one key per chunk."""
+    n = g.num_vertices
+    nbr, prob, wt = csr.padded_adjacency(g)
+    t = rrr._Tables(nbr, prob, wt, *csr.padded_forward_adjacency(g),
+                    model="IC", coin_chunk=chunk)
     f = rand_words(gen, n, w, dev=dev)
     for _ in range(dens):
         f &= rand_words(gen, n, w, dev=dev)
     f[(torch.rand((n, w), generator=gen) < 0.1).to(dev)] = -1
-    vis = f & rand_words(gen, n, w, dev=dev)
-    valid = torch.rand((n, df), generator=gen) > 0.2
-    nbr = torch.where(valid, torch.randint(0, n, (n, df), generator=gen), 0)
-    gidx = torch.where(valid, nbr * d_pad + torch.randint(
-        0, d_pad, (n, df), generator=gen), n * d_pad)
-    prob = torch.rand((n, d_pad), generator=gen) * 0.6
-    prob[torch.rand((n, d_pad), generator=gen) < 0.2] = 0.0
-    prob[:, -1] = 0.0
-    keys = [prng.key(11).fold_in(n).fold_in(c) for c in range(n_chunks)]
-    return (f, vis, nbr.to(torch.int32).to(dev), gidx.to(torch.int32).to(dev),
-            prob.to(dev), keys, chunk)
+    vis = f | (rand_words(gen, n, w, dev=dev) & rand_words(gen, n, w,
+                                                            dev=dev))
+    keys = [prng.key(11).fold_in(n).fold_in(c) for c in range(t.n_chunks)]
+    return t, f, vis, keys
+
+
+def ic_inputs(gen, n, df, d, w, chunk, dens, dev):
+    """An IC step on a random graph: in-degrees Poisson(df) cut at d
+    (vertex 0 at d; valid slots first, -1 after), a fifth of the
+    probabilities zero (:func:`ic_graph_step` for the rest)."""
+    deg = torch.poisson(torch.full((n,), float(df)), generator=gen
+                        ).long().clamp(max=d)
+    deg[0] = d
+    src = torch.randint(0, n, (n, d), generator=gen)
+    keep = torch.arange(d)[None] < deg[:, None]
+    dst = torch.arange(n)[:, None].expand(n, d)
+    probs = torch.rand(int(keep.sum()), generator=gen) * 0.6
+    probs[torch.rand(probs.shape[0], generator=gen) < 0.2] = 0.0
+    g = csr.from_edge_list(src[keep].numpy(), dst[keep].numpy(), n,
+                           probs=probs.numpy(), device=dev)
+    return ic_graph_step(gen, g, w, chunk, dens, dev)
+
+
+def push_pair(t, frontier, visited, keys):
+    """The push kernel and its plain version from copies of one step's
+    inputs: (next plane, visited, next list sorted, frontier after) of
+    each."""
+    n, w = frontier.shape
+    words = rrr_expand.live_words(frontier)
+    outs = []
+    for fn in (rrr_expand.rrr_expand_push_ic,
+               rrr_expand.expand_step_ic_push_plain):
+        f, vis, nxt = frontier.clone(), visited.clone(), torch.zeros_like(
+            frontier)
+        listed = torch.empty(n * w, dtype=torch.int32, device=f.device)
+        count = torch.zeros(1, dtype=torch.int32, device=f.device)
+        fn(words, f, vis, t.nbr, t.prob_p, keys, t.chunk, nxt, listed,
+           count)
+        outs.append((nxt, vis, listed[:int(count)].sort().values, f))
+        del f, vis, nxt, listed
+    return outs
+
+
+def check_push(kernel, label):
+    """The push left the frontier it read zero and listed each word of
+    the next plane once."""
+    if bool(kernel[3].any()):
+        raise AssertionError(f"rrr_expand_ic: frontier not cleared ({label})")
+    if kernel[2].unique().numel() != kernel[2].numel():
+        raise AssertionError(f"rrr_expand_ic: a word listed twice ({label})")
 
 
 def parity_ic(gen, dev) -> int:
-    """rrr_expand_ic against its plain version and against the composed
-    coin_pack + rrr_expand_resident route: W = 1, odd W, several chunks,
-    all-ones frontier words, invalid and p = 0 slots, and (last shape) a
-    flat draw index past 2^32."""
+    """rrr_expand_ic against its plain version (planes word for word,
+    lists as sorted sets), and the dense entry point around it against
+    the pull's plain version and the composed coin_pack +
+    rrr_expand_resident route: W = 1, odd W, 1-3 chunks, all-ones
+    frontier words, invalid and p = 0 slots, a flat draw index past 2^32
+    (the fourth shape), a star (every leaf pushes into the hub's words)
+    and a reverse star (one reverse row of 4,999 slots)."""
     err = 0
-    for n, df, w, chunk, n_chunks, dens in ((1001, 7, 1, 3, 2, 1),
-                                            (301, 5, 5, 4, 3, 0),
-                                            (4093, 9, 33, 16, 1, 2),
-                                            (262144, 3, 40, 16, 1, 4)):
-        args = ic_inputs(gen, n, df, w, chunk, n_chunks, dens, dev)
-        f, vis, nbr, gidx, prob, keys, _ = args
-        got = rrr_expand.rrr_expand_step_ic(*args)
-        plane = coins.coin_plane(keys, prob, f, chunk).reshape(-1, w)
-        shape = dict(n=n, df=df, W=w, chunk=chunk, n_chunks=n_chunks,
-                     max_flat_index=32 * w * n * chunk)
-        err = max(err, require_equal(
-            "rrr_expand_ic", got, rrr_expand.expand_step_ic_plain(*args),
-            against="plain", **shape))
-        err = max(err, require_equal(
-            "rrr_expand_ic", got, rrr_expand.rrr_expand_step_resident(
-                f, vis, nbr, gidx, plane), against="composed", **shape))
+    cases = [(dict(n=n, df=df, d=d, W=w, chunk=chunk, dens=dens),
+              lambda n=n, df=df, d=d, w=w, chunk=chunk, dens=dens:
+              ic_inputs(gen, n, df, d, w, chunk, dens, dev))
+             for n, df, d, w, chunk, dens in ((1001, 3, 5, 1, 3, 1),
+                                              (301, 4, 11, 5, 4, 0),
+                                              (4093, 4, 16, 33, 16, 2),
+                                              (262144, 2, 16, 40, 16, 4))]
+    cases += [(dict(graph="star", n=5000, W=7), lambda: ic_graph_step(
+        gen, generators.star(5000, device=dev), 7, 32, 3, dev)),
+              (dict(graph="reverse star", n=5000, W=7), lambda: ic_graph_step(
+                  gen, csr.from_edge_list(np.arange(1, 5000),
+                                          np.zeros(4999, np.int64), 5000,
+                                          seed=2, device=dev),
+                  7, 32, 3, dev))]
+    for shape, make in cases:
+        t, f, vis, keys = make()
+        shape.update(n_chunks=t.n_chunks,
+                     max_flat_index=32 * f.shape[1] * t.n * t.chunk)
+        kernel, plain = push_pair(t, f, vis, keys)
+        err = max(err, require_equal("rrr_expand_ic", kernel, plain,
+                                     against="push plain", **shape))
+        check_push(kernel, shape)
+        got = rrr_expand.rrr_expand_step_ic(f, vis, t.nbr, t.prob_p, keys,
+                                            t.chunk)
+        plane = coins.coin_plane(keys, t.prob_p, f, t.chunk).reshape(
+            -1, f.shape[1])
+        for against, want in (
+                ("step", kernel[:2]),
+                ("pull plain", rrr_expand.expand_step_ic_plain(
+                    f, vis, t.nbr_c, t.gidx, t.prob_p, keys, t.chunk)),
+                ("composed", rrr_expand.rrr_expand_step_resident(
+                    f, vis, t.nbr_c, t.gidx, plane))):
+            err = max(err, require_equal("rrr_expand_ic", got, want,
+                                         against=against, **shape))
         if not int((got[0] != 0).sum()):
             raise AssertionError(f"rrr_expand_ic: no coin fired ({shape})")
-        del plane
+        del plane, kernel, plain, got
     return err
 
 
@@ -885,29 +962,32 @@ def timed(name, kernel_fn, plain_fn, reps, plain_reps, bytes_, ops_=0.0,
 
 def coins_needed(t, frontier) -> int:
     """The coins of one IC step: each set frontier bit of a vertex times
-    its reverse slots with p > 0 (each is one forward slot)."""
+    its reverse slots with p > 0."""
     live_bits = bitset.popcount(frontier).sum(1, dtype=torch.int64)
     return int((live_bits * (t.prob_p > 0).sum(1)).sum())
 
 
-def hash_rounds(t, frontier) -> dict:
-    """rrr_expand_ic's hash-loop rounds summed over warps: as the kernel
-    runs them (a warp waits for its lane with the most coins) and as a
-    perfect spread of each warp's coins over its 32 lanes would; threads
-    run along the flattened (u, w), 32 to a warp."""
-    n, d_pad = t.prob_p.shape
-    pc = bitset.popcount(frontier)
-    p = t.prob_p.reshape(-1)[t.gidx.long().clamp(max=n * d_pad - 1)]
-    live = (t.gidx < n * d_pad) & (p > 0)
-    per = torch.zeros_like(pc)
-    for s in range(t.nbr_c.shape[1]):
-        per += torch.where(live[:, s, None], pc[t.nbr_c[:, s].long()], 0)
-    flat = per.reshape(-1)
-    warps = flat[:flat.numel() // 32 * 32].reshape(-1, 32)
-    rounds = int(warps.max(1).values.sum(dtype=torch.int64))
-    spread = int(((warps.sum(1, dtype=torch.int64) + 31) // 32).sum())
-    return dict(hash_rounds=rounds, spread_rounds=spread,
-                imbalance=rounds / spread if spread else 1.0)
+def push_work(t, frontier, keys, appended: int) -> dict:
+    """What one IC step's data needs, for either design: the live
+    frontier words (each read once, and its list entry), the valid
+    reverse slots behind them (nbr and prob_p, 8 B a slot), the hit
+    words (words that some fired coin reaches: visited and the next
+    plane read, modified and written, 16 B each), the appended entries
+    (4 B each) and the coins (OPS_PER_COIN each)."""
+    live = frontier != 0
+    in_deg = (t.nbr >= 0).sum(1)
+    # the words a coin reaches: the step's new frontier over an empty
+    # visited set
+    hits = rrr_expand.rrr_expand_step_ic(frontier, torch.zeros_like(frontier),
+                                         t.nbr, t.prob_p, keys, t.chunk)[0]
+    work = dict(live_words=int(live.sum()),
+                live_slots=int((live.sum(1) * in_deg).sum()),
+                hit_words=int((hits != 0).sum()), appended=appended,
+                coins=coins_needed(t, frontier))
+    del hits
+    work["bytes"] = (8 * work["live_words"] + 8 * work["live_slots"]
+                     + 16 * work["hit_words"] + 4 * appended)
+    return work
 
 
 def ic_first_step(t, key, theta: int, dev):
@@ -922,35 +1002,83 @@ def ic_first_step(t, key, theta: int, dev):
 
 
 def time_ic_step(t, frontier, visited, keys, label: str, reps: int = 10,
-                 plain_reps: int = 3, plane=None) -> dict:
-    """rrr_expand_ic on one step's inputs, held against its plain version
-    (in ``timed``) and against the composed coin_pack +
-    rrr_expand_resident route.  Bound: each frontier word read once,
-    visited read, two outputs written, nbr_c, gidx and prob_p (bytes);
-    OPS_PER_COIN for each coin the step needs (operations)."""
-    args = (frontier, visited, t.nbr_c, t.gidx, t.prob_p, keys, t.chunk)
-    if plane is None:
-        plane = coins.coin_plane(keys, t.prob_p, frontier, t.chunk
-                                 ).reshape(t.n * t.d_pad, -1)
-    composed_err = max_err(
-        rrr_expand.rrr_expand_step_ic(*args),
-        rrr_expand.rrr_expand_step_resident(frontier, visited, t.nbr_c,
-                                            t.gidx, plane))
-    del plane
-    if composed_err:
-        raise AssertionError(f"rrr_expand_ic != coin_pack + "
-                             f"rrr_expand_resident ({label})")
-    n_coins = coins_needed(t, frontier)
-    row = timed(
-        "rrr_expand_ic", lambda: rrr_expand.rrr_expand_step_ic(*args),
-        lambda: rrr_expand.expand_step_ic_plain(*args), reps, plain_reps,
-        bytes_=4 * (4 * frontier.numel() + t.nbr_c.numel() + t.gidx.numel()
-                    + t.prob_p.numel()),
-        ops_=OPS_PER_COIN * n_coins)
-    extra = dict(shape=label, W=frontier.shape[1], coins=n_coins,
-                 nonzero_frontier_words=int((frontier != 0).sum()),
-                 composed_err=composed_err, **hash_rounds(t, frontier))
-    emit(phase="timing", name="rrr_expand_ic", **extra)
+                 plain_reps: int = 3, plane=None, composed=True) -> dict:
+    """rrr_expand_ic on one step's inputs.  The step as the sampler runs
+    it (the list in, visited updated in place; inputs restored before
+    each run, untimed) against its plain version — ``ms`` its device
+    time, ``call_ms`` the wrapper call's span with the host's share in
+    it — and the dense entry point (which adds listing the live words,
+    two clones and a zero plane) against the step and, with
+    ``composed``, against the composed coin_pack + rrr_expand_resident
+    route.  Bound: the larger
+    of :func:`push_work`'s bytes over the HBM rate and its coins'
+    operations over the INT32 rate — the same yardstick for the pull
+    and the push.  ``plain_reps=0`` times the plain version once."""
+    n, w = frontier.shape
+    kernel, plain = push_pair(t, frontier, visited, keys)
+    err = max_err(kernel, plain)
+    check_push(kernel, label)
+    appended = kernel[2].numel()
+    del kernel, plain
+    entry = rrr_expand.rrr_expand_step_ic(frontier, visited, t.nbr,
+                                          t.prob_p, keys, t.chunk)
+    composed_err = None
+    if composed:
+        if plane is None:
+            plane = coins.coin_plane(keys, t.prob_p, frontier, t.chunk
+                                     ).reshape(t.n * t.d_pad, -1)
+        composed_err = max_err(entry, rrr_expand.rrr_expand_step_resident(
+            frontier, visited, t.nbr_c, t.gidx, plane))
+    del plane, entry
+    if err or composed_err:
+        raise AssertionError(f"rrr_expand_ic: kernel != plain ({err}) or "
+                             f"entry point != composed ({composed_err}) "
+                             f"at {label}")
+    work = push_work(t, frontier, keys, appended)
+    bound_ms, bound_by, ops_ = bound(work["bytes"],
+                                     OPS_PER_COIN * work["coins"])
+    words = rrr_expand.live_words(frontier)
+    f, vis, nxt = (torch.empty_like(frontier) for _ in range(3))
+    listed = torch.empty(n * w, dtype=torch.int32, device=frontier.device)
+    count = torch.zeros(1, dtype=torch.int32, device=frontier.device)
+
+    def restore():
+        f.copy_(frontier)
+        vis.copy_(visited)
+        nxt.zero_()
+
+    def step(fn):
+        return lambda: fn(words, f, vis, t.nbr, t.prob_p, keys, t.chunk,
+                          nxt, listed, count)
+
+    ms = median_ms(step(rrr_expand.rrr_expand_push_ic), reps, restore,
+                   hide_host=True)
+    call_ms = median_ms(step(rrr_expand.rrr_expand_push_ic), reps, restore)
+    if plain_reps:
+        plain_ms = median_ms(step(rrr_expand.expand_step_ic_push_plain),
+                             plain_reps, restore)
+    else:
+        restore()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(rrr_expand.expand_step_ic_push_plain)()
+        stop.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(stop)
+    del f, vis, nxt, listed
+    entry_ms = median_ms(lambda: rrr_expand.rrr_expand_step_ic(
+        frontier, visited, t.nbr, t.prob_p, keys, t.chunk), reps)
+    torch.cuda.empty_cache()
+    row = dict(name="rrr_expand_ic", route="cuda",
+               source=SOURCES["rrr_expand_ic"][0],
+               replaces=SOURCES["rrr_expand_ic"][1], max_abs_err=err,
+               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None)
+    extra = dict(shape=label, W=w, call_ms=call_ms, entry_ms=entry_ms,
+                 int_ops=ops_,
+                 composed_err=composed_err, **work)
+    emit(phase="timing", **row, **extra)
     row.update(extra)
     return row
 
@@ -961,7 +1089,7 @@ def ic_timings(t, key, first, dev) -> dict:
     steps of the round's per-machine draw and of a serve slab, and two
     frontiers at the serve slab's shape with the same expected number of
     coins, one set bit in every word or all 32 bits in a 32nd of the
-    words (the lanes' imbalance)."""
+    words."""
     shapes = {}
     frontier, visited, _ = first
     step_key, best = key.split()[1], None
@@ -972,7 +1100,7 @@ def ic_timings(t, key, first, dev) -> dict:
             best = (coins_needed(t, frontier), step + 1, frontier, visited,
                     keys)
         frontier, visited = rrr_expand.rrr_expand_step_ic(
-            frontier, visited, t.nbr_c, t.gidx, t.prob_p, keys, t.chunk)
+            frontier, visited, t.nbr, t.prob_p, keys, t.chunk)
         if not bool(frontier.any()):
             break
     del frontier, visited
@@ -993,6 +1121,28 @@ def ic_timings(t, key, first, dev) -> dict:
         shapes[label] = time_ic_step(t, f, torch.zeros_like(f), keys, label,
                                      plain_reps=0)
     return shapes
+
+
+def rmat_ic_timing(dev) -> dict:
+    """rrr_expand_ic at the first step of a 32,768-sample draw on the
+    rmat graph of the IMM command's size (``--graph rmat``: n = 262,144,
+    ~1.05M edges; reverse rows of up to ~7,600 slots, and hub targets),
+    held against its plain version.  The pull's forward table would be
+    as wide and the composed route's coin plane n x d_pad x W words, so
+    neither is run here."""
+    args = im_driver.parser().parse_args(FULL)
+    g = im_driver.make_graph("rmat", args.n, args.avg_deg, args.seed, dev)
+    nbr, prob, _ = csr.padded_adjacency(g)
+    t = rrr._Tables(nbr, prob, None, None, None, model="IC",
+                    coin_chunk=args.coin_chunk, forward=False)
+    del prob
+    row = time_ic_step(t, *ic_first_step(t, prng.key(args.seed).fold_in(1),
+                                         args.max_theta, dev),
+                       "rmat", plain_reps=1, composed=False)
+    row.update(n=g.num_vertices, edges=g.num_edges, d=t.d)
+    del t, nbr
+    torch.cuda.empty_cache()
+    return row
 
 
 def main_path_timings(dev, final_seeds) -> dict:
@@ -1036,7 +1186,7 @@ def main_path_timings(dev, final_seeds) -> dict:
     del plane
     rows_out["rrr_expand_ic"]["shapes"] = ic_timings(
         t, key, (frontier, visited, keys), dev)
-    del t
+    del t, frontier, visited
 
     incidence = rrr.sample_incidence(nbr, prob, wt, key, theta=theta, n=n,
                                      model="IC", fwd=fwd)
@@ -1386,6 +1536,7 @@ def main(argv=None) -> int:
     rows = serve_timings(dev, svc_lazy, trace)
     del svc_lazy
     rows.update(main_path_timings(dev, torch.from_numpy(seeds)))
+    rows["rrr_expand_ic"]["shapes"]["rmat"] = rmat_ic_timing(dev)
     rows.update(round_timings(dev))
     kernels, order = [], []
     for name in ops.KERNELS:

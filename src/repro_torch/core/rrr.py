@@ -21,19 +21,22 @@ mask[v, rev_slot]`` for every forward pair ``(v, rev_slot)`` of ``u``:
     ``prng``, expansion as tensor gathers);
   * ``sampler="kernel"`` — the step runs as CUDA kernels.  IC on the
     resident layout (the default; ``gather="auto"`` means resident here,
-    there is no VMEM budget to solve for) is one kernel,
-    ``rrr_expand.rrr_expand_step_ic``, which draws each coin inside the
-    expansion and builds no coin plane.  IC with ``gather="streamed"``
-    draws the plane (``kernels.coins``) and gathers it into the streamed
-    mask; LT builds its selection plane with tensor ops and expands
-    through the resident or streamed kernel.
+    there is no VMEM budget to solve for) is one kernel a step,
+    ``rrr_expand.rrr_expand_push_ic``: a push over the list of the
+    frontier's live words along the *reverse* adjacency, which draws
+    each coin inside the step, updates ``visited`` in place and appends
+    each newly live word to the next list once (see ``_ic_push``).  IC
+    with ``gather="streamed"`` draws the plane (``kernels.coins``) and
+    gathers it into the streamed mask; LT builds its selection plane
+    with tensor ops and expands through the resident or streamed kernel.
 
 The per-step mask is the reference's coin / selection mask restricted
 to the frontier's live words (the expansion ANDs it with the frontier,
 so nothing else is ever read).  That keeps the per-step work
 proportional to the frontier instead of to batch * n * d.  The BFS
-``while_loop`` becomes a host loop that synchronizes once per step on
-``frontier.any()``.
+``while_loop`` becomes a host loop that synchronizes once per step: on
+the next list's count (4 bytes) for the IC push, on ``frontier.any()``
+for the other paths.
 """
 from __future__ import annotations
 
@@ -104,6 +107,15 @@ def packed_roots(roots: torch.Tensor, n: int) -> torch.Tensor:
     return out.reshape(n, w)
 
 
+def root_words(roots: torch.Tensor, w: int) -> torch.Tensor:
+    """The push's first word list: the distinct flat indices
+    ``roots[i] * w + i // 32`` (the non-zero words of
+    :func:`packed_roots`), ascending, int32."""
+    i = torch.arange(roots.shape[0], device=roots.device)
+    return torch.unique(roots.long() * w + i // bitset.WORD_BITS
+                        ).to(torch.int32)
+
+
 def _live_bits(frontier: torch.Tensor):
     """(sample, vertex, word) of every set frontier bit."""
     v, w = torch.nonzero(frontier, as_tuple=True)
@@ -116,17 +128,19 @@ class _Tables:
     """Per-graph tables of one sampling call, built once."""
 
     def __init__(self, nbr, prob, wt, fwd_nbr, fwd_rslot, *, model: str,
-                 coin_chunk: int):
+                 coin_chunk: int, forward: bool = True):
         n, d = nbr.shape
         self.n, self.d = n, d
+        self.nbr = nbr
         self.chunk, self.n_chunks, self.d_pad = _coin_chunks(d, coin_chunk)
-        valid = fwd_nbr >= 0
-        self.nbr_c = torch.where(valid, fwd_nbr, 0).contiguous()
-        self.gidx = torch.where(
-            valid, self.nbr_c * self.d_pad + fwd_rslot.clamp(min=0),
-            n * self.d_pad).to(torch.int32).contiguous()
-        self.rslot = fwd_rslot.clamp(min=0).long()
-        self.valid = valid
+        if forward:     # the forward gathers; the IC push reads nbr only
+            valid = fwd_nbr >= 0
+            self.nbr_c = torch.where(valid, fwd_nbr, 0).contiguous()
+            self.gidx = torch.where(
+                valid, self.nbr_c * self.d_pad + fwd_rslot.clamp(min=0),
+                n * self.d_pad).to(torch.int32).contiguous()
+            self.rslot = fwd_rslot.clamp(min=0).long()
+            self.valid = valid
         if model == "IC":
             self.prob_p = torch.nn.functional.pad(
                 prob, (0, self.d_pad - d)).contiguous()
@@ -164,10 +178,6 @@ def _lt_mask(t: _Tables, sub: Key, frontier):
 
 def _step(t: _Tables, sub: Key, frontier, visited, model: str,
           kernel: bool, gather: str):
-    if model == "IC" and kernel and gather != "streamed":
-        keys = [sub.fold_in(c) for c in range(t.n_chunks)]
-        return rrr_expand.rrr_expand_step_ic(frontier, visited, t.nbr_c,
-                                             t.gidx, t.prob_p, keys, t.chunk)
     mask = (_ic_mask(t, sub, frontier, kernel) if model == "IC"
             else _lt_mask(t, sub, frontier))
     return _expand(t, frontier, visited, mask, kernel, gather)
@@ -185,6 +195,34 @@ def _expand(t: _Tables, frontier, visited, mask, kernel: bool, gather: str):
     return rrr_expand.expand_step_plain(frontier, visited, t.nbr_c, gmask)
 
 
+def _ic_push(t: _Tables, roots, key: Key, visited, max_steps: int) -> int:
+    """The IC BFS as pushes over word lists, ``visited`` updated in
+    place; returns the steps taken.  Two frontier planes ping-pong (a
+    step zeroes the words it reads, leaving its plane zero for the step
+    after) and two word lists alternate; each step's one host sync reads
+    the next list's count, and the loop ends when it is 0.  No step
+    passes over a whole [n, W] plane."""
+    n, w = visited.shape
+    dev = visited.device
+    frontier, spare = visited.clone(), torch.zeros_like(visited)
+    lists = [torch.empty(n * w, dtype=torch.int32, device=dev)
+             for _ in range(2)]
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    words = root_words(roots, w)
+    step = 0
+    while step < max_steps and words.numel():
+        key, sub = key.split()
+        keys = [sub.fold_in(c) for c in range(t.n_chunks)]
+        out = lists[step % 2]
+        rrr_expand.rrr_expand_push_ic(words, frontier, visited, t.nbr,
+                                      t.prob_p, keys, t.chunk, spare, out,
+                                      count)
+        words = out[:int(count)]
+        frontier, spare = spare, frontier
+        step += 1
+    return step
+
+
 def rrr_batch_packed(nbr, prob, wt, fwd_nbr, fwd_rslot, roots, key: Key, *,
                      model: str, max_steps: int = 64, coin_chunk: int = 32,
                      expand: str = "plain", gather: str = "auto",
@@ -198,19 +236,23 @@ def rrr_batch_packed(nbr, prob, wt, fwd_nbr, fwd_rslot, roots, key: Key, *,
     if gather not in GATHERS:
         raise ValueError(f"unknown gather {gather!r}; expected {GATHERS}")
     kernel = expand == "kernel"
+    push = model == "IC" and kernel and gather != "streamed"
     n, d = nbr.shape
     visited = packed_roots(roots, n)
     if d == 0:          # edgeless graph: RRR(root) = {root}
         return visited
     t = _Tables(nbr, prob, wt, fwd_nbr, fwd_rslot, model=model,
-                coin_chunk=coin_chunk)
-    frontier = visited
-    step = 0
-    while step < max_steps and bool(frontier.any()):
-        key, sub = key.split()
-        frontier, visited = _step(t, sub, frontier, visited, model, kernel,
-                                  gather)
-        step += 1
+                coin_chunk=coin_chunk, forward=not push)
+    if push:
+        step = _ic_push(t, roots, key, visited, max_steps)
+    else:
+        frontier = visited
+        step = 0
+        while step < max_steps and bool(frontier.any()):
+            key, sub = key.split()
+            frontier, visited = _step(t, sub, frontier, visited, model,
+                                      kernel, gather)
+            step += 1
     if stats is not None:
         stats["bfs_steps"] = stats.get("bfs_steps", 0) + step
     return visited

@@ -27,9 +27,12 @@ _ARGS = [ops.PTR] * 4 + [ops.I64] * 4
 
 
 def key_words(keys: list[Key], device) -> torch.Tensor:
-    """The chunk keys as the kernels take them: int32 [n_chunks, 2]."""
-    return bitset.to_words(torch.tensor(
-        [[k.k0, k.k1] for k in keys], dtype=torch.int64)).to(device)
+    """The chunk keys as the kernels take them: int32 [n_chunks, 2] on
+    the card, copied from pinned memory on the current stream, so the
+    copy does not wait for the work queued before it."""
+    host = bitset.to_words(torch.tensor(
+        [[k.k0, k.k1] for k in keys], dtype=torch.int64))
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def coin_plane_plain(keys: list[Key], prob_p: torch.Tensor,

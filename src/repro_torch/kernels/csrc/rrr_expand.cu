@@ -17,9 +17,9 @@
 // time, not scratch.  Invalid slots follow the reference's contract:
 // fwd_nbr is pre-clipped to 0 and the mask word is zero (gmask) or
 // gidx names row `rows`, read as zero (resident).  The IC sampler's
-// step is rrr_expand_ic at the end of this file: the resident layout
-// with the coin plane drawn in the kernel instead of read from HBM.
-#include <algorithm>
+// step is rrr_expand_ic at the end of this file: a push over the live
+// frontier words that draws each coin in the kernel instead of reading
+// a coin plane from HBM.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -106,105 +106,123 @@ extern "C" int rrr_expand_streamed(const void* frontier, const void* visited,
                 visited_out, stream);
 }
 
-// IC sampling step with the coins drawn in the expansion
-// (rrr_expand_ic):
-//   hit[u, w] = OR over valid s of frontier[v, w] & coin(v, rslot, w)
-// with v = nbr_c[u, s], g = gidx[u, s] = v * d_pad + rslot (g == n *
-// d_pad marks an invalid slot), and bit b of coin(v, rslot, w) set iff
-// uniform(keys[c])[idx] < prob_p.flat[g], c = rslot / chunk, j = rslot
-// % chunk, idx = ((32w + b) * n + v) * chunk + j: the reference's coin
-// draw (repro/core/rrr.py:309-325) fused into
-// rrr_expand_step_resident_pallas (repro/kernels/rrr_expand.py:351).
-// The result is word for word rrr_expand_resident(coin_pack(...)), and
-// the [n, d_pad, W] coin plane between them never reaches HBM (each
-// edge is one forward slot, so each coin is hashed once, as coin_pack
-// hashes it).
+// IC sampling step as a push over the live frontier words, with the
+// coins drawn in the kernel (rrr_expand_ic).  Replaces
+// rrr_expand_step_resident_pallas (repro/kernels/rrr_expand.py:351)
+// fed by the reference's XLA coin draw (repro/core/rrr.py:309-325).
 //
-// Bound on the H100: bytes on the sampler's sparse frontiers (each
-// frontier word read once, visited read, two outputs written, nbr_c,
-// gidx and prob_p); the hashes' integer operations (~80 a coin) only
-// where frontier words are dense.  One thread per output word (u, w),
-// threads along w so the frontier gathers of a warp coalesce, with
-// 32-bit index arithmetic: rows of u are cut into bands of at most 2^31
-// threads (blockIdx.y), so the one division a thread makes (its row in
-// the band) and the one a live slot makes (its chunk) are 32-bit.  A
-// slot is skipped before its frontier load when invalid, and before any
-// hash when its frontier word is zero or its probability is not above
-// zero (such a coin never fires).  The draw index of bit b is the
-// slot's base index plus b * n * chunk, so a coin costs one 64-bit
-// multiply-add besides the hash.  A warp waits for its lane with the
-// most set bits; on the sampler's frontiers (a bit or two per non-zero
-// word) that costs under 0.1% more hash rounds than a perfect spread of
-// each warp's coins over its lanes (chip_smoke.py, phase timing), so the
-// bits are not redistributed with warp shuffles.
-__global__ void expand_ic_kernel(const uint32_t* __restrict__ frontier,
-                                 const uint32_t* __restrict__ visited,
-                                 const int32_t* __restrict__ nbr_c,
-                                 const int32_t* __restrict__ gidx,
-                                 const float* __restrict__ prob_p,
-                                 const uint32_t* __restrict__ keys,
-                                 uint32_t n, int df, uint32_t d_pad,
-                                 uint32_t chunk, uint32_t W,
-                                 uint32_t band_rows,
-                                 uint32_t* __restrict__ new_frontier,
-                                 uint32_t* __restrict__ visited_out) {
-  const uint32_t local = blockIdx.x * blockDim.x + threadIdx.x;
-  const uint32_t du = local / W;
-  const uint32_t u = blockIdx.y * band_rows + du;
-  if (du >= band_rows || u >= n) return;
-  const uint32_t w = local - du * W;
-  const uint32_t sentinel = n * d_pad;
-  const uint64_t bit_stride = (uint64_t)n * chunk;
-  const int32_t* g_row = gidx + (uint64_t)u * df;
-  const int32_t* v_row = nbr_c + (uint64_t)u * df;
-  uint32_t hit = 0;
-  for (int s = 0; s < df; ++s) {
-    const uint32_t g = (uint32_t)g_row[s];
-    if (g >= sentinel) continue;
-    const uint32_t v = (uint32_t)v_row[s];
-    uint32_t f = frontier[(uint64_t)v * W + w];
-    if (!f) continue;
-    const float p = prob_p[g];
-    if (!(p > 0.0f)) continue;
-    const uint32_t rslot = g - v * d_pad;
-    const uint32_t c = rslot / chunk;
-    const uint32_t j = rslot - c * chunk;
-    const uint32_t k0 = keys[2 * c], k1 = keys[2 * c + 1];
-    const uint64_t base = ((uint64_t)(32u * w) * n + v) * chunk + j;
-    while (f) {
-      const int bit = __ffs(f) - 1;
-      f &= f - 1;
-      if (coin_fires(k0, k1, base + (uint64_t)bit * bit_stride, p))
-        hit |= 1u << bit;
-    }
+// Input: the list of live words, flat indices v * W + w of the non-zero
+// words of the frontier plane.  For each entry, every valid reverse
+// slot rslot of v (nbr[v, rslot] = u >= 0; the valid slots come first
+// in each row, as padded_adjacency builds it) with p = prob_p[v, rslot]
+// > 0 hashes each set bit b of the frontier word f: bit b fires iff
+// uniform(keys[c])[idx] < p, c = rslot / chunk, j = rslot % chunk, idx
+// = ((32w + b) * n + v) * chunk + j — the reference's draw index, so
+// each coin is the reference's coin, hashed once.  The fired bits of a
+// slot are pushed into word (u, w):
+//   new = bits & ~atomicOr(&visited[u, w], bits)      (visited in place)
+//   if new: old = atomicOr(&next[u, w], new); if !old: append u * W + w
+// OR is order-free, so the planes are word for word the pull's result
+// (hit & ~visited, visited | hit) whatever order the threads run in;
+// the first thread to set a word of `next` (zero on entry) appends it,
+// so each word enters the next list once and the list is exactly the
+// next plane's non-zero words, in no particular order.
+//
+// Bound on the H100: the work is the list, the live words, the rows of
+// nbr and prob_p behind them, a read-modify-write of visited and next
+// at each hit word, and ~80 integer operations a coin — no pass over
+// the [n, W] planes.  On the sampler's frontiers (about 1 in 8,000 words
+// live) that is a few MB, and the step's time is set by latency: the
+// launch and a few waves of short dependent chains of loads and
+// atomics.  Where most words are live, the random atomics at the hit
+// words cost more than a pull's streaming writes (chip_smoke.py, phase
+// timing, "one bit a word").
+//
+// One group of G lanes per entry, G the row width d rounded up to a
+// power of two, at most 32 (a warp per entry on hub rows, several
+// entries a warp on narrow rows).  Lane 0 of the group loads the word,
+// zeroes it in the frontier plane (only this group reads that entry, so
+// after the step the plane is all zero again and can be the next step's
+// target: ping-pong planes, no clearing pass) and shuffles it to the
+// group, whose lanes stride over the row's slots.  A lane stops at the
+// row's first invalid slot.  Before its atomics a lane reads the target
+// visited word plainly: visited only grows, so a stale read costs an
+// atomic and never loses a bit, and a coin that reaches an already
+// visited sample (frequent at hubs) costs no atomic.
+__global__ void push_ic_kernel(const int32_t* __restrict__ words,
+                               uint32_t count, uint32_t* frontier,
+                               uint32_t* visited,
+                               const int32_t* __restrict__ nbr,
+                               const float* __restrict__ prob_p,
+                               const uint32_t* __restrict__ keys, uint32_t n,
+                               uint32_t d, uint32_t d_pad, uint32_t chunk,
+                               uint32_t W, int lg, uint32_t* next,
+                               int32_t* __restrict__ next_words,
+                               uint32_t* next_count) {
+  const uint32_t group = 1u << lg;
+  const uint32_t lane = threadIdx.x & (group - 1);
+  const uint32_t e = blockIdx.x * (blockDim.x >> lg) + (threadIdx.x >> lg);
+  uint32_t word = 0, f = 0;
+  if (lane == 0 && e < count) {
+    word = (uint32_t)words[e];
+    f = frontier[word];
+    frontier[word] = 0u;
   }
-  const uint64_t t = (uint64_t)u * W + w;
-  const uint32_t vis = visited[t];
-  const uint32_t nw = hit & ~vis;
-  new_frontier[t] = nw;
-  visited_out[t] = vis | nw;
+  word = __shfl_sync(0xffffffffu, word, 0, group);
+  f = __shfl_sync(0xffffffffu, f, 0, group);
+  if (!f) return;
+  const uint32_t v = word / W;
+  const uint32_t w = word - v * W;
+  const int32_t* row = nbr + (uint64_t)v * d;
+  const float* p_row = prob_p + (uint64_t)v * d_pad;
+  const uint64_t bit_stride = (uint64_t)n * chunk;
+  const uint64_t sample0 = (uint64_t)(32u * w) * n + v;
+  for (uint32_t s = lane; s < d; s += group) {
+    const int32_t u = row[s];
+    if (u < 0) break;
+    const float p = p_row[s];
+    if (!(p > 0.0f)) continue;
+    const uint32_t c = s / chunk;
+    const uint32_t j = s - c * chunk;
+    const uint32_t k0 = keys[2 * c], k1 = keys[2 * c + 1];
+    const uint64_t base = sample0 * chunk + j;
+    uint32_t bits = 0;
+    for (uint32_t rest = f; rest; rest &= rest - 1) {
+      const int b = __ffs(rest) - 1;
+      if (coin_fires(k0, k1, base + (uint64_t)b * bit_stride, p))
+        bits |= 1u << b;
+    }
+    const uint64_t t = (uint64_t)u * W + w;
+    if (!(bits & ~visited[t])) continue;
+    const uint32_t nw = bits & ~atomicOr(&visited[t], bits);
+    if (nw && !atomicOr(&next[t], nw))
+      next_words[atomicAdd(next_count, 1u)] = (int32_t)t;
+  }
 }
 
-extern "C" int rrr_expand_ic(const void* frontier, const void* visited,
-                             const void* nbr_c, const void* gidx,
-                             const void* prob_p, const void* keys,
-                             void* new_frontier, void* visited_out,
-                             int64_t n, int64_t df, int64_t d_pad,
-                             int64_t chunk, int64_t W, void* stream) {
-  // 32-bit indices: the sentinel n * d_pad is an int32 gidx entry, and
-  // the sample index 32 * W fits in 32 bits.
-  if (n * d_pad >= (int64_t(1) << 31) || 32 * W >= (int64_t(1) << 32))
+extern "C" int rrr_expand_ic(const void* words, int64_t count,
+                             void* frontier, void* visited, const void* nbr,
+                             const void* prob_p, const void* keys, void* next,
+                             void* next_words, void* next_count, int64_t n,
+                             int64_t d, int64_t d_pad, int64_t chunk,
+                             int64_t W, void* stream) {
+  // 32-bit words: the list holds int32 flat indices v * W + w, and the
+  // sample index 32 * W fits in 32 bits.
+  if (count < 1 || n * W >= (int64_t(1) << 31) ||
+      32 * W >= (int64_t(1) << 32))
     return (int)cudaErrorInvalidValue;
-  const int64_t band_rows = std::min<int64_t>(n, (int64_t(1) << 31) / W);
-  const int64_t bands = (n + band_rows - 1) / band_rows;
-  if (bands > 65535) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)((band_rows * W + kThreads - 1) / kThreads),
-                  (unsigned)bands);
-  expand_ic_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)frontier, (const uint32_t*)visited,
-      (const int32_t*)nbr_c, (const int32_t*)gidx, (const float*)prob_p,
-      (const uint32_t*)keys, (uint32_t)n, (int)df, (uint32_t)d_pad,
-      (uint32_t)chunk, (uint32_t)W, (uint32_t)band_rows,
-      (uint32_t*)new_frontier, (uint32_t*)visited_out);
+  int lg = 0;
+  while ((int64_t(1) << lg) < d && lg < 5) ++lg;
+  cudaError_t err = cudaMemsetAsync(next_count, 0, sizeof(uint32_t),
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t per_block = kThreads >> lg;
+  const int64_t blocks = (count + per_block - 1) / per_block;
+  push_ic_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)words, (uint32_t)count, (uint32_t*)frontier,
+      (uint32_t*)visited, (const int32_t*)nbr, (const float*)prob_p,
+      (const uint32_t*)keys, (uint32_t)n, (uint32_t)d, (uint32_t)d_pad,
+      (uint32_t)chunk, (uint32_t)W, lg, (uint32_t*)next,
+      (int32_t*)next_words, (uint32_t*)next_count);
   return (int)cudaGetLastError();
 }

@@ -15,13 +15,20 @@ frontier-row gathers and the mask words); see the CUDA source for the
 design.  The kernel is direction-agnostic, so the cascade's forward
 diffusion uses it too.
 
-The IC sampler's step is ``rrr_expand_step_ic`` (kernel
-``rrr_expand_ic``): the resident layout with the mask word drawn where
-it is needed — bit ``b`` of the mask at ``(u, s, w)`` is the IC coin of
-sample ``32 w + b`` on the edge of slot ``s`` (``kernels.coins``), hashed
-only behind a set frontier bit — so the coin plane of ``coin_pack`` is
-never built.  The result equals ``rrr_expand_step_resident`` over
-``coins.coin_plane`` word for word.
+The IC sampler's step is ``rrr_expand_push_ic`` (kernel
+``rrr_expand_ic``), a push over a list of the frontier's live words:
+each live word ``(v, w)`` draws the IC coin of sample ``32 w + b`` on
+each valid reverse slot of ``v`` (``kernels.coins``), hashed only behind
+a set frontier bit, and ORs the fired bits into the word ``(u, w)`` of
+its in-neighbour ``u``, updating ``visited`` in place and appending each
+newly live word to the next list once.  No coin plane is built and no
+pass over the ``[n, W]`` planes is made: the step zeroes the frontier
+words it reads, so the sampler ping-pongs two frontier planes.  Its
+plain version is ``expand_step_ic_push_plain``.  ``rrr_expand_step_ic``
+is the dense entry point around it (frontier and visited in, new
+frontier and visited out), equal word for word to
+``rrr_expand_step_resident`` over ``coins.coin_plane`` and to the pull
+``expand_step_ic_plain``.
 """
 from __future__ import annotations
 
@@ -33,7 +40,7 @@ from repro_torch.kernels import coins, ops
 
 _RESIDENT_ARGS = [ops.PTR] * 7 + [ops.I64] * 4
 _STREAMED_ARGS = [ops.PTR] * 6 + [ops.I64] * 3
-_IC_ARGS = [ops.PTR] * 8 + [ops.I64] * 5
+_IC_ARGS = [ops.PTR, ops.I64] + [ops.PTR] * 8 + [ops.I64] * 5
 
 
 def _finish(hit, visited):
@@ -106,10 +113,13 @@ def rrr_expand_step(frontier, visited, fwd_nbr, gmask):
 
 def expand_step_ic_plain(frontier, visited, nbr_c, gidx, prob_p,
                          keys: list[Key], chunk: int):
-    """Builds no plane: per forward slot, the live (u, w) — a valid slot
+    """The IC step as a pull over the forward slots, in plain PyTorch
+    (an oracle that shares no code with the push, which the tests hold
+    it against): per forward slot, the live (u, w) — a valid slot
     (``gidx`` below the sentinel ``n * d_pad``) with ``p > 0`` whose
     frontier word is non-zero — and their set bits, hashed through
-    ``Key.uniform_at`` at the reference's flat draw indices."""
+    ``Key.uniform_at`` at the reference's flat draw indices.  Builds no
+    plane; -> (new frontier, new visited)."""
     n, d_pad = prob_p.shape
     sentinel = n * d_pad
     p_flat = prob_p.reshape(-1)
@@ -138,33 +148,149 @@ def expand_step_ic_plain(frontier, visited, nbr_c, gidx, prob_p,
     return _finish(hit, visited)
 
 
-def rrr_expand_step_ic(frontier, visited, nbr_c, gidx, prob_p,
-                       keys: list[Key], chunk: int):
-    """IC step with the coins drawn in the expansion: frontier/visited
-    int32 [n, W], nbr_c/gidx int32 [n, df] (``gidx`` = v * d_pad +
-    reverse slot, ``n * d_pad`` at invalid slots), prob_p float32 [n,
-    d_pad], one key per chunk of ``chunk`` reverse slots ->
-    (new_frontier, new_visited)."""
+def live_words(frontier: torch.Tensor) -> torch.Tensor:
+    """The push's word list of a dense frontier: int32 flat indices
+    ``v * W + w`` of its non-zero words, ascending."""
+    return torch.nonzero(frontier.reshape(-1)).reshape(-1).to(torch.int32)
+
+
+def _check_push(words, frontier, visited, nbr, prob_p, keys, chunk,
+                next_frontier, next_words, next_count):
     n, w = frontier.shape
-    df = nbr_c.shape[1]
     d_pad = prob_p.shape[1]
     if len(keys) * chunk != d_pad:
         raise ValueError(f"{len(keys)} chunk keys x {chunk} slots != "
                          f"d_pad {d_pad}")
-    ops.check(frontier, "frontier", torch.int32, (n, w))
-    ops.check(visited, "visited", torch.int32, (n, w))
-    ops.check(nbr_c, "nbr_c", torch.int32, (n, df))
-    ops.check(gidx, "gidx", torch.int32, (n, df))
+    ops.check(words, "words", torch.int32, (None,))
+    for name, t in (("frontier", frontier), ("visited", visited),
+                    ("next_frontier", next_frontier)):
+        ops.check(t, name, torch.int32, (n, w))
+    ops.check(nbr, "nbr", torch.int32, (n, None))
     ops.check(prob_p, "prob_p", torch.float32, (n, d_pad))
-    if not ops.on_card(frontier, visited, nbr_c, gidx, prob_p):
-        return expand_step_ic_plain(frontier, visited, nbr_c, gidx, prob_p,
-                                    keys, chunk)
+    ops.check(next_words, "next_words", torch.int32, (n * w,))
+    ops.check(next_count, "next_count", torch.int32, (1,))
+    if nbr.shape[1] > d_pad:
+        raise ValueError(f"nbr has {nbr.shape[1]} slots, prob_p {d_pad}")
+    planes = {t.data_ptr() for t in (frontier, visited, next_frontier)}
+    if len(planes) != 3:
+        raise ValueError("frontier, visited and next_frontier must be "
+                         "three distinct planes")
+
+
+# Entries x row width of one pass of the plain push (bounds its memory
+# on the full-size and hub-row inputs it is held against on the card).
+_PLAIN_SLOTS = 1 << 24
+
+
+def _fired(idx, f, nbr, prob_p, keys: list[Key], chunk: int, n: int,
+           w_total: int) -> torch.Tensor:
+    """``(u * W + w) * 32 + b`` of each coin that fires behind the live
+    words ``idx`` (frontier words ``f``): bit ``b`` of ``(v, w)`` on each
+    valid reverse slot of ``v`` with ``p > 0``."""
+    v, w = idx // w_total, idx % w_total
+    e, s = torch.nonzero((nbr[v] >= 0) & (prob_p[v, :nbr.shape[1]] > 0),
+                         as_tuple=True)
+    live = bitset.unpack_words(f[e][:, None], bitset.WORD_BITS)
+    i, b = torch.nonzero(live, as_tuple=True)          # set bits of each
+    e, s = e[i], s[i]
+    ve, we = v[e], w[e]
+    c, j = s // chunk, s % chunk
+    flat = ((bitset.WORD_BITS * we + b) * n + ve) * chunk + j
+    p = prob_p[ve, s]
+    fire = torch.zeros_like(b, dtype=torch.bool)
+    for ci, key in enumerate(keys):
+        sel = c == ci
+        fire[sel] = key.uniform_at(flat[sel]) < p[sel]
+    tgt = nbr[ve, s].long() * w_total + we
+    return (tgt * bitset.WORD_BITS + b)[fire]
+
+
+def expand_step_ic_push_plain(words, frontier, visited, nbr, prob_p,
+                              keys: list[Key], chunk: int, next_frontier,
+                              next_words, next_count) -> None:
+    """The push step in plain PyTorch, with the kernel's in-place
+    contract (:func:`rrr_expand_push_ic`); the next list comes out
+    ascending.  Slots with ``nbr >= 0`` are valid."""
+    n, w_total = frontier.shape
+    flat_f, flat_vis = frontier.view(-1), visited.view(-1)
+    flat_next = next_frontier.view(-1)
+    idx = words.long()
+    f = flat_f[idx]
+    flat_f[idx] = 0
+    per = max(1, _PLAIN_SLOTS // max(nbr.shape[1], 1))
+    fired = [_fired(idx[lo:lo + per], f[lo:lo + per], nbr, prob_p, keys,
+                    chunk, n, w_total) for lo in range(0, idx.numel(), per)]
+    hit_bits = torch.unique(torch.cat(fired) if fired else idx)
+    hw, inv = torch.unique_consecutive(hit_bits // bitset.WORD_BITS,
+                                       return_inverse=True)
+    word = torch.zeros(hw.numel(), dtype=torch.int64, device=hw.device)
+    word.index_add_(0, inv, torch.ones_like(hit_bits)
+                    << (hit_bits % bitset.WORD_BITS))
+    hit = bitset.to_words(word)
+    old = flat_vis[hw]
+    new = hit & ~old
+    flat_vis[hw] = old | new
+    old_next = flat_next[hw]
+    flat_next[hw] = old_next | new
+    appended = hw[(new != 0) & (old_next == 0)]
+    next_words[:appended.numel()] = appended.to(torch.int32)
+    next_count.fill_(appended.numel())
+
+
+def rrr_expand_push_ic(words, frontier, visited, nbr, prob_p,
+                       keys: list[Key], chunk: int, next_frontier,
+                       next_words, next_count) -> None:
+    """One IC step as a push over the live frontier words, in place.
+
+    ``words`` int32 [count]: the flat indices ``v * W + w`` of the
+    non-zero words of ``frontier`` int32 [n, W], each once.  ``visited``
+    int32 [n, W] gains the step's new bits; ``next_frontier`` int32 [n,
+    W], zero on entry, receives them (the new frontier); ``frontier``
+    is zeroed at the listed words (so all of it, when the list is
+    complete); ``next_words`` int32 [n * W] receives the new frontier's
+    non-zero words, each once (ascending in the plain version, in no
+    order on the card), and ``next_count`` int32 [1] their number.
+    ``nbr`` int32 [n, d] is the reverse adjacency, valid slots first in
+    each row, -1 after; ``prob_p`` float32 [n, d_pad] its probabilities;
+    one key per chunk of ``chunk`` reverse slots."""
+    n, w = frontier.shape
+    _check_push(words, frontier, visited, nbr, prob_p, keys, chunk,
+                next_frontier, next_words, next_count)
+    tensors = (words, frontier, visited, nbr, prob_p, next_frontier,
+               next_words, next_count)
+    if not ops.on_card(*tensors):
+        return expand_step_ic_push_plain(words, frontier, visited, nbr,
+                                         prob_p, keys, chunk, next_frontier,
+                                         next_words, next_count)
+    if n * w >= 2**31:
+        raise ValueError(f"n x W = {n * w} words do not fit the int32 "
+                         "word list")
+    if words.numel() == 0:
+        next_count.zero_()
+        return None
     key_words = coins.key_words(keys, frontier.device)
-    newf, viso = torch.empty_like(frontier), torch.empty_like(visited)
-    if n * w == 0:
-        return newf, viso
     ops.launch("rrr_expand_ic", "rrr_expand", "rrr_expand_ic", _IC_ARGS,
-               frontier.data_ptr(), visited.data_ptr(), nbr_c.data_ptr(),
-               gidx.data_ptr(), prob_p.data_ptr(), key_words.data_ptr(),
-               newf.data_ptr(), viso.data_ptr(), n, df, d_pad, chunk, w)
-    return newf, viso
+               words.data_ptr(), words.numel(), frontier.data_ptr(),
+               visited.data_ptr(), nbr.data_ptr(), prob_p.data_ptr(),
+               key_words.data_ptr(), next_frontier.data_ptr(),
+               next_words.data_ptr(), next_count.data_ptr(), n,
+               nbr.shape[1], prob_p.shape[1], chunk, w)
+    return None
+
+
+def rrr_expand_step_ic(frontier, visited, nbr, prob_p, keys: list[Key],
+                       chunk: int):
+    """The dense entry point of the push: frontier/visited int32 [n, W]
+    (left untouched), nbr int32 [n, d] (reverse adjacency, valid slots
+    first), prob_p float32 [n, d_pad], one key per chunk of ``chunk``
+    reverse slots -> (new_frontier, new_visited).  Lists the frontier's
+    live words, clones visited and the frontier, then runs
+    :func:`rrr_expand_push_ic`."""
+    n, w = frontier.shape
+    new_frontier, new_visited = torch.zeros_like(frontier), visited.clone()
+    rrr_expand_push_ic(
+        live_words(frontier), frontier.clone(), new_visited, nbr, prob_p,
+        keys, chunk, new_frontier,
+        torch.empty(n * w, dtype=torch.int32, device=frontier.device),
+        torch.empty(1, dtype=torch.int32, device=frontier.device))
+    return new_frontier, new_visited

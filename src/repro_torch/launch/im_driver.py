@@ -75,6 +75,23 @@ def _chunk_size_arg(text: str):
     return v or None
 
 
+def _block_v_arg(text: str):
+    """--block-v: 'auto' or a positive row-tile size, validated as the
+    reference validates it.  The value is ignored: the port's kernels
+    fix their tiles, and no result depends on it."""
+    if text == "auto":
+        return None
+    try:
+        v = int(text)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected 'auto' or an integer row-tile size, got "
+            f"{text!r} (e.g. --block-v 128)") from None
+    if v < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {v}")
+    return v
+
+
 def make_graph(kind: str, n: int, avg_deg: float, seed: int, device):
     if kind == "er":
         return generators.erdos_renyi(n, avg_deg, seed, device=device)
@@ -121,6 +138,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--gather", default="auto",
                     choices=("resident", "streamed", "auto"),
                     help="expansion kernel layout ('auto' = resident)")
+    ap.add_argument("--block-v", type=_block_v_arg, default=None,
+                    help="the reference's sampler row-tile size, or "
+                         "'auto'; accepted and ignored (the port's kernels "
+                         "fix their tiles; never affects results)")
     ap.add_argument("--coin-chunk", type=_coin_chunk_arg, default=32)
     ap.add_argument("--use-kernel", action="store_true",
                     help="route the streaming receiver through its "

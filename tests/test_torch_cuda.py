@@ -7,6 +7,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import numpy as np  # noqa: E402
+
 from repro_torch.core import greediris, imm, maxcover, prng, rrr  # noqa: E402
 from repro_torch.graphs import csr, generators  # noqa: E402
 from repro_torch.kernels import (bucket, bucket_insert, coins,  # noqa: E402
@@ -59,35 +61,106 @@ def test_coin_plane(dev):
            [coins.coin_plane_plain(keys, prob, f, 2)])
 
 
-@pytest.mark.parametrize("n,df,w,chunk,n_chunks,dens", [
-    (1001, 7, 1, 3, 2, 1), (301, 5, 5, 4, 3, 0), (4093, 9, 33, 16, 1, 2),
-    (262144, 3, 40, 16, 1, 4)])      # the last draw index passes 2**32
-def test_expand_ic(dev, n, df, w, chunk, n_chunks, dens):
-    """The fused IC step against its plain version and against the
-    composed coin plane + resident expansion: all-ones frontier words,
-    invalid slots (gidx = n * d_pad) and p = 0 slots."""
-    gen = torch.Generator().manual_seed(n + w)
-    d_pad = chunk * n_chunks
+def _ic_graph(gen, n, df, d, w, chunk, dens, dev):
+    """An IC step's inputs from a random reverse table: in-degrees
+    Poisson(df) cut at d (vertex 0 at d), -1 after each row's valid
+    slots, a fifth of the probabilities zero (the padded slots too), a
+    frontier of density 2^-dens with a tenth of its words all ones, and
+    visited a superset of it; with the pull's forward tables (nbr_c,
+    gidx) from rrr._Tables."""
+    deg = torch.poisson(torch.full((n,), float(df)), generator=gen
+                        ).long().clamp(max=d)
+    deg[0] = d
+    src = torch.randint(0, n, (n, d), generator=gen)
+    dst = torch.arange(n)[:, None].expand(n, d)
+    keep = torch.arange(d)[None] < deg[:, None]
+    probs = torch.rand(int(keep.sum()), generator=gen) * 0.6
+    probs[torch.rand(probs.shape[0], generator=gen) < 0.2] = 0.0
+    g = csr.from_edge_list(src[keep].numpy(), dst[keep].numpy(), n,
+                           probs=probs.numpy(), device=dev)
+    return _graph_step(gen, g, w, chunk, dens, dev)
+
+
+def _graph_step(gen, g, w, chunk, dens, dev):
+    n = g.num_vertices
+    nbr, prob, wt = csr.padded_adjacency(g)
+    t = rrr._Tables(nbr, prob, wt, *csr.padded_forward_adjacency(g),
+                    model="IC", coin_chunk=chunk)
     f = _words(gen, n, w, dev=dev)
     for _ in range(dens):
         f &= _words(gen, n, w, dev=dev)
     f[(torch.rand((n, w), generator=gen) < 0.1).to(dev)] = -1
-    vis = f & _words(gen, n, w, dev=dev)
-    valid = torch.rand((n, df), generator=gen) > 0.2
-    nbr = torch.where(valid, torch.randint(0, n, (n, df), generator=gen), 0)
-    gidx = torch.where(valid, nbr * d_pad + torch.randint(
-        0, d_pad, (n, df), generator=gen), n * d_pad)
-    prob = torch.rand((n, d_pad), generator=gen) * 0.6
-    prob[torch.rand((n, d_pad), generator=gen) < 0.2] = 0.0
-    keys = [prng.key(5).fold_in(c) for c in range(n_chunks)]
-    args = (f, vis, nbr.to(torch.int32).to(dev),
-            gidx.to(torch.int32).to(dev), prob.to(dev), keys, chunk)
-    got = rrr_expand.rrr_expand_step_ic(*args)
-    _equal(got, rrr_expand.expand_step_ic_plain(*args))
-    plane = coins.coin_plane(keys, args[4], f, chunk).reshape(-1, w)
-    _equal(got, rrr_expand.rrr_expand_step_resident(f, vis, *args[2:4],
+    vis = f | (_words(gen, n, w, dev=dev) & _words(gen, n, w, dev=dev))
+    keys = [prng.key(5).fold_in(c) for c in range(t.n_chunks)]
+    return t, f, vis, keys
+
+
+def _push_both(t, f, vis, keys):
+    """The push kernel and its plain version on copies of one step:
+    (next plane, visited, sorted next list, frontier after) of each."""
+    n, w = f.shape
+    words = rrr_expand.live_words(f)
+    outs = []
+    for fn in (rrr_expand.rrr_expand_push_ic,
+               rrr_expand.expand_step_ic_push_plain):
+        fc, vc, nxt = f.clone(), vis.clone(), torch.zeros_like(f)
+        listed = torch.empty(n * w, dtype=torch.int32, device=f.device)
+        count = torch.zeros(1, dtype=torch.int32, device=f.device)
+        fn(words, fc, vc, t.nbr, t.prob_p, keys, t.chunk, nxt, listed,
+           count)
+        outs.append((nxt, vc, listed[:int(count)].sort().values, fc))
+    return outs
+
+
+@pytest.mark.parametrize("n,df,d,w,chunk,dens", [
+    (1001, 3, 5, 1, 3, 1), (301, 4, 11, 5, 4, 0), (4093, 4, 16, 33, 16, 2),
+    (262144, 2, 16, 40, 16, 4)])     # the last draw index passes 2**32
+def test_expand_ic(dev, n, df, d, w, chunk, dens):
+    """The push kernel against its plain version (planes word for word,
+    lists as sorted sets, the frontier it read zeroed), and the dense
+    entry point against the pull's plain version and the composed coin
+    plane + resident expansion: all-ones frontier words, invalid slots
+    and p = 0 slots, 1-3 chunks."""
+    gen = torch.Generator().manual_seed(n + w)
+    t, f, vis, keys = _ic_graph(gen, n, df, d, w, chunk, dens, dev)
+    kernel, plain = _push_both(t, f, vis, keys)
+    _equal(kernel, plain)
+    assert not bool(kernel[3].any())
+    assert kernel[2].unique().numel() == kernel[2].numel()
+    got = rrr_expand.rrr_expand_step_ic(f, vis, t.nbr, t.prob_p, keys,
+                                        t.chunk)
+    _equal(got, kernel[:2])
+    _equal(got, rrr_expand.expand_step_ic_plain(
+        f, vis, t.nbr_c, t.gidx, t.prob_p, keys, t.chunk))
+    plane = coins.coin_plane(keys, t.prob_p, f, t.chunk).reshape(-1, w)
+    _equal(got, rrr_expand.rrr_expand_step_resident(f, vis, t.nbr_c, t.gidx,
                                                     plane))
     assert int((got[0] != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("graph", ["star", "reverse star", "rmat"])
+def test_push_ic_hubs(dev, graph):
+    """The push kernel against its plain version where rows are skewed:
+    a star (every leaf pushes into the hub's words, p = 1), a reverse
+    star (one reverse row of 4,999 slots) and an rmat graph's first
+    sampler step (hub rows and hub targets)."""
+    gen = torch.Generator().manual_seed(7)
+    if graph == "star":
+        g = generators.star(5000, device=dev)
+    elif graph == "reverse star":
+        g = csr.from_edge_list(np.arange(1, 5000), np.zeros(4999, np.int64),
+                               5000, seed=2, device=dev)
+    else:
+        g = generators.rmat(14, 1 << 16, seed=3, device=dev)
+    t, f, vis, keys = _graph_step(gen, g, 7, 32, 3, dev)
+    if graph == "rmat":
+        f = rrr.packed_roots(torch.randint(0, g.num_vertices, (7 * 32,),
+                                           generator=gen).to(dev),
+                             g.num_vertices)
+        vis = f.clone()
+    kernel, plain = _push_both(t, f, vis, keys)
+    _equal(kernel, plain)
+    assert int((kernel[0] != 0).sum()) > 0
 
 
 def test_greedy_and_bucket(dev):
@@ -206,11 +279,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         rrr_expand.rrr_expand_step(f, f.cpu(), nbr, f[:, None])
     prob = torch.zeros((4, 2), device=dev)
     with pytest.raises(TypeError, match="prob_p"):
-        rrr_expand.rrr_expand_step_ic(f, f, nbr, nbr, prob.double(),
+        rrr_expand.rrr_expand_step_ic(f, f, nbr, prob.double(),
                                       [prng.key(1)], 2)
     with pytest.raises(ValueError, match="several devices"):
-        rrr_expand.rrr_expand_step_ic(f, f, nbr, nbr.cpu(), prob,
+        rrr_expand.rrr_expand_step_ic(f, f, nbr.cpu(), prob,
                                       [prng.key(1)], 2)
+    words = torch.zeros(1, dtype=torch.int32, device=dev)
+    listed = torch.empty(8, dtype=torch.int32, device=dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="distinct planes"):
+        rrr_expand.rrr_expand_push_ic(words, f, f.clone(), nbr, prob,
+                                      [prng.key(1)], 2, f, listed, count)
     big = torch.zeros((1, 2, 70000), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         greedy_pick.greedy_maxcover_resident(big, 1)

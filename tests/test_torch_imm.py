@@ -74,6 +74,24 @@ def test_drivers_print_the_same_lines(model, capsys):
     assert len(want) == 3 and got == want
 
 
+def test_block_v_is_accepted_and_changes_nothing(capsys):
+    """--block-v N|auto takes the reference's validation and leaves the
+    [im] lines as they are without it; --block-v 0 exits 2, as the
+    reference's parser does."""
+    flags = ["--n", "120", "--avg-deg", "4", "--k", "3", "--max-theta",
+             "256", "--machines", "2", "--eval-sims", "32", "--device",
+             "cpu"]
+    lines = []
+    for extra in ([], ["--block-v", "128"], ["--block-v", "auto"]):
+        im_driver.main(flags + extra)
+        lines.append(_im_lines(capsys.readouterr().out))
+    assert len(lines[0]) == 3 and lines[1] == lines[0] == lines[2]
+    for parse in (ref_driver.main, im_driver.main):
+        with pytest.raises(SystemExit) as exc:
+            parse(flags[:-2] + ["--block-v", "0"])
+        assert exc.value.code == 2
+
+
 @pytest.mark.parametrize("flags", [
     ["--theta", "512", "--selector", "greediris", "--machines", "1"],
     ["--theta", "512", "--selector", "greediris-trunc", "--alpha", "0.5",

@@ -74,7 +74,6 @@ def test_cpu_tensors_take_plain_versions_without_launches():
     rrr_expand.rrr_expand_step(frontier, visited, nbr, gmask)
     coins.coin_plane([prng.key(1)], torch.full((n, 4), 0.5), frontier, 4)
     rrr_expand.rrr_expand_step_ic(frontier, visited, nbr,
-                                  torch.full((n, df), n * 4, dtype=torch.int32),
                                   torch.full((n, 4), 0.5), [prng.key(1)], 4)
     greedy_pick.greedy_maxcover_resident(w(2, n, width), 3)
     bucket_insert.bucket_insert_chunk(

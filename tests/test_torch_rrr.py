@@ -91,6 +91,57 @@ def test_max_steps_cutoff(max_steps):
     assert stats["bfs_steps"] == max_steps
 
 
+def test_root_words_are_the_nonzero_words_of_packed_roots():
+    """The push's first list: repeated roots give one entry a word."""
+    roots = torch.tensor([3, 3, 0, 9, 3, 9] * 11 + [4], dtype=torch.int32)
+    n = 12
+    w = -(-roots.shape[0] // 32)
+    got = rrr.root_words(roots, w)
+    want = torch.nonzero(rrr.packed_roots(roots, n).reshape(-1)).reshape(-1)
+    assert got.dtype == torch.int32
+    assert got.tolist() == want.tolist()
+
+
+def _pull_loop(g, jkey, theta, coin_chunk, max_steps):
+    """The IC sampler's loop as a pull: dense frontier and visited, one
+    expand_step_ic_plain a BFS step, ended on frontier.any() — same
+    roots, same keys as sample_incidence."""
+    from repro_torch.kernels import rrr_expand
+    nbr, prob, wt = csr.padded_adjacency(g)
+    t = rrr._Tables(nbr, prob, wt, *csr.padded_forward_adjacency(g),
+                    model="IC", coin_chunk=coin_chunk)
+    kr, key = port_key(jkey).split()
+    visited = rrr.packed_roots(kr.randint((theta,), 0, t.n, device="cpu"),
+                               t.n)
+    frontier, step = visited, 0
+    while step < max_steps and bool(frontier.any()):
+        key, sub = key.split()
+        keys = [sub.fold_in(c) for c in range(t.n_chunks)]
+        frontier, visited = rrr_expand.expand_step_ic_plain(
+            frontier, visited, t.nbr_c, t.gidx, t.prob_p, keys, t.chunk)
+        step += 1
+    return visited, step
+
+
+@pytest.mark.parametrize("max_steps", [1, 2, 64])
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+def test_push_loop_equals_pull_loop(graph, max_steps):
+    """rrr_batch_packed's push loop gives the words and bfs_steps of the
+    pull loop it replaced, at the max_steps cuts of
+    test_max_steps_cutoff and uncut."""
+    g = port_graph(GRAPHS[graph]())
+    nbr, prob, wt = csr.padded_adjacency(g)
+    stats = {}
+    got = rrr.sample_incidence(
+        nbr, prob, wt, port_key(jax.random.key(8)), theta=96,
+        n=g.num_vertices, model="IC", max_steps=max_steps, sampler="kernel",
+        fwd=csr.padded_forward_adjacency(g), coin_chunk=7, stats=stats)
+    want, steps = _pull_loop(g, jax.random.key(8), 96, 7, max_steps)
+    assert torch.equal(got, want)
+    assert stats["bfs_steps"] == steps
+    assert steps == max_steps or max_steps == 64
+
+
 def test_edgeless_graph_is_roots_only():
     from repro.graphs.csr import from_edge_list
     g_ref = from_edge_list(np.array([], np.int64), np.array([], np.int64), 9)

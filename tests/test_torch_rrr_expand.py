@@ -1,9 +1,9 @@
 """Port parity: the expansion step (both layouts) against the Pallas
 kernels run in interpret mode, the coin plane against the reference's
-per-step coin draw, and the fused IC step (coins drawn in the
-expansion) against the composed plane + resident route and against the
-reference's draw fed through the resident Pallas kernel — exact, at
-unaligned n and W, with invalid-slot pads and p = 0 slots."""
+per-step coin draw, and the IC step (coins drawn in the step) — the
+push over live words, the pull, the composed plane + resident route and
+the reference's draw fed through the resident Pallas kernel — exact, at
+unaligned n and W, with invalid-slot pads, p = 0 slots and hub rows."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -88,39 +88,85 @@ def test_coin_plane_matches_reference_draw(n, batch, chunk, n_chunks):
     np.testing.assert_array_equal(u32(got), want)
 
 
+def _tables(nbr, d_pad):
+    """(nbr_c, gidx) of the pull's forward slots from a reverse table
+    (valid slots first in each row): forward slot (u, s) names the
+    reverse slot (v, rslot) with nbr[v, rslot] = u as gidx = v * d_pad +
+    rslot; pads are nbr_c = 0, gidx = n * d_pad."""
+    n = nbr.shape[0]
+    v, r = np.nonzero(nbr >= 0)
+    u = nbr[v, r]
+    order = np.argsort(u, kind="stable")
+    u, v, r = u[order], v[order], r[order]
+    out_deg = np.bincount(u, minlength=n)
+    df = max(int(out_deg.max()) if u.size else 0, 1)
+    pos = np.arange(u.size) - np.repeat(np.cumsum(out_deg) - out_deg, out_deg)
+    nbr_c = np.zeros((n, df), np.int32)
+    gidx = np.full((n, df), n * d_pad, np.int32)
+    nbr_c[u, pos] = v
+    gidx[u, pos] = v * d_pad + r
+    return nbr_c, gidx
+
+
 def _ic_step(n, df, w, chunk, n_chunks, seed):
-    """A sampler step's inputs: forward slots naming (v, reverse slot)
-    with a fifth invalid (gidx = n * d_pad, nbr_c = 0), probabilities
-    with zero slots (the last one padded), a frontier with some words
-    all 32 bits set, and the chunk keys of one step's subkey."""
-    rng, frontier, visited, nbr_c, valid = _step(n, df, w, seed)
+    """A sampler step's inputs: a reverse table of random in-degrees up
+    to d (vertex 0 at d, so the slots need n_chunks chunks of chunk),
+    invalid slots padded with -1, probabilities with zero slots (the
+    padded ones too), a frontier with some words all 32 bits set,
+    visited a superset of it, the pull's forward tables, and the chunk
+    keys' step subkey.  ``df`` is the mean in-degree asked for."""
+    rng = np.random.default_rng(seed)
     d_pad = chunk * n_chunks
-    valid &= rng.random((n, df)) > 0.2
-    nbr_c = np.where(valid, nbr_c, 0).astype(np.int32)
-    gidx = np.where(valid, nbr_c * d_pad + rng.integers(0, d_pad, (n, df)),
-                    n * d_pad).astype(np.int32)
+    d = d_pad - 1 if n_chunks > 1 else d_pad
+    deg = np.minimum(rng.poisson(df, n), d)
+    deg[0] = d
+    nbr = np.where(np.arange(d)[None] < deg[:, None],
+                   rng.integers(0, n, (n, d)), -1).astype(np.int32)
     prob = rng.uniform(0, 0.6, (n, d_pad)).astype(np.float32)
     prob[rng.random((n, d_pad)) < 0.2] = 0.0
-    prob[:, -1] = 0.0                                   # padded slot
+    prob[:, d:] = 0.0
+    prob[:, :d][nbr < 0] = 0.0
+    frontier = words(rng, (n, w), density=0.2)
     frontier[rng.random((n, w)) < 0.1] = np.uint32(0xFFFFFFFF)
+    visited = frontier | words(rng, (n, w), density=0.2)
     sub = jax.random.fold_in(jax.random.key(seed), 4)
-    return frontier, visited, nbr_c, gidx, prob, sub
+    return (frontier, visited, nbr, *_tables(nbr, d_pad), prob, sub)
 
 
 IC_SHAPES = [(37, 5, 3, 3, 2), (130, 3, 1, 4, 1), (8, 1, 4, 2, 3),
              (64, 4, 5, 5, 1)]                   # n, df, W, chunk, n_chunks
 
 
+def _keys(sub, prob, chunk):
+    return [port_key(sub).fold_in(c) for c in range(prob.shape[1] // chunk)]
+
+
 def _port_ic(frontier, visited, nbr_c, gidx, prob, sub, chunk):
-    keys = [port_key(sub).fold_in(c) for c in range(prob.shape[1] // chunk)]
+    """The pull's arguments (expand_step_ic_plain) as port tensors."""
     return (to_port(frontier), to_port(visited), torch.from_numpy(nbr_c),
-            torch.from_numpy(gidx), torch.from_numpy(prob), keys, chunk)
+            torch.from_numpy(gidx), torch.from_numpy(prob),
+            _keys(sub, prob, chunk), chunk)
+
+
+def _push(frontier, visited, nbr, prob, keys, chunk):
+    """One push step on copies of the dense inputs, through the public
+    wrapper -> (new frontier, new visited, next list, frontier after)."""
+    n, w = frontier.shape
+    f, vis = frontier.clone(), visited.clone()
+    nxt = torch.zeros_like(f)
+    out = torch.full((n * w,), -7, dtype=torch.int32)
+    count = torch.zeros(1, dtype=torch.int32)
+    rrr_expand.rrr_expand_push_ic(rrr_expand.live_words(frontier), f, vis,
+                                  nbr, prob, keys, chunk, nxt, out, count)
+    return nxt, vis, out[:int(count)], f
 
 
 @pytest.mark.parametrize("n,df,w,chunk,n_chunks", IC_SHAPES)
 def test_ic_step_equals_composed_route(n, df, w, chunk, n_chunks):
-    """expand_step_ic_plain == coin_plane_plain -> resident expansion."""
-    args = _port_ic(*_ic_step(n, df, w, chunk, n_chunks, n * w), chunk)
+    """expand_step_ic_plain (the pull) == coin_plane_plain -> resident
+    expansion."""
+    inputs = _ic_step(n, df, w, chunk, n_chunks, n * w)
+    args = _port_ic(*inputs[:2], *inputs[3:], chunk)
     f, vis, nbr_c, gidx, prob, keys, _ = args
     plane = coins.coin_plane_plain(keys, prob, f, chunk).reshape(
         n * chunk * n_chunks, w)
@@ -131,12 +177,129 @@ def test_ic_step_equals_composed_route(n, df, w, chunk, n_chunks):
     assert int((got[0] != 0).sum()) > 0                 # something fired
 
 
+def _hub_cases():
+    """(name, frontier, visited, nbr, prob): the star (hub 0 points at
+    every leaf, p = 1: every leaf's push lands on the hub's words) and
+    its reverse (every leaf points at 0: one reverse row of n - 1
+    slots, past a warp's 32 lanes)."""
+    from repro_torch.graphs import csr, generators
+    rng = np.random.default_rng(3)
+    n, w = 70, 3
+    rev = csr.from_edge_list(np.arange(1, n), np.zeros(n - 1, np.int64), n,
+                             probs=rng.uniform(0.2, 0.9, n - 1), seed=1,
+                             device="cpu")
+    out = []
+    for name, g in (("star", generators.star(n, device="cpu")),
+                    ("reverse star", rev)):
+        nbr, prob, _ = csr.padded_adjacency(g)
+        frontier = words(rng, (n, w), density=0.2)
+        visited = frontier & words(rng, (n, w))
+        out.append((name, to_port(frontier), to_port(visited), nbr, prob))
+    return out
+
+
+PUSH_CASES = [f"shape{i}" for i in range(len(IC_SHAPES))] + ["star",
+                                                              "reverse star"]
+
+
+def _push_case(case):
+    """A push case's (frontier, visited, nbr, nbr_c, gidx, prob, keys,
+    chunk) as port tensors; the hubs use one chunk of their full row."""
+    if case.startswith("shape"):
+        n, df, w, chunk, n_chunks = IC_SHAPES[int(case[5:])]
+        f, vis, nbr, nbr_c, gidx, prob, sub = _ic_step(n, df, w, chunk,
+                                                       n_chunks, n + df)
+        return (to_port(f), to_port(vis), torch.from_numpy(nbr),
+                torch.from_numpy(nbr_c), torch.from_numpy(gidx),
+                torch.from_numpy(prob), _keys(sub, prob, chunk), chunk)
+    _, f, vis, nbr, prob = dict((c[0], c) for c in _hub_cases())[case]
+    nbr_c, gidx = (torch.from_numpy(a) for a in _tables(nbr.numpy(),
+                                                        prob.shape[1]))
+    keys = [port_key(jax.random.key(6))]
+    return f, vis, nbr, nbr_c, gidx, prob, keys, prob.shape[1]
+
+
+@pytest.mark.parametrize("case", PUSH_CASES)
+def test_push_equals_pull_and_composed_route(case):
+    """The push (plain, through the wrapper on CPU tensors) == the pull
+    == coin_plane_plain -> resident expansion, word for word: W = 1, odd
+    W, 1-3 chunks, all-ones words, invalid and p = 0 slots, a star's
+    hub target and a reverse star's hub row."""
+    f, vis, nbr, nbr_c, gidx, prob, keys, chunk = _push_case(case)
+    n, w = f.shape
+    got = _push(f, vis, nbr, prob, keys, chunk)
+    pull = rrr_expand.expand_step_ic_plain(f, vis, nbr_c, gidx, prob, keys,
+                                           chunk)
+    plane = coins.coin_plane_plain(keys, prob, f, chunk).reshape(-1, w)
+    composed = rrr_expand.expand_step_resident_plain(f, vis, nbr_c, gidx,
+                                                     plane)
+    for want in (pull, composed):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int((got[0] != 0).sum()) > 0                 # something fired
+    assert torch.equal(rrr_expand.rrr_expand_step_ic(f, vis, nbr, prob,
+                                                     keys, chunk)[0], got[0])
+
+
+@pytest.mark.parametrize("case", PUSH_CASES)
+def test_push_next_list_is_the_next_planes_words(case):
+    """The next list holds each non-zero word of the next plane once
+    (ascending in the plain version), and the step leaves the frontier
+    plane it read all zero."""
+    f, vis, nbr, _, _, prob, keys, chunk = _push_case(case)
+    nxt, _, listed, f_after = _push(f, vis, nbr, prob, keys, chunk)
+    assert torch.equal(listed, rrr_expand.live_words(nxt))
+    assert listed.unique().numel() == listed.numel()
+    assert not bool(f_after.any())
+
+
+@pytest.mark.parametrize("case", ["shape0", "reverse star"])
+def test_push_plain_in_several_passes(case, monkeypatch):
+    """The plain push cut into passes of a few entries (as it runs on
+    full-size and hub-row inputs) gives the one-pass result."""
+    f, vis, nbr, _, _, prob, keys, chunk = _push_case(case)
+    want = _push(f, vis, nbr, prob, keys, chunk)
+    monkeypatch.setattr(rrr_expand, "_PLAIN_SLOTS", 3 * nbr.shape[1])
+    got = _push(f, vis, nbr, prob, keys, chunk)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_push_leaves_unlisted_words_alone():
+    """Words not on the list are neither read nor cleared, and a word
+    whose new bits land in a non-zero word of the target plane is not
+    appended again."""
+    f, vis, nbr, _, _, prob, keys, chunk = _push_case("shape0")
+    n, w = f.shape
+    listed = rrr_expand.live_words(f)
+    half = listed[::2].contiguous()
+    f_in, vis_in = f.clone(), vis.clone()
+    nxt = torch.zeros_like(f)
+    out = torch.empty(n * w, dtype=torch.int32)
+    count = torch.zeros(1, dtype=torch.int32)
+    rrr_expand.rrr_expand_push_ic(half, f_in, vis_in, nbr, prob, keys, chunk,
+                                  nxt, out, count)
+    skipped = f.reshape(-1)[listed[1::2].long()]
+    assert torch.equal(f_in.reshape(-1)[listed[1::2].long()], skipped)
+    assert not bool(f_in.reshape(-1)[half.long()].any())
+    only = f.clone()
+    only.reshape(-1)[listed[1::2].long()] = 0
+    want_next, want_vis = rrr_expand.rrr_expand_step_ic(only, vis, nbr, prob,
+                                                        keys, chunk)
+    assert torch.equal(nxt, want_next) and torch.equal(vis_in, want_vis)
+    first = out[:int(count)].clone()
+    again = torch.full_like(out, -1)
+    vis2 = vis.clone()
+    rrr_expand.rrr_expand_push_ic(half, only.clone(), vis2, nbr, prob, keys,
+                                  chunk, nxt, again, count)
+    assert int(count) == 0 and torch.equal(nxt, want_next)
+    assert first.numel() > 0
+
+
 @pytest.mark.parametrize("n,df,w,chunk,n_chunks", IC_SHAPES)
 def test_ic_step_matches_reference_draw(n, df, w, chunk, n_chunks):
     """The wrapper on CPU tensors == the reference's own coin plane
     (jax.random.uniform per chunk key, _pack_batch_lane) through
     rrr_expand_step_resident_pallas in interpret mode, same gidx."""
-    frontier, visited, nbr_c, gidx, prob, sub = _ic_step(
+    frontier, visited, nbr, nbr_c, gidx, prob, sub = _ic_step(
         n, df, w, chunk, n_chunks, n + w)
     batch = 32 * w
     masks = []
@@ -149,17 +312,18 @@ def test_ic_step_matches_reference_draw(n, df, w, chunk, n_chunks):
         jnp.asarray(frontier), jnp.asarray(visited), jnp.asarray(nbr_c),
         jnp.asarray(gidx), plane, interpret=True)
     got = rrr_expand.rrr_expand_step_ic(
-        *_port_ic(frontier, visited, nbr_c, gidx, prob, sub, chunk))
+        to_port(frontier), to_port(visited), torch.from_numpy(nbr),
+        torch.from_numpy(prob), _keys(sub, prob, chunk), chunk)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(u32(a), u32(b))
 
 
 def test_ic_step_refuses_keys_that_do_not_cover_the_slots():
-    args = list(_port_ic(*_ic_step(8, 2, 1, 2, 2, 1), 2))
-    args[5] = args[5][:1]
+    f, vis, nbr, _, _, prob, sub = _ic_step(8, 2, 1, 2, 2, 1)
+    args = [to_port(f), to_port(vis), torch.from_numpy(nbr),
+            torch.from_numpy(prob), _keys(sub, prob, 2), 2]
     with pytest.raises(ValueError, match="d_pad"):
-        rrr_expand.rrr_expand_step_ic(*args)
-    args = list(_port_ic(*_ic_step(8, 2, 1, 2, 2, 1), 2))
-    args[3] = args[3].long()
-    with pytest.raises(TypeError, match="gidx"):
-        rrr_expand.rrr_expand_step_ic(*args)
+        rrr_expand.rrr_expand_step_ic(*args[:4], args[4][:1], 2)
+    with pytest.raises(TypeError, match="nbr"):
+        rrr_expand.rrr_expand_step_ic(args[0], args[1], args[2].long(),
+                                      *args[3:])

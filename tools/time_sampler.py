@@ -12,7 +12,9 @@ replay's refreshes are split into the slab fills' sampler kernels (CUDA
 events around every call of the sampler's kernel wrappers), the host
 tables (``padded_adjacency``, ``padded_forward_adjacency`` and the
 per-fill ``rrr._Tables``, each between two synchronizations) and the
-rest (roots, keys, the BFS loop's host syncs, concatenation).
+rest (roots, keys, the BFS loop's host syncs, concatenation).  A
+version whose sampler calls the dense ``rrr_expand_step_ic`` (the pull,
+before the push) is timed through that wrapper instead.
 
 The three paths run twice in the process (``rep`` 0 and 1): the first
 pass pays the CUDA context, the kernels' loading and (for a version
@@ -39,8 +41,10 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # (module, function) of every kernel wrapper an RRR step may call; the
-# ones a version lacks are skipped.
-KERNEL_FNS = (("rrr_expand", "rrr_expand_step_ic"),
+# ones a version lacks are skipped.  The IC push (rrr_expand_push_ic)
+# leaves its count on the card, so its events bracket the launch alone.
+KERNEL_FNS = (("rrr_expand", "rrr_expand_push_ic"),
+              ("rrr_expand", "rrr_expand_step_ic"),
               ("rrr_expand", "rrr_expand_step_resident"),
               ("rrr_expand", "rrr_expand_step"),
               ("coins", "coin_plane"))
