@@ -15,9 +15,11 @@ GreediRIS selector; the fixed-theta round with the lazy and the fused
 senders; the Ripples round; the serving replay with the resident and
 the lazy senders; every one samples IC through rrr_expand_ic, a push
 over the frontier's live words that draws the coins in the step and
-builds no coin plane), then times every kernel at the shapes those
-runs gave it and ranks the kernels by the time each loses over those
-runs (phase ``order``).  Prints JSON lines; the line before the last
+builds no coin plane, and solves its machine axis on the compact layout,
+the list of the rows' non-zero words), drives IMM and the lazy round on a
+supercritical configuration, whose nearly dense rows take the dense
+layout, then times every kernel at the shapes those runs gave it and ranks the kernels by the time each loses
+over those runs (phase ``order``).  Prints JSON lines; the line before the last
 lists the kernels, the last line is the device summary.  Exits non-zero
 without a CUDA device or on any failure.  Imports nothing of JAX.
 """
@@ -70,13 +72,45 @@ SERVE = ["--graph", "er", "--n", "262144", "--avg-deg", "4", "--model", "IC",
          "--slab", "4096", "--queries", "32", "--batch", "8", "--k-max",
          "100", "--refresh-every", "1", "--check"]
 SERVE_PEAK_LIMIT = 40e9
+
+
+def at_scale(argv, **flags):
+    """``argv`` with the values of some flags replaced (``avg_deg`` for
+    ``--avg-deg``)."""
+    argv = list(argv)
+    for flag, value in flags.items():
+        argv[argv.index("--" + flag.replace("_", "-")) + 1] = str(value)
+    return argv
+
+
+# The supercritical configuration: the same edge probabilities U[0, 0.1]
+# at SNAP com-Orkut's average degree (3,072,441 vertices, 117,185,083
+# edges: 76.3 neighbours a vertex), cut to n = 32,768 vertices (2.5M
+# edges).  A vertex expects 3.8 live in-edges, so most cascades reach
+# most of the graph and nearly every incidence word is non-zero: the
+# machine-axis solves take the dense layout.  IMM as FULL (theta up to
+# 32,768) and the round as ROUND at theta = 32,768 (W_global = 1024),
+# each at k = 100.
+DENSE_FULL = at_scale(FULL, n=32768, avg_deg=76.3)
+DENSE_ROUND = at_scale(ROUND, n=32768, avg_deg=76.3, theta=32768)
 # The kernels of each full-size path and the run that must launch them.
 # Every full-size run samples IC on the resident layout: the fused
-# rrr_expand_ic, and no coin plane (coin_pack) at all.
-SLICE1 = ("rrr_expand_ic", "rrr_expand_streamed", "greedy_pick",
-          "bucket_insert")
-ROUND_RUN = {"lazy_greedy": "round lazy", "bucket_insert_stream": "round lazy",
+# rrr_expand_ic, and no coin plane (coin_pack) at all; and its
+# machine-axis solve takes the compact layout (compact_rows, then the
+# picks over the list), never the dense sweep.
+SLICE1 = ("rrr_expand_ic", "rrr_expand_streamed", "compact_rows",
+          "greedy_pick_compact", "bucket_insert")
+ROUND_RUN = {"lazy_greedy_compact": "round lazy",
+             "bucket_insert_stream": "round lazy",
              "topk_gain": "round fused", "coverage": "ripples"}
+# The machine axis's dense sweeps, which the supercritical runs take (the
+# layout rule, greedy_pick.compact_pays), and the run that launches each.
+DENSE_RUN = {"greedy_pick": "imm supercritical",
+             "lazy_greedy": "round supercritical"}
+# Rows 3 and 6 of the kernel table before the compact layout, the dense
+# kernels' last timing at the full-size shapes (NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md, the kernel table).
+PR16_MS = {"greedy_pick": 34.708736419677734, "lazy_greedy": 22.682687759399414}
 SERVE_RUN = {"greedy_pick_batch": "serve resident",
              "lazy_greedy_batch": "serve lazy"}
 # Kernels that no full-size run launches, with the run of phase `paths`
@@ -163,6 +197,17 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/topk_gain.cu",
         "src/repro/kernels/topk_gain.py:55 (vmapped over queries at "
         "src/repro/core/maxcover.py:141)"),
+    "compact_rows": (
+        "src/repro_torch/kernels/csrc/greedy_pick.cu",
+        "src/repro/kernels/greedy_pick.py:197 and "
+        "src/repro/kernels/lazy_greedy.py:229 (their row sweeps, read once "
+        "into the compact layout's list)"),
+    "greedy_pick_compact": (
+        "src/repro_torch/kernels/csrc/greedy_pick.cu",
+        "src/repro/kernels/greedy_pick.py:197 (the picks, over the list)"),
+    "lazy_greedy_compact": (
+        "src/repro_torch/kernels/csrc/lazy_greedy.cu",
+        "src/repro/kernels/lazy_greedy.py:229 (the picks, over the list)"),
 }
 
 
@@ -213,6 +258,17 @@ def median_ms(fn, reps: int, setup=None, hide_host=False) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
     return float(np.median(times))
+
+
+def once(fn):
+    """(fn(), its CUDA-event ms): one call, for a slow plain version."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def rand_words(gen, *shape, dev):
@@ -280,7 +336,7 @@ def parity_small(dev) -> dict:
         rows_g[:, 7 % n_g] = rows_g[:, 2 % n_g]           # ties
         exc = torch.tensor(ex, dtype=torch.int32, device=dev)
         err = max(err, require_equal(
-            "greedy_pick", greedy_pick.greedy_maxcover_resident(rows_g, k, exc),
+            "greedy_pick", greedy_pick.greedy_dense(rows_g, k, exc),
             greedy_pick.greedy_plain(rows_g, k, exc), m=m, n=n_g, W=w_g, k=k))
     errs["greedy_pick"] = err
 
@@ -298,7 +354,98 @@ def parity_small(dev) -> dict:
         bucket_insert.bucket_insert_plain(*args), B=b, C=c, W=w_b, k=k)
     errs.update(parity_slice2(gen, dev))
     errs.update(parity_slice3(gen, dev))
+    for name, err in parity_layouts(gen, dev).items():
+        errs[name] = max(errs.get(name, 0), err)
     torch.cuda.synchronize()
+    return errs
+
+
+def check_swept(name, swept, n: int, k: int):
+    tiles = lazy_greedy.num_row_tiles(n)
+    if not all(tiles <= int(t) <= k * tiles for t in swept):
+        raise AssertionError(f"{name}: tiles_swept {swept.tolist()} outside "
+                             f"[{tiles}, {k * tiles}]")
+
+
+def full_list(rows, cap: int = 0):
+    """The compact layout's list of ``rows`` whatever their density (one
+    compaction with room for ``cap`` entries, by default every word)."""
+    lists = greedy_pick.compact_rows(rows, cap or rows.numel())
+    return lists._replace(entries=lists.entries[:lists.nonzero_words])
+
+
+def parity_layouts(gen, dev) -> dict:
+    """The machine axis's two layouts: the wrappers pick the compact one
+    on sparse rows and the dense sweep on dense ones, and each layout of
+    each solve (forced) equals the plain solve and its own plain version;
+    the compaction equals its plain version as sets per row.  Sparse rows
+    about 1% non-zero at W = 5 and 36 with ties across tiles, excluded
+    listed rows, a machine whose listed rows are all excluded, a machine
+    of zero rows, k past the listed rows and rows longer than a lane sums
+    alone; dense rows about 25% bits set; sparser rows (3% of the words)
+    whose list passes the compact layout's capacity at m = 1, so that the
+    wrapper's one compaction counts past its allocation and the dense
+    sweep runs."""
+    errs = dict.fromkeys(("compact_rows", "greedy_pick", "greedy_pick_compact",
+                          "lazy_greedy", "lazy_greedy_compact"), 0)
+    for m, n, w, k, share, case in ((3, 1001, 5, 60, 0.01, "sparse"),
+                                    (4, 777, 36, 30, 0.005, "sparse"),
+                                    (3, 1000, 36, 12, 1.0, "dense"),
+                                    (1, 4096, 1024, 20, 0.03, "overflow")):
+        rows = rand_words(gen, m, n, w, dev=dev) & rand_words(gen, m, n, w,
+                                                              dev=dev)
+        if share < 1:
+            keep = (torch.rand((m, n, w), generator=gen) < share).to(dev)
+            if case == "sparse":
+                keep[:, ::97] = True                 # long rows
+            rows = torch.where(keep, rows, 0)
+        rows[:, 40] = rows[:, 7]                     # a tie across tiles
+        ex = torch.full((m, n), -1, dtype=torch.int32, device=dev)
+        if case == "sparse":
+            ex[0, :3] = torch.tensor([7, n + 5, 3])  # listed rows, an id past n
+            listed = (rows[2] != 0).any(1).nonzero()[:, 0]
+            ex[2, :listed.numel()] = listed.to(torch.int32)  # all excluded
+            rows[1] = 0                              # a machine of zero rows
+        want = greedy_pick.greedy_plain(rows, k, ex)
+        want_lazy = lazy_greedy.lazy_plain(rows, k, ex)[:4]
+        plain_lists = greedy_pick.compact_rows_plain(rows)
+        lists = full_list(rows)
+        shape = dict(m=m, n=n, W=w, k=k, case=case,
+                     nonzero_words=plain_lists.nonzero_words)
+        errs["compact_rows"] = max(errs["compact_rows"], require_equal(
+            "compact_rows", greedy_pick.canonical_lists(lists),
+            greedy_pick.canonical_lists(plain_lists), **shape))
+        layout = "compact" if case == "sparse" else "dense"
+        for name, wrapper, dense, compact, compact_plain, ref in (
+                ("greedy_pick", greedy_pick.greedy_maxcover_resident,
+                 greedy_pick.greedy_dense, greedy_pick.greedy_compact,
+                 greedy_pick.greedy_compact_plain, want),
+                ("lazy_greedy", lazy_greedy.greedy_maxcover_lazy,
+                 lazy_greedy.lazy_dense, lazy_greedy.lazy_compact,
+                 lazy_greedy.lazy_compact_plain, want_lazy)):
+            ops.reset_launches()
+            stats = {}
+            got = wrapper(rows, k, ex, stats=stats)
+            ran = {k_: v for k_, v in ops.LAUNCHES.items() if v}
+            kernel = name if layout == "dense" else name + "_compact"
+            if stats["layout"] != layout or ran != {
+                    "compact_rows": 1, kernel: 1}:
+                raise AssertionError(f"{name} {case}: layout "
+                                     f"{stats['layout']}, launches {ran}")
+            err = require_equal(kernel, got[:4], ref, via="wrapper", **shape)
+            got_d = dense(rows, k, ex)
+            got_c = compact(rows, k, ex, lists)
+            if name == "lazy_greedy":
+                for g in (got, got_d, got_c):
+                    check_swept(name, g[4], n, k)
+            errs[name] = max(errs[name], err * (layout == "dense"),
+                             require_equal(name, got_d[:4], ref, **shape))
+            errs[name + "_compact"] = max(
+                errs[name + "_compact"], err * (layout == "compact"),
+                require_equal(name + "_compact", got_c[:4], ref, **shape),
+                require_equal(name + "_compact", got_c[:4],
+                              compact_plain(rows, k, ex, lists)[:4],
+                              against="its plain version", **shape))
     return errs
 
 
@@ -454,15 +601,12 @@ def parity_slice2(gen, dev) -> dict:
                 gen, m, n_g, w_g, dev=dev), rows_g & 0x00010001)
         rows_g[:, 40 % n_g] = rows_g[:, 7 % n_g]    # a tie across tiles
         exc = torch.tensor(ex, dtype=torch.int32, device=dev)
-        *got, swept = lazy_greedy.greedy_maxcover_lazy(rows_g, k, exc)
-        tiles = lazy_greedy.num_row_tiles(n_g)
-        if not all(tiles <= int(t) <= k * tiles for t in swept):
-            raise AssertionError(f"lazy_greedy: tiles_swept {swept.tolist()} "
-                                 f"outside [{tiles}, {k * tiles}]")
+        *got, swept = lazy_greedy.lazy_dense(rows_g, k, exc)
+        check_swept("lazy_greedy", swept, n_g, k)
         errs["lazy_greedy"] = max(errs["lazy_greedy"], require_equal(
             "lazy_greedy", got, lazy_greedy.lazy_plain(rows_g, k, exc)[:4],
             m=m, n=n_g, W=w_g, k=k, tiles_swept=swept.tolist(),
-            num_tiles=tiles))
+            num_tiles=lazy_greedy.num_row_tiles(n_g)))
     b, k = 63, 4
     # the last two chunks exceed what one buffer stages at W = 4096
     for r, c, w_b in ((1, 301, 7), (3, 100, 8), (57, 14, 36), (5, 8, 4096),
@@ -754,7 +898,58 @@ def full_run():
     if missing:
         raise AssertionError(f"main path never launched {missing}")
     check_ic_sampling("imm", launches)
+    check_layout("imm", launches)
     return launches, seeds
+
+
+def check_layout(run: str, launches: dict, layout: str = "compact"):
+    """A full-size run solved its machine axis, if it has one, on
+    ``layout`` alone: never the other layout's picks, and for the dense
+    layout its picks after the compaction that counted the words."""
+    dense = {k: launches[k] for k in DENSE_RUN if launches[k]}
+    compact = {k: launches[k + "_compact"] for k in DENSE_RUN
+               if launches[k + "_compact"]}
+    took, other = (compact, dense) if layout == "compact" else (dense, compact)
+    if other or (layout == "dense" and not (took and launches["compact_rows"])):
+        raise AssertionError(f"{run}: the machine-axis solve took the dense "
+                             f"layout {dense} and the compact one {compact}")
+
+
+def supercritical_runs():
+    """IMM and the lazy round on the supercritical configuration through
+    ``im_driver.run``: both must solve their machine axis on the dense
+    layout.
+    Each run's launch counts are set to 0 just before it and read just
+    after.  Cascades reach most of the graph, so the cover fills within
+    k picks and the later picks gain 0 (seed -1)."""
+    launches = {}
+    for run, argv in (("imm supercritical", DENSE_FULL),
+                      ("round supercritical", DENSE_ROUND)):
+        ops.reset_launches()
+        out = im_driver.run(argv)
+        torch.cuda.synchronize()
+        launches[run] = counts = dict(ops.LAUNCHES)
+        seeds = out["seeds"]
+        real = seeds[seeds >= 0]
+        rnd = out.get("round")
+        emit(phase="supercritical", run=run, theta=out["theta"],
+             seeds=int(len(real)), spread=out["spread"], n=out["n"],
+             edges=out["edges"],
+             coverage_fraction=out.get("coverage_fraction"),
+             coverage=rnd["coverage"] if rnd else None,
+             seconds=dict(graph=out["graph_s"], **(
+                 rnd["seconds"] if rnd else dict(sample=out["sample_s"],
+                                                 select=out["select_s"])),
+                 spread=out["spread_s"]),
+             peak_bytes=out["peak_bytes"], launches=counts)
+        if not (0 < len(real) <= 100 and len(set(real.tolist())) == len(real)
+                and real.max() < out["n"] and np.isfinite(out["spread"])
+                and out["spread"] >= len(real)):
+            raise AssertionError(f"{run}: bad seeds {seeds} or spread "
+                                 f"{out['spread']}")
+        check_ic_sampling(run, counts)
+        check_layout(run, counts, "dense")
+    return launches
 
 
 def check_ic_sampling(run: str, launches: dict):
@@ -826,6 +1021,7 @@ def round_runs(dev):
         raise AssertionError(f"the round paths never launched {missing}")
     for run, counts in launches.items():
         check_ic_sampling(run, counts)
+        check_layout(run, counts)
     return launches
 
 
@@ -933,13 +1129,7 @@ def timed(name, kernel_fn, plain_fn, reps, plain_reps, bytes_, ops_=0.0,
     if plain_reps:
         err = max_err(got, plain_fn())
     else:
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        want = plain_fn()
-        stop.record()
-        torch.cuda.synchronize()
-        plain_once = start.elapsed_time(stop)
+        want, plain_once = once(plain_fn)
         err = max_err(got, want)
         del want
     del got
@@ -958,6 +1148,220 @@ def timed(name, kernel_fn, plain_fn, reps, plain_reps, bytes_, ops_=0.0,
     emit(phase="timing", bytes=bytes_, int_ops=ops_, nonzero_words=nonzero,
          **row)
     return row
+
+
+def time_machine_solve(name, rows, k, ex) -> dict:
+    """Row 3 (``greedy_pick``, the resident solve) or row 6
+    (``lazy_greedy``) of the kernel table at one machine-axis shape: the
+    solve as the wrapper runs it (the list, one 8-byte read of its
+    count, the picks of the layout it chose) beside the time before the
+    compact layout (``PR16_MS``), and each of its kernels against its
+    plain version — the compaction (the lists as sets per row), the
+    compact picks on that list and the dense sweep forced.  Bounds: the
+    solve's, restated (the rows read once and the outputs written once;
+    an and-not for each list entry and a popcount and an add for each
+    non-zero gain word that an exact lazy schedule needs), with the
+    older bound beside it (the rows of the tiles that schedule needs);
+    the picks' own (the list read once, the outputs
+    written once, the same operations); the compaction's (the rows read
+    once, the list written once).  Returns the JSON rows of
+    ``compact_rows``, NAME_compact and NAME (the dense sweep)."""
+    lazy = name == "lazy_greedy"
+    m, n, w = rows.shape
+    wrapper, dense, compact, compact_plain = (
+        (lazy_greedy.greedy_maxcover_lazy, lazy_greedy.lazy_dense,
+         lazy_greedy.lazy_compact, lazy_greedy.lazy_compact_plain) if lazy
+        else (greedy_pick.greedy_maxcover_resident, greedy_pick.greedy_dense,
+              greedy_pick.greedy_compact, greedy_pick.greedy_compact_plain))
+    need = {}
+    want, dense_plain_ms = once(lambda: lazy_greedy.lazy_plain(
+        rows, k, ex, stats=need)[:4])
+    errs = {}
+    if not lazy:
+        plain, dense_plain_ms = once(lambda: greedy_pick.greedy_plain(
+            rows, k, ex))
+        errs["plain"] = max_err(plain, want)
+        del plain
+    stats = {}
+    got = wrapper(rows, k, ex, stats=stats)
+    if stats["layout"] != "compact":
+        raise AssertionError(f"{name}: the full-size rows took the "
+                             f"{stats['layout']} layout")
+    errs["solve"] = max_err(got[:4], want)
+    lists = greedy_pick.row_lists(rows)
+    plain_lists, compact_plain_ms = once(
+        lambda: greedy_pick.compact_rows_plain(rows))
+    errs["compact_rows"] = max_err(greedy_pick.canonical_lists(lists),
+                                   greedy_pick.canonical_lists(plain_lists))
+    del plain_lists
+    got_c = compact(rows, k, ex, lists)
+    want_c, picks_plain_ms = once(lambda: compact_plain(rows, k, ex, lists))
+    errs["picks"] = max(max_err(got_c[:4], want), max_err(got_c[:4],
+                                                          want_c[:4]))
+    got_d = dense(rows, k, ex)
+    errs["dense"] = max_err(got_d[:4], want)
+    swept = {}
+    if lazy:
+        for label, g in (("wrapper", got), ("compact", got_c),
+                         ("dense", got_d)):
+            check_swept(name, g[4], n, k)
+            swept[label] = g[4].tolist()
+    del got, got_c, want_c, got_d
+    if any(errs.values()):
+        raise AssertionError(f"{name}: kernel != plain at main-path shapes "
+                             f"{errs}")
+    compact_ms = median_ms(lambda: greedy_pick.compact_rows_launch(
+        rows, lists.nonzero_words), 10, hide_host=True)
+    picks_ms = median_ms(lambda: compact(rows, k, ex, lists), 10,
+                         hide_host=True)
+    solve_ms = median_ms(lambda: wrapper(rows, k, ex), 10)
+    dense_ms = median_ms(lambda: dense(rows, k, ex), 5)
+
+    listed_rows = int(lists.listed.sum())
+    tiles = lazy_greedy.num_row_tiles(n)
+    out_bytes = 4 * (m * k * w + m * w + 2 * m * k + (m if lazy else 0))
+    list_bytes = (8 * lists.nonzero_words + 16 * listed_rows + 8 * m * tiles
+                  + 4 * m)
+    work = dict(words=need["entries_needed"],
+                nonzero=need["nonzero_words_needed"])
+    solve_bound, solve_by, solve_ops = bound(4 * rows.numel() + out_bytes,
+                                             **work)
+    picks_bound, picks_by, _ = bound(list_bytes + out_bytes, **work)
+    compact_bound, compact_by, _ = bound(4 * rows.numel() + list_bytes)
+    needed_rows = min(int(need["tiles_needed"].sum()) * lazy_greedy.TILE_ROWS,
+                      k * m * n)
+    old_bound, old_by, _ = bound(4 * needed_rows * w + out_bytes,
+                                 words=needed_rows * w,
+                                 nonzero=need["nonzero_words_needed"])
+    shape = dict(rows_shape=[m, n, w], k=k, nonzero_words=lists.nonzero_words,
+                 listed_rows=listed_rows)
+    solve = dict(solve_ms=solve_ms, pr16_ms=PR16_MS[name],
+                 layout=stats["layout"], compact_ms=compact_ms,
+                 picks_ms=picks_ms, dense_ms=dense_ms,
+                 solve_bound_ms=solve_bound, solve_bound_by=solve_by,
+                 solve_int_ops=solve_ops, old_bound_ms=old_bound,
+                 old_bound_by=old_by, share=solve_bound / solve_ms,
+                 pr16_share=solve_bound / PR16_MS[name],
+                 tiles_needed=need["tiles_needed"].tolist(), num_tiles=tiles,
+                 entries_needed=need["entries_needed"],
+                 nonzero_words_needed=need["nonzero_words_needed"])
+    if lazy:
+        solve["tiles_swept"] = swept
+
+    def row(kernel, ms, plain_ms, bound_ms, bound_by, err, **extra):
+        r = dict(name=kernel, route="cuda", source=SOURCES[kernel][0],
+                 replaces=SOURCES[kernel][1], max_abs_err=err, ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=None, **shape, **extra)
+        emit(phase="timing", **r)
+        return r
+    return {
+        "compact_rows": row("compact_rows", compact_ms, compact_plain_ms,
+                            compact_bound, compact_by, errs["compact_rows"],
+                            solve=name, list_bytes=list_bytes),
+        name + "_compact": row(name + "_compact", picks_ms, picks_plain_ms,
+                               picks_bound, picks_by, errs["picks"],
+                               per_pick_us=picks_ms / k * 1e3, **solve),
+        name: row(name, dense_ms, dense_plain_ms, solve_bound, solve_by,
+                  errs["dense"], old_bound_ms=old_bound, pr16_ms=PR16_MS[name],
+                  sweep_bytes=4 * k * rows.numel() if not lazy else None,
+                  via="forced: the dense sweep on the same rows")}
+
+
+def time_dense_solve(name, rows, k, ex) -> dict:
+    """Row 3 (``greedy_pick``) or row 6 (``lazy_greedy``) of the kernel
+    table on the rows a supercritical run gives it, which must take the
+    dense layout: the dense sweep alone (the row's time), the solve as
+    the wrapper runs it (the count, its 8-byte read, the dense sweep) and
+    the compact layout forced (one compaction at the list's size, its
+    count read, the picks), each held against the plain solve.  Bound:
+    :func:`time_machine_solve`'s restated one."""
+    lazy = name == "lazy_greedy"
+    m, n, w = rows.shape
+    wrapper, dense, compact = (
+        (lazy_greedy.greedy_maxcover_lazy, lazy_greedy.lazy_dense,
+         lazy_greedy.lazy_compact) if lazy
+        else (greedy_pick.greedy_maxcover_resident, greedy_pick.greedy_dense,
+              greedy_pick.greedy_compact))
+    need = {}
+    want, plain_ms = once(lambda: lazy_greedy.lazy_plain(
+        rows, k, ex, stats=need)[:4])
+    errs = {}
+    if not lazy:
+        plain, plain_ms = once(lambda: greedy_pick.greedy_plain(rows, k, ex))
+        errs["plain"] = max_err(plain, want)
+        del plain
+    stats = {}
+    got = wrapper(rows, k, ex, stats=stats)
+    if stats["layout"] != "dense":
+        raise AssertionError(f"{name}: the supercritical rows took the "
+                             f"{stats['layout']} layout")
+    count = stats["nonzero_words"]
+    got_d = dense(rows, k, ex)
+    got_c = compact(rows, k, ex, full_list(rows, count))
+    errs.update(solve=max_err(got[:4], want), dense=max_err(got_d[:4], want),
+                compact=max_err(got_c[:4], want))
+    swept = {}
+    if lazy:
+        for label, g in (("wrapper", got), ("dense", got_d),
+                         ("compact", got_c)):
+            check_swept(name, g[4], n, k)
+            swept[label] = g[4].tolist()
+    real = int((got[0] >= 0).sum())
+    del got, got_d, got_c
+    if any(errs.values()):
+        raise AssertionError(f"{name}: kernel != plain at the supercritical "
+                             f"shape {errs}")
+    out_bytes = 4 * (m * k * w + m * w + 2 * m * k + (m if lazy else 0))
+    bound_ms, bound_by, int_ops = bound(
+        4 * rows.numel() + out_bytes, words=need["entries_needed"],
+        nonzero=need["nonzero_words_needed"])
+    r = dict(name=name, route="cuda", source=SOURCES[name][0],
+             replaces=SOURCES[name][1], max_abs_err=max(errs.values()),
+             ms=median_ms(lambda: dense(rows, k, ex), 5), plain_ms=plain_ms,
+             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+             rows_shape=[m, n, w], k=k, seeds_per_machine=real / m,
+             layout=stats["layout"], nonzero_words=count,
+             listed_rows=stats["listed_rows"], int_ops=int_ops,
+             solve_ms=median_ms(lambda: wrapper(rows, k, ex), 5),
+             compact_forced_ms=median_ms(lambda: compact(
+                 rows, k, ex, full_list(rows, count)), 3),
+             entries_needed=need["entries_needed"],
+             nonzero_words_needed=need["nonzero_words_needed"],
+             **({"tiles_swept": swept} if lazy else {}))
+    r["share"] = bound_ms / r["ms"]
+    emit(phase="timing", input="supercritical", **r)
+    return r
+
+
+def supercritical_timings(dev) -> dict:
+    """Rows 3 and 6 at the shapes the supercritical runs give them: the
+    IMM selector's local rows of a 32,768-sample draw (as
+    :func:`main_path_timings`) for ``greedy_pick``, the round's shuffled
+    rows for ``lazy_greedy``."""
+    args = im_driver.parser().parse_args(DENSE_FULL)
+    n, m, k = args.n, args.machines, args.k
+    g = generators.erdos_renyi(n, args.avg_deg, args.seed, device=dev)
+    nbr, prob, wt = csr.padded_adjacency(g)
+    fwd = csr.padded_forward_adjacency(g)
+    incidence = rrr.sample_incidence(
+        nbr, prob, wt, prng.key(args.seed).fold_in(1), theta=args.max_theta,
+        n=n, model="IC", fwd=fwd)
+    perm = prng.key(args.seed).fold_in(0xC0FFEE).fold_in(1).permutation(
+        n, device=dev)
+    assign = perm[:(n // m) * m].reshape(m, n // m).long()
+    local_rows = incidence[assign].contiguous()
+    del incidence
+    ex = greedy_pick.excluded_ids(None, m, dev)
+    out = {"greedy_pick": time_dense_solve("greedy_pick", local_rows, k, ex)}
+    del local_rows
+    rargs = im_driver.parser().parse_args(DENSE_ROUND)
+    fn, _, _ = greediris.build_round(
+        m=rargs.machines, n=n, theta=rargs.theta, k=k, max_degree=0,
+        model=rargs.model, sampler="kernel", fwd=fwd)
+    x_s = fn.sample_shuffle(nbr, prob, wt, prng.key(rargs.seed))[0]
+    out["lazy_greedy"] = time_dense_solve("lazy_greedy", x_s, k, ex)
+    return out
 
 
 def coins_needed(t, frontier) -> int:
@@ -1059,13 +1463,7 @@ def time_ic_step(t, frontier, visited, keys, label: str, reps: int = 10,
                              plain_reps, restore)
     else:
         restore()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        step(rrr_expand.expand_step_ic_push_plain)()
-        stop.record()
-        torch.cuda.synchronize()
-        plain_ms = start.elapsed_time(stop)
+        plain_ms = once(step(rrr_expand.expand_step_ic_push_plain))[1]
     del f, vis, nxt, listed
     entry_ms = median_ms(lambda: rrr_expand.rrr_expand_step_ic(
         frontier, visited, t.nbr, t.prob_p, keys, t.chunk), reps)
@@ -1196,23 +1594,7 @@ def main_path_timings(dev, final_seeds) -> dict:
     local_rows = incidence[assign].contiguous()
     del incidence
     ex = greedy_pick.excluded_ids(None, m, dev)
-    # Bounded as row 6 (the same function): the rows of the tiles an
-    # exact lazy schedule sweeps (lazy_plain's tiles_needed); the
-    # kernel itself re-reads every row in each of the k picks.
-    need = {}
-    lazy_greedy.lazy_plain(local_rows, k, ex, stats=need)
-    per = local_rows.shape[1]
-    needed_rows = min(int(need["tiles_needed"].sum()) * lazy_greedy.TILE_ROWS,
-                      k * m * per)
-    rows_out["greedy_pick"] = timed(
-        "greedy_pick",
-        lambda: greedy_pick.greedy_maxcover_resident(local_rows, k, ex),
-        lambda: greedy_pick.greedy_plain(local_rows, k, ex), 5, 1,
-        bytes_=4 * (needed_rows * W + m * k * W + m * W + 2 * m * k),
-        words=needed_rows * W, nonzero=need["nonzero_words_needed"])
-    rows_out["greedy_pick"].update(
-        tiles_needed=need["tiles_needed"].tolist(),
-        sweep_bytes=4 * k * local_rows.numel())
+    rows_out.update(time_machine_solve("greedy_pick", local_rows, k, ex))
     local = maxcover.greedy_maxcover(local_rows, k, solver="resident")
     del local_rows
     ids = torch.where(local.seeds >= 0, torch.gather(
@@ -1272,30 +1654,16 @@ def round_timings(dev) -> dict:
     rows_out = {}
 
     sol = lazy_greedy.greedy_maxcover_lazy(x_s, k, ex)
-    swept = sol[4].tolist()
-    # the bound counts the rows of the tiles an exact schedule that knows
-    # each pick's best sweeps (lazy_plain's count), not the kernel's own
-    need = {}
-
-    def needed_rows():
-        return min(int(need["tiles_needed"].sum()) * lazy_greedy.TILE_ROWS,
-                   k * m * per)
-
-    rows_out["lazy_greedy"] = timed(
-        "lazy_greedy", lambda: lazy_greedy.greedy_maxcover_lazy(x_s, k, ex)[:4],
-        lambda: lazy_greedy.lazy_plain(x_s, k, ex, stats=need)[:4], 5, 1,
-        bytes_=lambda: 4 * (needed_rows() * w + m * k * w + m * w
-                            + 2 * m * k),
-        words=lambda: needed_rows() * w,
-        nonzero=lambda: need["nonzero_words_needed"])
-    rows_out["lazy_greedy"]["tiles_swept"] = swept
-    rows_out["lazy_greedy"]["tiles_needed"] = need["tiles_needed"].tolist()
-    rows_out["lazy_greedy"]["num_tiles"] = lazy_greedy.num_row_tiles(per)
-    # the tiles of a machine that every pick's first phase sweeps
+    solve = time_machine_solve("lazy_greedy", x_s, k, ex)
+    rows_out["compact_rows round"] = solve.pop("compact_rows")
+    rows_out.update(solve)
+    # the tiles of a machine that every pick's first phase sweeps on the
+    # dense layout
     rows_out["lazy_greedy"]["phase1_tiles_per_pick"] = (
         lazy_greedy.blocks_per_machine(m, per, w, dev))
-    # what the lazy bound saves: the resident solve on the same rows
-    rows_out["lazy_greedy"]["resident_ms"] = median_ms(
+    # what the lazy bound saves: the resident solve on the same rows (the
+    # wrapper: the list, then the compact picks)
+    rows_out["lazy_greedy_compact"]["resident_ms"] = median_ms(
         lambda: greedy_pick.greedy_maxcover_resident(x_s, k, ex), 3)
 
     cov0 = torch.zeros((m, w), dtype=torch.int32, device=dev)
@@ -1420,13 +1788,8 @@ def serve_timings(dev, svc_lazy, trace) -> dict:
     keep = torch.arange(12 * bq, device=dev) % bq
     ex_div = torch.stack([top[keep != q] for q in range(bq)]).contiguous()
     need_div = {}
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    want = lazy_greedy.lazy_plain(shared, k, ex_div, stats=need_div)[:4]
-    stop.record()
-    torch.cuda.synchronize()
-    plain_once = start.elapsed_time(stop)
+    want, plain_once = once(lambda: lazy_greedy.lazy_plain(
+        shared, k, ex_div, stats=need_div)[:4])
     got_res = greedy_pick.greedy_maxcover_resident_batch(r1, k, ex_div)
     *got_lazy, swept_div = lazy_greedy.greedy_maxcover_lazy_batch(r1, k, ex_div)
     errs = {"greedy_pick_batch": max_err(got_res, want),
@@ -1527,6 +1890,7 @@ def main(argv=None) -> int:
     if args.stop_after == "full":
         return 0
     full.update(round_runs(dev))
+    full.update(supercritical_runs())
     if args.stop_after == "round":
         return 0
     serve_launches, svc_lazy, trace = serve_runs(dev)
@@ -1538,6 +1902,14 @@ def main(argv=None) -> int:
     rows.update(main_path_timings(dev, torch.from_numpy(seeds)))
     rows["rrr_expand_ic"]["shapes"]["rmat"] = rmat_ic_timing(dev)
     rows.update(round_timings(dev))
+    rows["compact_rows"]["shapes"] = {"round": rows.pop("compact_rows round")}
+    # the dense sweeps at the shapes their runs give them; the same
+    # sweeps forced on the subcritical runs' rows kept beside
+    for name, row in supercritical_timings(dev).items():
+        row["shapes"] = {"forced on the subcritical "
+                         + ("round's" if name == "lazy_greedy" else "IMM's")
+                         + " rows": rows[name]}
+        rows[name] = row
     kernels, order = [], []
     for name in ops.KERNELS:
         row = rows[name]
@@ -1552,6 +1924,9 @@ def main(argv=None) -> int:
         elif name in SMALL_RUN:
             run, row["launches_from"] = SMALL_RUN[name]
             row["launches"] = small[run][name]
+        elif name in DENSE_RUN:
+            row["launches"] = full[DENSE_RUN[name]][name]
+            row["launches_from"] = DENSE_RUN[name]
         else:
             row["launches"] = 0
             row["launches_from"] = "on no path of the reference"
@@ -1559,11 +1934,16 @@ def main(argv=None) -> int:
         # Redesign order: the time each kernel loses over the full-size
         # runs, sum over runs of launches x (ms - bound_ms) at the run's
         # shape where the kernel was timed at several.
+        # A supercritical run counts only for its dense sweep, the one
+        # kernel timed at that run's shape.
         per_run = {run: full[run][name] for run in FULL_RUNS
                    if full[run][name]}
+        if name in DENSE_RUN:
+            per_run[DENSE_RUN[name]] = full[DENSE_RUN[name]][name]
         lost = 0.0
         for run, count in per_run.items():
-            at = row.get("shapes", {}).get(FULL_RUNS[run], row)
+            at = (row if run == DENSE_RUN.get(name) else
+                  row.get("shapes", {}).get(FULL_RUNS[run], row))
             lost += count * (at["ms"] - at["bound_ms"])
         order.append(dict(name=name, lost_ms=lost, launches=per_run,
                           total_launches=sum(per_run.values()),

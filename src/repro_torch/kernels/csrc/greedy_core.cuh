@@ -207,3 +207,258 @@ __device__ __forceinline__ void commit_group(
   }
   __syncthreads();
 }
+
+// ---- The compact layout of the machine-axis solves ------------------
+//
+// Incidence rows are almost all zero words (about 1 in 7,000 words is
+// non-zero at the full-size runs), and a row's gain is the sum over its
+// non-zero words alone.  So the machine-axis kernels (greedy_pick.cu,
+// lazy_greedy.cu) read the dense rows once, in compact_rows_kernel
+// (greedy_pick.cu), into a list, and sweep only the list in every pick:
+//   - per machine, slots 0 .. listed - 1, one for each row that holds a
+//     non-zero word: its row id, its entry count and its first entry;
+//     the slots of one 32-row tile are contiguous (tiles[t] = first slot,
+//     slots), so the lazy solve can skip a tile by its bound;
+//   - entries (word index, word) of one row contiguous, in word order;
+//     rows and machines share one array, in no fixed order.
+// Rows absent from the list gain 0, and a best gain <= 0 commits nothing,
+// so leaving them out changes no output.  A machine's one block marks its
+// excluded and picked rows in its taken flags and alone reads them.  The
+// cover stays in shared memory and the winner's row is read from the
+// dense rows, as in the dense sweep.
+
+constexpr int kTileRows = 32;    // rows of a tile: one lane of a warp each
+constexpr int kLaneEntries = 4;  // longer rows are summed by the whole warp
+
+__device__ __forceinline__ unsigned lanes_below(int lane) {
+  return (1u << lane) - 1u;
+}
+
+// 16-byte chunks a lane loads at once when it reads a row: a group is
+// kChunkGroup x 32 chunks of the row.
+constexpr int kChunkGroup = 8;
+
+// Non-zero words of one row, one warp per row; every lane returns the
+// count.  With ``vec`` each lane keeps kChunkGroup 16-byte loads in
+// flight, and ``groups`` gets bit g set when group g holds a non-zero word
+// (groups past the 32nd are not marked; warp_list_row reads them all).
+__device__ __forceinline__ int warp_row_nonzero(const uint32_t* row,
+                                                int64_t W, bool vec,
+                                                int lane, unsigned* groups) {
+  int c = 0;
+  unsigned gm = 0;
+  if (vec) {
+    const uint4* r4 = reinterpret_cast<const uint4*>(row);
+    const int64_t W4 = W >> 2;
+    int g = 0;
+    for (int64_t base = 0; base < W4; base += 32 * kChunkGroup, ++g) {
+      uint4 a[kChunkGroup];
+#pragma unroll
+      for (int u = 0; u < kChunkGroup; ++u) {
+        const int64_t i = base + lane + 32 * u;
+        a[u] = i < W4 ? __ldg(r4 + i) : make_uint4(0, 0, 0, 0);
+      }
+      int cg = 0;
+#pragma unroll
+      for (int u = 0; u < kChunkGroup; ++u)
+        cg += (a[u].x != 0) + (a[u].y != 0) + (a[u].z != 0) + (a[u].w != 0);
+      if (__any_sync(0xffffffffu, cg) && g < 32) gm |= 1u << g;
+      c += cg;
+    }
+  } else {
+    for (int64_t w = lane; w < W; w += 32) c += __ldg(row + w) != 0;
+  }
+  *groups = gm;
+  return warp_sum(c);
+}
+
+// Write the ``c`` entries of a row at ent + start, in word order: the
+// warp reads the row again (it has just counted it: from L1 or L2) and
+// places each non-zero word by a prefix count over the lanes.  With
+// ``vec`` it reads only the groups ``groups`` marks (and any past the
+// 32nd), kChunkGroup chunks a lane at once; it stops once all ``c`` are
+// written.
+__device__ __forceinline__ void warp_list_row(const uint32_t* row, int64_t W,
+                                              bool vec, unsigned groups,
+                                              int2* ent, int64_t start, int c,
+                                              int lane) {
+  const int64_t end = start + c;
+  int64_t pos = start;  // warp-uniform
+  if (vec) {
+    const uint4* r4 = reinterpret_cast<const uint4*>(row);
+    const int64_t W4 = W >> 2;
+    int g = 0;
+    for (int64_t base = 0; base < W4 && pos < end;
+         base += 32 * kChunkGroup, ++g) {
+      if (g < 32 && !(groups >> g & 1u)) continue;
+      uint4 a[kChunkGroup];
+#pragma unroll
+      for (int u = 0; u < kChunkGroup; ++u) {
+        const int64_t i = base + lane + 32 * u;
+        a[u] = i < W4 ? __ldg(r4 + i) : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int u = 0; u < kChunkGroup; ++u) {
+        const uint32_t v[4] = {a[u].x, a[u].y, a[u].z, a[u].w};
+        const int mine = (v[0] != 0) + (v[1] != 0) + (v[2] != 0) + (v[3] != 0);
+        if (!__any_sync(0xffffffffu, mine)) continue;
+        int incl = mine;  // inclusive prefix count over the lanes
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const int o = __shfl_up_sync(0xffffffffu, incl, off);
+          if (lane >= off) incl += o;
+        }
+        int64_t p = pos + incl - mine;
+        const int64_t i = base + lane + 32 * u;
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          if (v[x]) ent[p++] = make_int2((int)(4 * i + x), (int)v[x]);
+        pos += __shfl_sync(0xffffffffu, incl, 31);
+      }
+    }
+  } else {
+    for (int64_t w0 = 0; w0 < W && pos < end; w0 += 32) {
+      const int64_t w = w0 + lane;
+      const uint32_t x = w < W ? __ldg(row + w) : 0u;
+      const unsigned b = __ballot_sync(0xffffffffu, x != 0);
+      if (x) ent[pos + __popc(b & lanes_below(lane))] = make_int2((int)w, (int)x);
+      pos += __popc(b);
+    }
+  }
+}
+
+// List tile t of one machine (rows ``R``, its slot arrays and tile table):
+// one warp, the tile's rows one after another.  A row with c non-zero
+// words reserves c entries with one atomicAdd on ``total`` (which counts
+// every entry, also past ``cap``) and writes them while they fit; the
+// tile's listed rows then reserve their slots with one atomicAdd on the
+// machine's ``listed``.
+__device__ __forceinline__ void compact_tile(
+    const uint32_t* R, int64_t n, int64_t W, bool vec, int64_t t,
+    int64_t cap, unsigned long long* total, int32_t* listed,
+    int32_t* row_ids, int32_t* counts, int64_t* starts, int2* tiles,
+    int2* ent, int lane) {
+  const int64_t r0 = t * kTileRows;
+  int my_count = 0;
+  int64_t my_start = 0;
+  for (int i = 0; i < kTileRows && r0 + i < n; ++i) {
+    const uint32_t* row = R + (r0 + i) * W;
+    unsigned groups = 0;
+    const int c = warp_row_nonzero(row, W, vec, lane, &groups);
+    if (c == 0) continue;
+    unsigned long long s = 0;
+    if (lane == 0) s = atomicAdd(total, (unsigned long long)c);
+    s = __shfl_sync(0xffffffffu, s, 0);
+    if (s + c <= (unsigned long long)cap)
+      warp_list_row(row, W, vec, groups, ent, (int64_t)s, c, lane);
+    if (lane == i) {
+      my_count = c;
+      my_start = (int64_t)s;
+    }
+  }
+  const unsigned b = __ballot_sync(0xffffffffu, my_count > 0);
+  int first = 0;
+  if (lane == 0 && b) first = atomicAdd(listed, __popc(b));
+  first = __shfl_sync(0xffffffffu, first, 0);
+  if (my_count) {
+    const int slot = first + __popc(b & lanes_below(lane));
+    row_ids[slot] = (int32_t)(r0 + lane);
+    counts[slot] = my_count;
+    starts[slot] = my_start;
+  }
+  if (lane == 0) tiles[t] = make_int2(first, __popc(b));
+}
+
+// One machine's list, as the pick kernels read it.
+struct RowList {
+  const int32_t* row_ids;  // [slots]
+  const int32_t* counts;
+  const int64_t* starts;
+  const int2* ent;         // shared by all machines
+};
+
+// Best masked key of the listed rows in slots j + u * stride (u < U;
+// lanes whose slot is < end), or 0: a row's gain is the sum of
+// popc(word & ~cov[idx]) over its entries, -1 if ``taken`` marks it.  The
+// U slots' loads are issued together: their descriptors, then their
+// first entries and taken flags, then each slot's other entries at
+// once.  A lane sums a row of at most kLaneEntries entries itself; the
+// warp sums longer ones together, one at a time.  All 32 lanes must call.  ``taken`` is read through L1:
+// only this block writes it.
+template <int U>
+__device__ __forceinline__ unsigned long long warp_listed_best(
+    const RowList& L, int64_t j, int64_t stride, int64_t end,
+    const uint8_t* taken, const uint32_t* cov, int lane) {
+  int row[U], c[U];
+  long long s[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int64_t slot = j + u * stride;
+    row[u] = c[u] = 0;
+    s[u] = 0;
+    if (slot < end) {  // a listed row has at least one entry
+      row[u] = __ldg(L.row_ids + slot);
+      c[u] = __ldg(L.counts + slot);
+      s[u] = __ldg(reinterpret_cast<const long long*>(L.starts) + slot);
+    }
+  }
+  int2 first[U];
+  bool tk[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const bool light = c[u] && c[u] <= kLaneEntries;
+    first[u] = light ? __ldg(L.ent + s[u]) : make_int2(0, 0);
+    tk[u] = c[u] && taken[row[u]];
+  }
+  unsigned long long best = 0;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    int g = andnot_popc((uint32_t)first[u].y, cov[first[u].x]);
+    if (c[u] > 1 && c[u] <= kLaneEntries) {  // the rest at once
+      int2 rest[kLaneEntries - 1];
+#pragma unroll
+      for (int i = 0; i < kLaneEntries - 1; ++i)
+        rest[i] = i + 1 < c[u] ? __ldg(L.ent + s[u] + 1 + i) : make_int2(0, 0);
+#pragma unroll
+      for (int i = 0; i < kLaneEntries - 1; ++i)
+        g += andnot_popc((uint32_t)rest[i].y, cov[rest[i].x]);
+    }
+    unsigned hv = __ballot_sync(0xffffffffu, c[u] > kLaneEntries);
+    while (hv) {
+      const int src = __ffs(hv) - 1;
+      hv &= hv - 1;
+      const long long hs = __shfl_sync(0xffffffffu, s[u], src);
+      const int hc = __shfl_sync(0xffffffffu, c[u], src);
+      int h = 0;
+      for (int i = lane; i < hc; i += 32) {
+        const int2 x = __ldg(L.ent + hs + i);
+        h += andnot_popc((uint32_t)x.y, cov[x.x]);
+      }
+      h = warp_sum(h);
+      if (lane == src) g = h;
+    }
+    if (c[u]) {
+      const unsigned long long key = pick_key(tk[u] ? -1 : g, row[u]);
+      best = key > best ? key : best;
+    }
+  }
+  return best;
+}
+
+// Host side: let ``kernel`` take W x 4 bytes of dynamic shared memory
+// (the cover) beside its static scratch.  0, -2 (it does not fit) or a
+// cudaError_t.
+template <class Kernel>
+inline int cover_smem(Kernel kernel, int64_t W, size_t* smem) {
+  *smem = (size_t)W * sizeof(uint32_t);
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  if (*smem + attr.sharedSizeBytes > (size_t)optin) return -2;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)*smem);
+  return (int)err;
+}

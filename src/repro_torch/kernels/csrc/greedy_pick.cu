@@ -1,18 +1,37 @@
-// Greedy max-k-cover, all k picks in one cooperative launch.  Replaces
+// Greedy max-k-cover, all k picks in one launch.  Replaces
 // repro/kernels/greedy_pick.py: greedy_maxcover_resident_pallas
 // (sweep_tile_argmax, commit_pick, _kernel), vmapped over machines at
 // repro/core/randgreedi.py:131 and over queries at
-// repro/kernels/ops.py:68.  Two kernels:
+// repro/kernels/ops.py:68.  The machine axis has two layouts, chosen by
+// the wrapper (greedy_pick.py: row_lists) from compact_rows_kernel's
+// count of non-zero words:
 //
-// greedy_pick_kernel — m machines, each with rows of its own ([m, n, W]).
-// Each machine has its share of the blocks; per pick every block sweeps
-// its share of its machine's rows (one warp per row, the cover in shared
+// compact_rows_kernel + greedy_pick_compact_kernel — the compact layout
+// (greedy_core.cuh), taken while the list is short enough for one block
+// a machine (greedy_pick.py: compact_pays, a rule measured on the H100).
+// compact_rows_kernel reads the dense rows once, one warp per
+// 32-row tile over the whole grid, and lists each machine's rows that
+// hold a non-zero word.  greedy_pick_compact_kernel gives each machine
+// one block of 1024 threads (the cover in shared memory, no grid-wide
+// sync: __syncthreads is the pick's only barrier); per pick the block
+// sweeps its machine's list, a lane per listed row and kSlotsPerLane
+// rows a lane at once, folds the best key and commits the winner from
+// the dense rows (greedy_core.cuh: commit_pick).  Bound on the H100: bytes — the dense rows read once
+// (the compaction) and the outputs written once; the picks read the list
+// (about 0.3 MB at the IMM shape, 1.3 MB at the round's) from L2, so each
+// pick is a few dependent L2 reads and block barriers: latency, not
+// traffic.
+//
+// greedy_pick_kernel — the dense layout, for longer lists (the rows of
+// supercritical cascades, nearly every word non-zero), which one block a
+// machine would sweep more slowly than all SMs sweep the rows.  Each
+// machine has its share of the blocks; per pick every block sweeps its
+// share of its machine's rows (one warp per row, the cover in shared
 // memory), folds its best key into the machine's key slot with a 64-bit
 // atomicMax, and after one grid-wide sync commits the winner
 // (greedy_core.cuh).  Each pick owns its key slot, zeroed by the caller,
-// so nothing is reset between picks.  Bound on the H100: bytes — each
-// pick re-reads the machine's rows; the bound counts the rows an exact
-// lazy schedule must sweep (lazy_plain's tiles_needed).
+// so nothing is reset between picks.  Bound: bytes — each pick re-reads
+// the machine's rows, k passes at HBM rate.
 //
 // greedy_pick_batch_kernel — B queries over one shared [n, W] pool (the
 // serving batch; the pool is never copied).  Blocks own rows, not
@@ -76,6 +95,78 @@ __global__ void greedy_pick_kernel(const uint32_t* __restrict__ rows,
   if (lb == 0)
     for (int64_t w = threadIdx.x; w < W; w += blockDim.x)
       covered[(int64_t)mach * W + w] = cov[w];
+}
+
+// The compact layout's list of m machines' rows [m, n, W]: one warp per
+// 32-row tile, tiles of all machines dealt over the grid
+// (greedy_core.cuh: compact_tile).
+__global__ void __launch_bounds__(256) compact_rows_kernel(
+    const uint32_t* __restrict__ rows, int64_t m, int64_t n, int64_t W,
+    int64_t num_tiles, bool vec, int64_t cap, unsigned long long* total,
+    int32_t* listed, int32_t* row_ids, int32_t* counts, int64_t* starts,
+    int2* tiles, int2* ent) {
+  const int lane = threadIdx.x & 31;
+  const int64_t gw = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int64_t nw = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  for (int64_t i = gw; i < m * num_tiles; i += nw) {
+    const int64_t mach = i / num_tiles;
+    compact_tile(rows + mach * n * W, n, W, vec, i % num_tiles, cap, total,
+                 listed + mach, row_ids + mach * n, counts + mach * n,
+                 starts + mach * n, tiles + mach * num_tiles, ent, lane);
+  }
+}
+
+constexpr int kCompactThreads = 1024;
+// Listed rows a lane sweeps at once in each pass over the list: their
+// loads in flight together.
+constexpr int kSlotsPerLane = 4;
+
+// All k picks of m machines over their lists, one block per machine.
+__global__ void __launch_bounds__(kCompactThreads, 1)
+greedy_pick_compact_kernel(const uint32_t* __restrict__ rows,
+                           const int32_t* __restrict__ excluded, int64_t E,
+                           int64_t n, int64_t W, int64_t k,
+                           const int32_t* __restrict__ listed,
+                           const int32_t* __restrict__ row_ids,
+                           const int32_t* __restrict__ counts,
+                           const int64_t* __restrict__ starts,
+                           const int2* __restrict__ ent, uint8_t* taken,
+                           int32_t* seeds, uint32_t* rows_out,
+                           uint32_t* covered, int32_t* gains) {
+  extern __shared__ __align__(16) uint32_t cov[];
+  __shared__ unsigned long long scratch[32];
+  __shared__ unsigned long long s_win;
+  const int64_t mach = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wpb = blockDim.x >> 5;
+  const uint32_t* R = rows + mach * n * W;
+  uint8_t* T = taken + mach * n;
+  const RowList L{row_ids + mach * n, counts + mach * n, starts + mach * n,
+                  ent};
+  const int64_t slots = listed[mach];
+
+  for (int64_t w = threadIdx.x; w < W; w += blockDim.x) cov[w] = 0;
+  if (threadIdx.x == 0)
+    mark_excluded(excluded + mach * E, E, n, 1, 1, 0, T);
+  __syncthreads();
+
+  for (int64_t p = 0; p < k; ++p) {
+    unsigned long long best = 0;
+    for (int64_t j0 = (int64_t)warp * 32; j0 < slots;
+         j0 += (int64_t)wpb * 32 * kSlotsPerLane) {
+      const unsigned long long key = warp_listed_best<kSlotsPerLane>(
+          L, j0 + lane, (int64_t)wpb * 32, slots, T, cov, lane);
+      best = key > best ? key : best;
+    }
+    best = block_max_key(warp_max(best), scratch);
+    if (threadIdx.x == 0) s_win = best;
+    __syncthreads();
+    const int64_t out = mach * k + p;
+    commit_pick(s_win, R, W, 1, 1, 0, cov, T, seeds + out, gains + out,
+                rows_out + out * W);
+  }
+  for (int64_t w = threadIdx.x; w < W; w += blockDim.x)
+    covered[mach * W + w] = cov[w];
 }
 
 constexpr int kBatchThreads = 512;
@@ -164,6 +255,52 @@ extern "C" int greedy_pick(const void* rows, const void* excluded, void* keys,
                                     dim3((unsigned)(m * bpm)), dim3(threads),
                                     args, smem, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Build the compact list of rows [m, n, W] (greedy_core.cuh): ``total``
+// (one uint64, zeroed) counts every non-zero word, ``listed`` (int32 [m],
+// zeroed) the listed rows of each machine; entries past ``cap`` are
+// counted but not written.
+extern "C" int compact_rows(const void* rows, void* total, void* listed,
+                            void* row_ids, void* counts, void* starts,
+                            void* tiles, void* ent, int64_t m, int64_t n,
+                            int64_t W, int64_t cap, void* stream) {
+  const int threads = 256;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, compact_rows_kernel, threads, 0);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t num_tiles = (n + kTileRows - 1) / kTileRows;
+  int64_t blocks = (m * num_tiles * 32 + threads - 1) / threads;
+  if (blocks > (int64_t)per_sm * sms) blocks = (int64_t)per_sm * sms;
+  compact_rows_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)rows, m, n, W, num_tiles, vec_rows(rows, W), cap,
+      (unsigned long long*)total, (int32_t*)listed, (int32_t*)row_ids,
+      (int32_t*)counts, (int64_t*)starts, (int2*)tiles, (int2*)ent);
+  return (int)cudaGetLastError();
+}
+
+// The compact layout's picks: one block of kCompactThreads per machine.
+extern "C" int greedy_pick_compact(const void* rows, const void* excluded,
+                                   const void* listed, const void* row_ids,
+                                   const void* counts, const void* starts,
+                                   const void* ent, void* taken, void* seeds,
+                                   void* rows_out, void* covered, void* gains,
+                                   int64_t m, int64_t n, int64_t W, int64_t k,
+                                   int64_t E, void* stream) {
+  size_t smem = 0;
+  const int planned = cover_smem(greedy_pick_compact_kernel, W, &smem);
+  if (planned) return planned;
+  greedy_pick_compact_kernel<<<(unsigned)m, kCompactThreads, smem,
+                               (cudaStream_t)stream>>>(
+      (const uint32_t*)rows, (const int32_t*)excluded, E, n, W, k,
+      (const int32_t*)listed, (const int32_t*)row_ids, (const int32_t*)counts,
+      (const int64_t*)starts, (const int2*)ent, (uint8_t*)taken,
+      (int32_t*)seeds, (uint32_t*)rows_out, (uint32_t*)covered,
+      (int32_t*)gains);
   return (int)cudaGetLastError();
 }
 

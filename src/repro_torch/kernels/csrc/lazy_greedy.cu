@@ -1,26 +1,44 @@
-// Lazy greedy max-k-cover, all k picks in one cooperative launch.
-// Replaces repro/kernels/lazy_greedy.py: greedy_maxcover_lazy_pallas —
+// Lazy greedy max-k-cover, all k picks in one launch.  Replaces
+// repro/kernels/lazy_greedy.py: greedy_maxcover_lazy_pallas —
 // the resident solve plus a stale upper bound per row tile (INT32_MAX at
 // first), so a pick re-reads only the tiles whose bound can still reach
 // the best gain — for m machines with rows of their own
-// (lazy_greedy_kernel) and, vmapped over queries at
-// repro/kernels/ops.py:83, for B queries over one shared [n, W] pool
-// (lazy_greedy_batch_kernel).  A tile is ``tile`` rows.  On the TPU the
-// tiles are swept in order against a running best; here blocks run in
-// any order, so a pick first sweeps some tiles, reads the best so far
-// (from L2), and then skips a tile only when its bound is below that
-// best.  Any best read during a pick is <= the pick's final best, so a
-// skipped tile (fresh masked max <= ub < best) could neither win nor
-// tie: seeds, rows, covered and gains are those of the resident solve in
-// every schedule.  A swept tile's bound becomes its fresh masked max,
-// which bounds every later pick (the cover and the picked set only
+// (lazy_greedy_compact_kernel, lazy_greedy_kernel) and, vmapped over
+// queries at repro/kernels/ops.py:83, for B queries over one shared
+// [n, W] pool (lazy_greedy_batch_kernel).  A tile is ``tile`` rows.  On
+// the TPU the tiles are swept in order against a running best; here
+// warps and blocks run in any order, so a pick first sweeps some tiles,
+// reads the best so far, and then skips a tile only when its bound is
+// below that best.  Any best read during a pick is <= the pick's final
+// best, so a skipped tile (fresh masked max <= ub < best) could neither
+// win nor tie: seeds, rows, covered and gains are those of the resident
+// solve in every schedule.  A swept tile's bound becomes its fresh masked
+// max, which bounds every later pick (the cover and the picked set only
 // grow).  tiles_swept counts the sweeps; it depends on the schedule.
 //
-// lazy_greedy_kernel: tiles are dealt round-robin to the machine's
+// lazy_greedy_compact_kernel — the machine axis on the compact layout
+// (greedy_core.cuh; the list from greedy_pick.cu's compact_rows_kernel,
+// taken while it is short enough: greedy_pick.py, compact_pays).  One
+// block of 1024 threads per machine, the cover in shared memory, no
+// grid-wide sync.
+// The bounds are kept per 32-row tile of the row index, as before, and
+// apply to the tile's listed rows (its slots are contiguous).  Tiles are
+// dealt to the 32 warps; phase 1, every warp sweeps its own tile with the
+// largest bound (a lane per listed row); phase 2, after a barrier, each
+// warp tests 32 tiles of its own at once against the block's best so far
+// (a shared-memory key) and sweeps those it may not skip, one after
+// another, reading the best again before each.  A swept tile's bound becomes the larger
+// of its listed rows' fresh masked gains and 0 (its unlisted rows gain
+// 0), still an upper bound.  Bound on the H100: bytes — the dense rows
+// read once (the compaction) and the outputs written once; the list lies
+// in L2, so a pick is latency: a few dependent L2 reads and barriers.
+//
+// lazy_greedy_kernel — the machine axis on the dense layout (longer
+// lists: the rows of supercritical cascades).  Tiles are dealt round-robin to the machine's
 // blocks, and only a tile's owner sweeps it or writes its bound.  Phase
 // 1: every block sweeps its own tile with the largest bound.  Phase 2,
 // after a grid-wide sync: every block sweeps each other tile of its own
-// unless ub[t] < best, best read again before each tile.
+// unless ub[t] < best, best read again (from L2) before each tile.
 //
 // lazy_greedy_batch_kernel: a group of G queries shares every sweep (G
 // covers in shared memory, each row word loaded once for all G, as in
@@ -41,11 +59,12 @@
 // does not list.  tiles_swept[q] counts the tiles listed for q's group.
 //
 // The pick's argmax and commit are greedy_core.cuh's, shared with
-// greedy_pick.cu.  Bound on the H100: the rows of the tiles an exact
-// schedule that knows each pick's best sweeps (lazy_plain's
-// tiles_needed) — bytes for the machines; for the queries, bytes of the
-// tiles any query needs, once (tiles_needed_shared), against the integer
-// ops of each query's own, whichever is more.
+// greedy_pick.cu.  Bound on the H100 of the dense layout and the query
+// axis: the rows of the tiles an exact schedule that knows each pick's
+// best sweeps (lazy_plain's tiles_needed) — bytes for the machines; for
+// the queries, bytes of the tiles any query needs, once
+// (tiles_needed_shared), against the integer ops of each query's own,
+// whichever is more.
 #include <climits>
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -127,6 +146,133 @@ __global__ void lazy_greedy_kernel(
     for (int64_t w = threadIdx.x; w < W; w += blockDim.x)
       covered[(int64_t)mach * W + w] = cov[w];
   if (threadIdx.x == 0) atomicAdd(swept + mach, my_swept);
+}
+
+constexpr int kCompactThreads = 1024;
+
+// All k picks of m machines over their compact lists, one block per
+// machine; ``tiles`` (first slot, listed rows) per 32-row tile.
+__global__ void __launch_bounds__(kCompactThreads, 1)
+lazy_greedy_compact_kernel(
+    const uint32_t* __restrict__ rows, const int32_t* __restrict__ excluded,
+    int64_t E, int64_t n, int64_t W, int64_t k, int64_t num_tiles,
+    const int32_t* __restrict__ row_ids, const int32_t* __restrict__ counts,
+    const int64_t* __restrict__ starts, const int2* __restrict__ tiles,
+    const int2* __restrict__ ent, uint8_t* taken, int32_t* ub,
+    int32_t* swept, int32_t* seeds, uint32_t* rows_out, uint32_t* covered,
+    int32_t* gains) {
+  extern __shared__ __align__(16) uint32_t cov[];
+  __shared__ unsigned long long scratch[32];
+  __shared__ unsigned long long s_best;
+  __shared__ int s_swept;
+  const int64_t mach = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wpb = blockDim.x >> 5;
+  const uint32_t* R = rows + mach * n * W;
+  uint8_t* T = taken + mach * n;
+  int32_t* U = ub + mach * num_tiles;  // this block's alone: through L1
+  const int2* TL = tiles + mach * num_tiles;
+  const RowList L{row_ids + mach * n, counts + mach * n, starts + mach * n,
+                  ent};
+
+  for (int64_t w = threadIdx.x; w < W; w += blockDim.x) cov[w] = 0;
+  if (threadIdx.x == 0) {
+    mark_excluded(excluded + mach * E, E, n, 1, 1, 0, T);
+    s_swept = 0;
+  }
+  __syncthreads();
+
+  // Sweep tile t (``td``: its first slot, its listed rows) with the whole
+  // warp, a lane per listed row: post its best key and refresh its bound
+  // (a tile of no listed rows gains 0: no loads).
+  auto sweep = [&](int64_t t, int2 td) {
+    unsigned long long key = 0;
+    if (td.y)
+      key = warp_max(warp_listed_best<1>(L, (int64_t)td.x + lane, 0,
+                                         (int64_t)td.x + td.y, T, cov, lane));
+    if (lane == 0) {
+      U[t] = max(key_gain(key), 0);
+      if (key) atomicMax(&s_best, key);
+      atomicAdd(&s_swept, 1);
+    }
+  };
+  // The best read so far lets tile t be skipped.
+  auto skip = [&](int64_t t) {
+    const unsigned long long cur =
+        *reinterpret_cast<volatile unsigned long long*>(&s_best);
+    return cur && U[t] < key_gain(cur);
+  };
+
+  for (int64_t p = 0; p < k; ++p) {
+    if (threadIdx.x == 0) s_best = 0;
+    __syncthreads();
+    // phase 1: each warp sweeps its own tile with the largest bound (the
+    // lowest among equals); warp w owns tiles 32 w + lane + 32 wpb i
+    unsigned long long top = 0;
+    for (int64_t t0 = (int64_t)warp * 32; t0 < num_tiles;
+         t0 += (int64_t)wpb * 32) {
+      const int64_t t = t0 + lane;
+      if (t < num_tiles) {
+        const unsigned long long key =
+            ((unsigned long long)((uint32_t)U[t] ^ 0x80000000u) << 32) |
+            (0xFFFFFFFFu - (uint32_t)t);
+        top = key > top ? key : top;
+      }
+    }
+    top = warp_max(top);
+    const int64_t lead = top ? (int64_t)(0xFFFFFFFFu - (uint32_t)top) : -1;
+    if (lead >= 0) sweep(lead, __ldg(TL + lead));
+    __syncthreads();
+    // phase 2: each warp's other tiles, 32 at a time (their descriptors
+    // loaded at once), against the best so far, read again before each
+    // sweep
+    for (int64_t t0 = (int64_t)warp * 32; t0 < num_tiles;
+         t0 += (int64_t)wpb * 32) {
+      const int64_t t = t0 + lane;
+      const bool go = t < num_tiles && t != lead && !skip(t);
+      const int2 td = go ? __ldg(TL + t) : make_int2(0, 0);
+      for (unsigned b = __ballot_sync(0xffffffffu, go); b; b &= b - 1) {
+        const int src = __ffs(b) - 1;
+        const int2 tds = make_int2(__shfl_sync(0xffffffffu, td.x, src),
+                                   __shfl_sync(0xffffffffu, td.y, src));
+        // lane 0's reading decides for the warp: the sweep's collectives
+        // need every lane
+        if (!__shfl_sync(0xffffffffu, (int)skip(t0 + src), 0))
+          sweep(t0 + src, tds);
+      }
+    }
+    __syncthreads();
+    const int64_t out = mach * k + p;
+    commit_pick(s_best, R, W, 1, 1, 0, cov, T, seeds + out, gains + out,
+                rows_out + out * W);
+  }
+  for (int64_t w = threadIdx.x; w < W; w += blockDim.x)
+    covered[mach * W + w] = cov[w];
+  if (threadIdx.x == 0) swept[mach] = s_swept;
+}
+
+// The compact layout's lazy picks: one block of kCompactThreads per
+// machine over the list of greedy_pick.cu's compact_rows.
+extern "C" int lazy_greedy_compact(const void* rows, const void* excluded,
+                                   const void* row_ids, const void* counts,
+                                   const void* starts, const void* tiles,
+                                   const void* ent, void* taken, void* ub,
+                                   void* swept, void* seeds, void* rows_out,
+                                   void* covered, void* gains, int64_t m,
+                                   int64_t n, int64_t W, int64_t k, int64_t E,
+                                   void* stream) {
+  size_t smem = 0;
+  const int planned = cover_smem(lazy_greedy_compact_kernel, W, &smem);
+  if (planned) return planned;
+  const int64_t num_tiles = (n + kTileRows - 1) / kTileRows;
+  lazy_greedy_compact_kernel<<<(unsigned)m, kCompactThreads, smem,
+                               (cudaStream_t)stream>>>(
+      (const uint32_t*)rows, (const int32_t*)excluded, E, n, W, k, num_tiles,
+      (const int32_t*)row_ids, (const int32_t*)counts, (const int64_t*)starts,
+      (const int2*)tiles, (const int2*)ent, (uint8_t*)taken, (int32_t*)ub,
+      (int32_t*)swept, (int32_t*)seeds, (uint32_t*)rows_out,
+      (uint32_t*)covered, (int32_t*)gains);
+  return (int)cudaGetLastError();
 }
 
 static const int kThreads = 256;

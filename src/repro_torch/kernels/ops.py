@@ -9,7 +9,10 @@ returns an error, and only then adds one to that kernel's count in
 The ``*_batch`` counts are the query-axis launches of the sender
 kernels: B queries over one shared row pool, which ``greedy_pick_batch``
 and ``lazy_greedy_batch`` read once per pick for each group of queries
-and ``topk_gain_batch`` with a row stride of 0.
+and ``topk_gain_batch`` with a row stride of 0.  The machine-axis
+senders count each layout apart: ``compact_rows`` (the list of non-zero
+words) then ``greedy_pick_compact`` or ``lazy_greedy_compact``, or the
+dense sweep ``greedy_pick`` or ``lazy_greedy``.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ KERNELS = ("rrr_expand_resident", "rrr_expand_streamed", "rrr_expand_ic",
            "coin_pack", "greedy_pick", "bucket_insert", "coverage",
            "topk_gain", "lazy_greedy", "bucket_insert_stream",
            "bucket_gains", "greedy_pick_batch", "lazy_greedy_batch",
-           "topk_gain_batch")
+           "topk_gain_batch", "compact_rows", "greedy_pick_compact",
+           "lazy_greedy_compact")
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 

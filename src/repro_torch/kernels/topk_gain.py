@@ -22,7 +22,13 @@ def best_gain_index_plain(rows, covered, picked):
     """rows int32 [m, n, W] (or an expanded view of one shared pool),
     covered int32 [m, W], picked bool [m, n] -> (best gain, best index),
     int32 [m] each."""
-    g = torch.where(picked, -1, coverage.marginal_gain_plain(rows, covered))
+    return best_of(coverage.marginal_gain_plain(rows, covered), picked)
+
+
+def best_of(gains, picked):
+    """gains int32 [m, n], picked bool [m, n] -> (best masked gain, its
+    lowest index), int32 [m] each: picked rows score -1."""
+    g = torch.where(picked, -1, gains)
     best = torch.argmax(g, dim=1)
     return g.gather(1, best[:, None])[:, 0], best.to(torch.int32)
 

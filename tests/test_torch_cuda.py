@@ -201,6 +201,90 @@ def test_gain_sweeps_and_lazy_solve(dev):
     assert 1 <= lazy_greedy.blocks_per_machine(3, 301, 5, dev) <= tiles
 
 
+def _machine_rows(gen, case, dev):
+    """Machine-axis rows [3, 1000, W] with a tie across two tiles: about
+    25% of the bits set ("dense"), or about 1% of the words non-zero
+    ("sparse"; W = 5 for 4-byte loads in "unaligned"; every 97th row all
+    non-zero, longer than a lane sums alone, in "heavy")."""
+    w = 5 if case == "unaligned" else 36
+    rows = _words(gen, 3, 1000, w, dev=dev) & _words(gen, 3, 1000, w, dev=dev)
+    if case != "dense":
+        keep = (torch.rand((3, 1000, w), generator=gen) < 0.01).to(dev)
+        if case == "heavy":
+            keep[:, ::97] = True
+        rows = torch.where(keep, rows, 0)
+    rows[:, 40] = rows[:, 7]
+    return rows
+
+
+@pytest.mark.parametrize("case", ["sparse", "dense", "unaligned", "heavy"])
+def test_machine_axis_layouts(dev, case):
+    """The machine-axis solves take the compact layout on sparse rows and
+    the dense sweep on dense rows, say so in ``stats`` and in the launch
+    counts, and equal their plain versions either way (the forced other
+    layout too); tiles_swept stays in range."""
+    gen = torch.Generator().manual_seed(11)
+    rows = _machine_rows(gen, case, dev)
+    ex = torch.tensor([[7, -1], [3, 999], [-1, -1]], dtype=torch.int32,
+                      device=dev)
+    k, tiles = 20, lazy_greedy.num_row_tiles(1000)
+    layout = "dense" if case == "dense" else "compact"
+    want = greedy_pick.greedy_plain(rows, k, ex)
+    lists = greedy_pick.compact_rows_plain(rows)
+    for fn, name in ((greedy_pick.greedy_maxcover_resident, "greedy_pick"),
+                     (lazy_greedy.greedy_maxcover_lazy, "lazy_greedy")):
+        ops.reset_launches()
+        stats = {}
+        got = fn(rows, k, ex, stats=stats)
+        assert stats["layout"] == layout
+        assert stats["nonzero_words"] == lists.nonzero_words
+        assert stats["listed_rows"] == int(lists.listed.sum())
+        _equal(got[:4], want)
+        kernel = name if layout == "dense" else name + "_compact"
+        assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+            "compact_rows": 1, kernel: 1}
+        if name == "lazy_greedy":
+            assert all(tiles <= int(t) <= k * tiles for t in got[4])
+    full = greedy_pick.compact_rows(rows, rows.numel())
+    lists = full._replace(entries=full.entries[:full.nonzero_words])
+    _equal(greedy_pick.greedy_compact(rows, k, ex, lists), want)
+    *got, swept = lazy_greedy.lazy_compact(rows, k, ex, lists)
+    _equal(got, want)
+    assert all(tiles <= int(t) <= k * tiles for t in swept)
+    _equal(greedy_pick.greedy_dense(rows, k, ex), want)
+    _equal(lazy_greedy.lazy_dense(rows, k, ex)[:4], want)
+
+
+@pytest.mark.parametrize("m,n,w,share", [(3, 1000, 36, 0.01),
+                                         (2, 777, 5, 0.05),
+                                         (1, 4096, 1024, 0.03)])
+def test_compact_rows_lists_every_nonzero_word(dev, m, n, w, share):
+    """The compaction kernel lists the rows and words of the plain
+    version (as sets per row; the tile table holds each slot in its
+    row's tile); an allocation it outgrows counts every word, and the
+    wrapper's one launch leaves a list longer than the compact layout
+    pays for unwritten (the last shape: the dense sweep)."""
+    gen = torch.Generator().manual_seed(n)
+    rows = _words(gen, m, n, w, dev=dev)
+    rows = torch.where((torch.rand((m, n, w), generator=gen) < share
+                        ).to(dev), rows, 0)
+    rows[0, 5] = -1                              # every word of a row
+    want = greedy_pick.canonical_lists(greedy_pick.compact_rows_plain(rows))
+    small = greedy_pick.compact_rows(rows, 3)
+    assert small.nonzero_words == want[4].shape[0]
+    got = greedy_pick.compact_rows(rows, small.nonzero_words)
+    got = got._replace(entries=got.entries[:got.nonzero_words])
+    _equal(greedy_pick.canonical_lists(got), want)
+    ops.reset_launches()
+    lists = greedy_pick.row_lists(rows)
+    assert ops.LAUNCHES["compact_rows"] == 1
+    assert lists.nonzero_words == want[4].shape[0]
+    dense = lists.nonzero_words > greedy_pick.compact_capacity(m * n * w, m)
+    assert dense == (n == 4096) == (lists.entries is None)
+    if not dense:
+        _equal(greedy_pick.canonical_lists(lists), want)
+
+
 @pytest.mark.parametrize("r,c,w", [(1, 41, 3), (5, 9, 3), (3, 8, 4096),
                                    (2, 13, 4096)])
 def test_bucket_insert_stream(dev, r, c, w):

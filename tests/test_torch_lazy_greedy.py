@@ -13,7 +13,8 @@ import numpy as np  # noqa: E402
 from repro.core import maxcover as ref  # noqa: E402
 from repro.kernels.lazy_greedy import greedy_maxcover_lazy_pallas  # noqa: E402
 from repro_torch.core import maxcover  # noqa: E402
-from repro_torch.kernels import lazy_greedy  # noqa: E402
+from repro_torch.kernels import greedy_pick, lazy_greedy  # noqa: E402
+from tests.test_torch_maxcover import COMPACT_CASES, compact_case  # noqa: E402
 from tests.test_torch_ref import partitionable, to_port, u32, words  # noqa: E402,F401
 
 TILE = lazy_greedy.TILE_ROWS
@@ -108,3 +109,47 @@ def test_nonzero_words_needed_counts_the_needed_popcounts(skew):
     assert 0 < stats["nonzero_words_needed"] <= needed
     for a, b in zip(got, lazy_greedy.lazy_plain(rows, k, ex)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", COMPACT_CASES)
+def test_lazy_compact_solve_matches_pallas_and_plain(case):
+    """The compact layout's plain lazy solve (each pick's gains swept
+    from the list of non-zero words, the tile bounds as before) equals
+    the reference's lazy Pallas kernel (interpret mode) and ``lazy_plain``
+    bit for bit, ``tiles_swept`` included (the same in-order schedule);
+    the wrapper takes that layout and says so."""
+    rows, k, ex = compact_case(case)
+    port, exc = to_port(rows), torch.from_numpy(ex)
+    lists = greedy_pick.compact_rows_plain(port)
+    got = lazy_greedy.lazy_compact_plain(port, k, exc, lists)
+    for a, b in zip(got, lazy_greedy.lazy_plain(port, k, exc)):
+        np.testing.assert_array_equal(u32(a), u32(b))
+    stats = {}
+    for a, b in zip(lazy_greedy.greedy_maxcover_lazy(port, k, exc, stats),
+                    got):
+        np.testing.assert_array_equal(u32(a), u32(b))
+    assert stats["layout"] == "compact"
+    tiles = lazy_greedy.num_row_tiles(rows.shape[1])
+    assert all(tiles <= int(s) <= k * tiles for s in got[4])
+    for j in range(rows.shape[0]):
+        want = greedy_maxcover_lazy_pallas(jnp.asarray(rows[j]), k,
+                                           jnp.asarray(ex[j]),
+                                           interpret=True)
+        for a, b in zip([o[j] for o in got[:4]], want[:4]):
+            np.testing.assert_array_equal(u32(a), u32(b))
+
+
+def test_entries_needed_counts_the_listed_words_of_needed_tiles():
+    """``lazy_plain``'s count of the list entries an exact schedule must
+    and-not: every non-zero word of the rows not excluded in the first
+    pick, and at least the non-zero gain words after k picks."""
+    rows = to_port(_rows(2, 20 * TILE + 5, 3, 13, skew=True))
+    rows[:, 5:9] = 0
+    ex = torch.tensor([[3, -1], [4, 70]], dtype=torch.int32)
+    stats = {}
+    lazy_greedy.lazy_plain(rows, 1, ex, stats)
+    free = torch.ones(rows.shape[:2], dtype=torch.bool)
+    free[0, 3] = free[1, 4] = free[1, 70] = False
+    assert stats["entries_needed"] == int(((rows != 0).sum(2) * free).sum())
+    lazy_greedy.lazy_plain(rows, 8, ex, stats)
+    assert stats["nonzero_words_needed"] <= stats["entries_needed"]

@@ -150,3 +150,160 @@ def test_query_groups_plan(b, w, budget, want):
 def test_query_groups_needs_a_query():
     with pytest.raises(ValueError, match="at least one query"):
         greedy_pick.query_groups(0, 8, 1000)
+
+
+def compact_case(case):
+    """(rows uint32 [m, n, W], k, excluded [m, E]) of sparse rows (about
+    1% of the words non-zero, numpy from a seed) with an exact tie across
+    two listed rows, for the compact layout's cases."""
+    m, n, w, k = (3, 90, 1 if case == "W = 1" else 5 if case == "W = 5"
+                  else 7, 6)
+    rng = np.random.default_rng(sum(map(ord, case)))
+    rows = words(rng, (m, n, w), density=0.2)
+    rows[rng.random((m, n, w)) >= 0.01] = 0
+    rows[:, 61, 2 % w] |= np.uint32(0x00F0F0F1)   # two listed rows tie
+    rows[:, 33] = rows[:, 61]
+    listed = [np.flatnonzero(rows[j].any(1)) for j in range(m)]
+    ex = np.full((m, 4), -1, np.int32)
+    if case == "excluded listed rows":
+        ex[0, :3] = [listed[0][0], 33, n + 7]
+        ex[1, :1] = listed[1][-1]
+    elif case == "every listed row excluded":
+        ex = np.full((m, n), -1, np.int32)
+        for j in range(m):
+            ex[j, :len(listed[j])] = listed[j]
+    elif case == "a machine of zero rows":
+        rows[1] = 0
+    elif case == "tie with a lower zero row":
+        rows[:] = 0                             # rows 0 .. 29 stay zero
+        rows[:, 30, 0] = rows[:, 70, 0] = 0b1011
+        rows[:, 50, 1] = 0b1
+        k = 4                                   # after 30 and 50, row 70
+    elif case == "k past the listed rows":      # ties zero rows below it
+        k = max(len(x) for x in listed) + 5
+    return rows, k, ex
+
+
+COMPACT_CASES = ["sparse", "tie with a lower zero row", "excluded listed rows",
+                 "every listed row excluded", "a machine of zero rows",
+                 "k past the listed rows", "W = 5", "W = 1"]
+
+
+@pytest.mark.parametrize("case", COMPACT_CASES)
+def test_compact_solve_matches_pallas_and_plain(case):
+    """The compact layout's plain solve (the non-zero words listed, then
+    each pick swept from the list) equals the reference's resident
+    Pallas kernel (interpret mode) and the dense plain solve bit for bit;
+    the wrapper takes that layout on these rows and says so."""
+    rows, k, ex = compact_case(case)
+    port, exc = to_port(rows), torch.from_numpy(ex)
+    lists = greedy_pick.compact_rows_plain(port)
+    got = greedy_pick.greedy_compact_plain(port, k, exc, lists)
+    _assert_same(got, greedy_pick.greedy_plain(port, k, exc))
+    stats = {}
+    _assert_same(greedy_pick.greedy_maxcover_resident(port, k, exc, stats),
+                 got)
+    assert stats == dict(layout="compact", nonzero_words=int((rows != 0).sum()),
+                         listed_rows=int(rows.any(2).sum()))
+    for j in range(rows.shape[0]):
+        want = greedy_maxcover_resident_pallas(
+            jnp.asarray(rows[j]), k, jnp.asarray(ex[j]), interpret=True)
+        _assert_same([o[j] for o in got], want)
+    if case == "every listed row excluded":
+        assert (got[0] == -1).all() and (got[3] == 0).all()
+    if case == "tie with a lower zero row":
+        assert got[0].tolist() == [[30, 50, -1, -1]] * 3
+
+
+def _shuffled(lists, seed):
+    """The same list in another order, as the kernel may write it: tiles
+    in any slot order (a tile's slots kept together) and the rows'
+    entry runs anywhere in the entry array."""
+    rng = np.random.default_rng(seed)
+    m, n = lists.row_ids.shape
+    row_ids, counts, starts = (t.clone() for t in (
+        lists.row_ids, lists.counts, lists.starts))
+    tiles = lists.tiles.clone()
+    for j in range(m):
+        slot = 0
+        for t in rng.permutation(tiles.shape[1]):
+            first, cnt = (int(x) for x in lists.tiles[j, t])
+            src = slice(first, first + cnt)
+            dst = slice(slot, slot + cnt)
+            row_ids[j, dst], counts[j, dst] = (lists.row_ids[j, src],
+                                               lists.counts[j, src])
+            starts[j, dst] = lists.starts[j, src]
+            tiles[j, t, 0] = slot
+            slot += cnt
+    valid = torch.arange(n)[None] < lists.listed[:, None]
+    entries = torch.empty_like(lists.entries)
+    at = 0
+    for i in rng.permutation(int(valid.sum())):
+        s, c = int(starts[valid][i]), int(counts[valid][i])
+        entries[at:at + c] = lists.entries[s:s + c]
+        flat = valid.nonzero()[i]
+        starts[flat[0], flat[1]] = at
+        at += c
+    return lists._replace(row_ids=row_ids, counts=counts, starts=starts,
+                          tiles=tiles, entries=entries)
+
+
+@pytest.mark.parametrize("m,n,w", [(2, 90, 7), (1, 70, 1), (3, 33, 4)])
+def test_compact_rows_plain_lists_every_nonzero_word(m, n, w):
+    """The plain compaction lists each row holding a non-zero word once,
+    its entries (word index, word) in word order, the slots of a 32-row
+    tile together; a list written in another order (tiles and entry
+    runs anywhere, as the kernel writes them) compares equal as sets per
+    row, and a tile table that misplaces a slot is caught."""
+    rng = np.random.default_rng(n)
+    rows = words(rng, (m, n, w), density=0.2)
+    rows[rng.random((m, n, w)) >= 0.05] = 0
+    port = to_port(rows)
+    lists = greedy_pick.compact_rows_plain(port)
+    nz = np.nonzero(rows)
+    assert lists.nonzero_words == len(nz[0])
+    np.testing.assert_array_equal(u32(lists.entries[:, 1]), rows[nz])
+    np.testing.assert_array_equal(lists.entries[:, 0].numpy(), nz[2])
+    assert lists.listed.tolist() == rows.any(2).sum(1).tolist()
+    assert lists.tiles[..., 1].sum(1).tolist() == lists.listed.tolist()
+    want = greedy_pick.canonical_lists(lists)
+    got = greedy_pick.canonical_lists(_shuffled(lists, 1))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if lists.tiles.shape[1] > 1 and int(lists.listed.max()):
+        bad = lists.tiles.clone()
+        bad[..., 0] += 1
+        with pytest.raises(AssertionError, match="tile table"):
+            greedy_pick.canonical_lists(lists._replace(tiles=bad))
+
+
+IMM_WORDS = 8 * 32768 * 1024     # the IMM selector's rows, m = 8
+
+
+@pytest.mark.parametrize("entries,words,m,pays", [
+    (0, 10, 1, True), (1024, 10, 1, True), (1025, 10, 1, False),
+    (40_864, IMM_WORDS, 8, True),                 # the IMM run's list
+    (8 * (IMM_WORDS // 1024 + 1024), IMM_WORDS, 8, True),
+    (8 * (IMM_WORDS // 1024 + 1024) + 1, IMM_WORDS, 8, False),
+    (33_554_432, 8 * 4096 * 1024, 8, False),      # a supercritical IMM's
+    (16 * (IMM_WORDS // 1024 + 1024), IMM_WORDS, 32, True),
+    (16 * (IMM_WORDS // 1024 + 1024) + 1, IMM_WORDS, 32, False)])
+def test_compact_layout_pays_up_to_half_the_words(entries, words, m, pays):
+    """The compact layout pays while the list holds at most min(m, 16) x
+    (words / 1024 + 1024) entries (the rule measured on the card; it
+    once allowed half the words)."""
+    assert greedy_pick.compact_pays(entries, words, m) is pays
+    assert (entries <= greedy_pick.compact_capacity(words, m)) is pays
+
+
+def test_dense_rows_take_the_dense_sweep():
+    """Rows with most words non-zero (a list longer than the compact
+    layout pays for) take the dense sweep, and say so."""
+    rows = to_port(_rows(2, 2048, 8, 4))
+    stats = {}
+    got = greedy_pick.greedy_maxcover_resident(rows, 5, None, stats)
+    assert stats["layout"] == "dense"
+    assert stats["nonzero_words"] > greedy_pick.compact_capacity(rows.numel(),
+                                                                 2)
+    _assert_same(got, greedy_pick.greedy_plain(
+        rows, 5, greedy_pick.excluded_ids(None, 2, "cpu")))
+    assert greedy_pick.row_lists(rows).entries is None
