@@ -16,10 +16,13 @@ senders; the Ripples round; the serving replay with the resident and
 the lazy senders; every one samples IC through rrr_expand_ic, a push
 over the frontier's live words that draws the coins in the step and
 builds no coin plane, and solves its machine axis on the compact layout,
-the list of the rows' non-zero words), drives IMM and the lazy round on a
-supercritical configuration, whose nearly dense rows take the dense
-layout, then times every kernel at the shapes those runs gave it and ranks the kernels by the time each loses
-over those runs (phase ``order``).  Prints JSON lines; the line before the last
+the list of the rows' non-zero words; every spread steps through
+cascade_ic, which draws the live edges in the step and builds no
+live-edge plane), drives IMM and the lazy round on a supercritical
+configuration, whose nearly dense rows take the dense layout, then times
+every kernel at the shapes those runs gave it, splits the spread into
+its parts (phase ``spread_split``) and ranks the kernels by the time each
+loses over those runs (phase ``order``).  Prints JSON lines; the line before the last
 lists the kernels, the last line is the device summary.  Exits non-zero
 without a CUDA device or on any failure.  Imports nothing of JAX.
 """
@@ -47,6 +50,7 @@ from repro_torch.kernels import (build, bucket, bucket_insert,  # noqa: E402
                                  ops, rrr_expand, topk_gain)
 from repro_torch.launch import im_driver, serve  # noqa: E402
 from tools.time_sampler import SamplerClock  # noqa: E402
+from tools.time_spread import split_spread  # noqa: E402
 
 # The slice's command: SNAP com-DBLP scale (317k vertices, 1.05M edges),
 # edge probabilities U[0, 0.1] (paper §4.1), k=100 (B=63 buckets).
@@ -95,10 +99,11 @@ DENSE_FULL = at_scale(FULL, n=32768, avg_deg=76.3)
 DENSE_ROUND = at_scale(ROUND, n=32768, avg_deg=76.3, theta=32768)
 # The kernels of each full-size path and the run that must launch them.
 # Every full-size run samples IC on the resident layout: the fused
-# rrr_expand_ic, and no coin plane (coin_pack) at all; and its
-# machine-axis solve takes the compact layout (compact_rows, then the
-# picks over the list), never the dense sweep.
-SLICE1 = ("rrr_expand_ic", "rrr_expand_streamed", "compact_rows",
+# rrr_expand_ic, and no coin plane (coin_pack) at all; its machine-axis
+# solve takes the compact layout (compact_rows, then the picks over the
+# list), never the dense sweep; and its spread steps through cascade_ic,
+# with no live-edge plane and no plane kernel.
+SLICE1 = ("rrr_expand_ic", "cascade_ic", "compact_rows",
           "greedy_pick_compact", "bucket_insert")
 ROUND_RUN = {"lazy_greedy_compact": "round lazy",
              "bucket_insert_stream": "round lazy",
@@ -116,8 +121,12 @@ SERVE_RUN = {"greedy_pick_batch": "serve resident",
 # Kernels that no full-size run launches, with the run of phase `paths`
 # (n = 3000) that does: the coin plane of IC --gather streamed, the
 # resident expansion of LT sampling and of the cascade's resident
-# gather, and the fused serving path.
+# gather, the streamed expansion of the cascade's streamed gather (and
+# of LT's), and the fused serving path.
 SMALL_RUN = {
+    "rrr_expand_streamed": ("IC kernel-gpu",
+                            "IMM at n = 3000, IC, the spread over the "
+                            "cascade's --gather streamed (phase paths)"),
     "coin_pack": ("IC kernel-gpu-streamed",
                   "IMM at n = 3000, IC, --gather streamed (phase paths)"),
     "rrr_expand_resident": ("LT kernel-gpu",
@@ -161,6 +170,10 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/rrr_expand.cu",
         "src/repro/kernels/rrr_expand.py:351 fused with the XLA coin draw "
         "at src/repro/core/rrr.py:309"),
+    "cascade_ic": (
+        "src/repro_torch/kernels/csrc/rrr_expand.cu",
+        "src/repro/kernels/rrr_expand.py:271 (its cascade role) fused with "
+        "the XLA live-edge draw at src/repro/core/cascade.py:231"),
     "coin_pack": (
         "src/repro_torch/kernels/csrc/coin_pack.cu",
         "src/repro/core/rrr.py:309 (XLA draw, no TPU kernel)"),
@@ -325,6 +338,7 @@ def parity_small(dev) -> dict:
             max_flat_index=(32 * w_c * n_c) * chunk))
     errs["coin_pack"] = err
     errs["rrr_expand_ic"] = parity_ic(gen, dev)
+    errs["cascade_ic"] = parity_cascade(gen, dev)
 
     err = 0
     for m, n_g, w_g, k, ex in ((3, 1001, 5, 12, [[1, -1, 5000], [0, 2, 3],
@@ -562,6 +576,116 @@ def parity_ic(gen, dev) -> int:
     return err
 
 
+CASCADE_LANES = (1, 2, 4, 8, 16, 32)
+
+
+def cascade_step(g, num_sims, coin_chunk, dev, key, *, seeds=None,
+                 gen=None):
+    """One cascade_ic step's inputs on graph ``g``: its reverse table,
+    the chunk width, the key table, and a frontier and visited plane —
+    the first step from ``seeds`` (frontier = visited = the seeds' lane
+    words, as ``cascade.simulate_cascades`` starts), or, with ``gen``,
+    every word non-zero (pad lanes too) over a sparse visited plane."""
+    nbr, prob, _ = csr.padded_adjacency(g)
+    chunk, n_chunks, _ = rrr._coin_chunks(nbr.shape[1], coin_chunk)
+    n = g.num_vertices
+    if seeds is not None:
+        smask = cascade.seeds_to_mask(n, seeds, device=dev)
+        f = torch.where(smask[:, None], bitset.lane_words(num_sims, dev)[
+            None], 0).to(torch.int32)
+        vis = f.clone()
+    else:
+        w = bitset.num_words(num_sims)
+        f = rand_words(gen, n, w, dev=dev) | 1
+        vis = rand_words(gen, n, w, dev=dev) & rand_words(gen, n, w, dev=dev)
+    step = dict(nbr=nbr, prob=prob, chunk=chunk, num_sims=num_sims,
+                keys=rrr_expand.cascade_keys(key, n_chunks, num_sims, dev))
+    return step, f, vis
+
+
+def run_cascade_step(step, f, vis, lanes=None, count=None):
+    """cascade_ic on one step (``lanes`` None: the width the cascade
+    takes for these rows)."""
+    return rrr_expand.cascade_step_ic(
+        f, vis, step["nbr"], step["prob"], step["keys"], step["chunk"],
+        step["num_sims"], count=count, lanes=lanes)
+
+
+def plain_cascade_step(step, f, vis, count=None):
+    return rrr_expand.cascade_step_ic_plain(
+        f, vis, step["nbr"], step["prob"], step["keys"], step["chunk"],
+        step["num_sims"], count=count)
+
+
+def check_cascade_step(step, f, vis, want, shape) -> int:
+    """cascade_ic at every lane group width against ``want`` (its plain
+    version's result), with its count of new words."""
+    err = 0
+    new_words = int((want[0] != 0).sum())
+    for lanes in CASCADE_LANES:
+        count = torch.full((1,), -1, dtype=torch.int32, device=f.device)
+        err = max(err, require_equal(
+            "cascade_ic", run_cascade_step(step, f, vis, lanes, count), want,
+            lanes=lanes, new_words=new_words, **shape))
+        if int(count) != new_words:
+            raise AssertionError(f"cascade_ic: count {int(count)} != "
+                                 f"{new_words} new words ({shape})")
+    return err
+
+
+def parity_cascade(gen, dev) -> int:
+    """cascade_ic against its plain version, at every lane group width:
+    the IMM command's graph at its first cascade step (100 random seeds,
+    64 simulations), with every frontier word live (64 and 100
+    simulations: pad lanes), there also against the plane route it
+    replaces (rrr_expand_streamed over the live-edge plane); hub rows (a
+    reverse star of 4,999 slots, the IMM-size rmat graph); n_chunks > 1
+    (the supercritical graph, and a chunk of 3)."""
+    args = im_driver.parser().parse_args(FULL)
+    err = 0
+    g = generators.erdos_renyi(args.n, args.avg_deg, args.seed, device=dev)
+    seeds = torch.randperm(args.n, generator=gen)[:100]
+    cases = [("imm first step", g, 64, 32, dict(seeds=seeds)),
+             ("imm every word live", g, 64, 32, dict(gen=gen)),
+             ("imm every word live", g, 100, 32, dict(gen=gen)),
+             ("imm, chunk 3", g, 64, 3, dict(gen=gen)),
+             ("reverse star", csr.from_edge_list(
+                 np.arange(1, 5000), np.zeros(4999, np.int64), 5000, seed=2,
+                 device=dev), 64, 32, dict(gen=gen)),
+             ("rmat", im_driver.make_graph("rmat", args.n, args.avg_deg,
+                                           args.seed, dev), 64, 32,
+              dict(gen=gen)),
+             ("supercritical", generators.erdos_renyi(32768, 76.3, args.seed,
+                                                      device=dev), 64, 32,
+              dict(gen=gen))]
+    for label, graph, sims, coin_chunk, how in cases:
+        key = prng.key(args.seed).fold_in(99)
+        step, f, vis = cascade_step(graph, sims, coin_chunk, dev, key, **how)
+        want = plain_cascade_step(step, f, vis)
+        shape = dict(input=label, n=graph.num_vertices,
+                     d=step["nbr"].shape[1], W=f.shape[1], num_sims=sims,
+                     n_chunks=step["keys"].shape[0], chunk=step["chunk"])
+        err = max(err, check_cascade_step(step, f, vis, want, shape))
+        if label == "imm every word live" and sims == 64:
+            nbr, d = step["nbr"], step["nbr"].shape[1]
+            chunk, n_chunks, d_pad = rrr._coin_chunks(d, coin_chunk)
+            live = cascade._live_mask(nbr, step["prob"], None, key,
+                                      model="IC", num_sims=sims, chunk=chunk,
+                                      n_chunks=n_chunks, d_pad=d_pad)
+            tbl = torch.nn.functional.pad(torch.where(nbr >= 0, nbr, 0),
+                                          (0, d_pad - d)).contiguous()
+            err = max(err, require_equal(
+                "cascade_ic", run_cascade_step(step, f, vis),
+                rrr_expand.rrr_expand_step(f, vis, tbl, live),
+                against="the plane route", **shape))
+            del live, tbl
+        if not int((want[0] != 0).sum()):
+            raise AssertionError(f"cascade_ic: no edge fired ({shape})")
+        del step, f, vis, want
+    torch.cuda.empty_cache()
+    return err
+
+
 def parity_slice2(gen, dev) -> dict:
     """The gain sweeps, the lazy solve and the stream receiver: W odd
     (4-byte loads) and W a multiple of 4 (16-byte loads), ties within
@@ -709,8 +833,11 @@ def paths_agree(dev) -> dict:
     """Kernel paths against plain paths, and the card against the CPU:
     identical seeds, theta, coverage and spread.  The kernel paths sample
     on the resident layout (IC: the fused rrr_expand_ic) and on the
-    streamed one (IC: coin_pack's plane).  Returns each card kernel
-    run's launch counts (set to 0 just before it), by "model name"."""
+    streamed one (IC: coin_pack's plane), and estimate the spread over
+    every gather of the cascade (IC auto: cascade_ic; resident and
+    streamed: the live-edge plane), which must agree with each other
+    and with the CPU.  Returns each card kernel run's launch counts (set
+    to 0 just before it), by "model name"."""
     launches = {}
     for model in ("IC", "LT"):
         results = {}
@@ -733,7 +860,10 @@ def paths_agree(dev) -> dict:
             spreads = [float(cascade.spread(
                 g, torch.from_numpy(res.seeds), key.fold_in(99),
                 model=model, num_sims=64, engine=engine, gather=gather))
-                for gather in ("auto", "resident")]
+                for gather in ("auto", "resident", "streamed")]
+            if len(set(spreads)) != 1:
+                raise AssertionError(f"{model} {name}: spreads over the "
+                                     f"gathers {spreads}")
             if use_kernel:
                 torch.cuda.synchronize()
                 launches[f"{model} {name}"] = dict(ops.LAUNCHES)
@@ -745,8 +875,10 @@ def paths_agree(dev) -> dict:
         if len({json.dumps(v) for v in results.values()}) != 1:
             raise AssertionError(f"{model}: paths disagree")
     ic = launches["IC kernel-gpu"]
-    if not ic["rrr_expand_ic"] or ic["coin_pack"]:
-        raise AssertionError(f"IC resident sampling launched {ic}")
+    if (not ic["rrr_expand_ic"] or ic["coin_pack"] or not ic["cascade_ic"]
+            or not ic["rrr_expand_streamed"]):
+        raise AssertionError(f"IC resident sampling and the spreads "
+                             f"launched {ic}")
     return launches
 
 
@@ -874,10 +1006,41 @@ def serve_paths_agree(dev) -> dict:
 
 # ---------------------------------------------------------------- phase 5
 
+class PlaneDraws:
+    """While open, counts the cascade's live-edge plane draws
+    (``cascade._live_mask``)."""
+
+    def __enter__(self):
+        self.count = 0
+        self._fn = cascade._live_mask
+
+        def counted(*args, **kwargs):
+            self.count += 1
+            return self._fn(*args, **kwargs)
+        cascade._live_mask = counted
+        return self
+
+    def __exit__(self, *exc):
+        cascade._live_mask = self._fn
+
+
+def check_ic_spread(run: str, launches: dict, planes: int):
+    """A full-size run estimated its spread through cascade_ic, with no
+    live-edge plane and no plane kernel."""
+    plane_kernels = {k: launches[k] for k in ("rrr_expand_streamed",
+                                              "rrr_expand_resident")
+                     if launches[k]}
+    if not launches["cascade_ic"] or plane_kernels or planes:
+        raise AssertionError(f"{run}: the spread launched cascade_ic "
+                             f"{launches['cascade_ic']} times, "
+                             f"{plane_kernels} and drew {planes} planes")
+
+
 def full_run():
     ops.reset_launches()
-    out = im_driver.run(FULL)
-    torch.cuda.synchronize()
+    with PlaneDraws() as planes:
+        out = im_driver.run(FULL)
+        torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     seeds = out["seeds"]
     emit(phase="full", theta=out["theta"], rounds=out["rounds"],
@@ -886,7 +1049,7 @@ def full_run():
              graph=out["graph_s"], sample=out["sample_s"],
              select=out["select_s"], spread=out["spread_s"]),
          bfs_steps=out["bfs_steps"], peak_bytes=out["peak_bytes"],
-         launches=launches)
+         live_planes=planes.count, launches=launches)
     real = seeds[seeds >= 0]
     if not (len(real) == 100 and len(set(real.tolist())) == 100
             and real.max() < out["n"]):
@@ -898,6 +1061,7 @@ def full_run():
     if missing:
         raise AssertionError(f"main path never launched {missing}")
     check_ic_sampling("imm", launches)
+    check_ic_spread("imm", launches, planes.count)
     check_layout("imm", launches)
     return launches, seeds
 
@@ -921,13 +1085,15 @@ def supercritical_runs():
     layout.
     Each run's launch counts are set to 0 just before it and read just
     after.  Cascades reach most of the graph, so the cover fills within
-    k picks and the later picks gain 0 (seed -1)."""
+    k picks and the later picks gain 0 (seed -1).  Returns the launches
+    and the IMM run's seeds."""
     launches = {}
     for run, argv in (("imm supercritical", DENSE_FULL),
                       ("round supercritical", DENSE_ROUND)):
         ops.reset_launches()
-        out = im_driver.run(argv)
-        torch.cuda.synchronize()
+        with PlaneDraws() as planes:
+            out = im_driver.run(argv)
+            torch.cuda.synchronize()
         launches[run] = counts = dict(ops.LAUNCHES)
         seeds = out["seeds"]
         real = seeds[seeds >= 0]
@@ -941,15 +1107,19 @@ def supercritical_runs():
                  rnd["seconds"] if rnd else dict(sample=out["sample_s"],
                                                  select=out["select_s"])),
                  spread=out["spread_s"]),
-             peak_bytes=out["peak_bytes"], launches=counts)
+             peak_bytes=out["peak_bytes"], live_planes=planes.count,
+             launches=counts)
         if not (0 < len(real) <= 100 and len(set(real.tolist())) == len(real)
                 and real.max() < out["n"] and np.isfinite(out["spread"])
                 and out["spread"] >= len(real)):
             raise AssertionError(f"{run}: bad seeds {seeds} or spread "
                                  f"{out['spread']}")
         check_ic_sampling(run, counts)
+        check_ic_spread(run, counts, planes.count)
         check_layout(run, counts, "dense")
-    return launches
+        if run == "imm supercritical":
+            dense_seeds = seeds
+    return launches, dense_seeds
 
 
 def check_ic_sampling(run: str, launches: dict):
@@ -977,8 +1147,9 @@ def round_runs(dev):
     for solver in ("lazy", "fused"):
         argv = [solver if a == "lazy" else a for a in ROUND]
         ops.reset_launches()
-        out = im_driver.run(argv)
-        torch.cuda.synchronize()
+        with PlaneDraws() as planes:
+            out = im_driver.run(argv)
+            torch.cuda.synchronize()
         launches[f"round {solver}"] = dict(ops.LAUNCHES)
         rnd = out["round"]
         emit(phase="round", solver=solver, theta=out["theta"],
@@ -988,8 +1159,11 @@ def round_runs(dev):
              spread=out["spread"], n=out["n"], edges=out["edges"],
              seconds=dict(graph=out["graph_s"], **rnd["seconds"],
                           spread=out["spread_s"]),
-             peak_bytes=out["peak_bytes"], launches=launches[f"round {solver}"])
+             peak_bytes=out["peak_bytes"], live_planes=planes.count,
+             launches=launches[f"round {solver}"])
         check_seeds(out["seeds"], out["n"])
+        check_ic_spread(f"round {solver}", launches[f"round {solver}"],
+                        planes.count)
         if rnd["coverage"] < rnd["best_local_coverage"]:
             raise AssertionError("round coverage below the best local one")
         if not np.isfinite(out["spread"]):
@@ -1543,11 +1717,110 @@ def rmat_ic_timing(dev) -> dict:
     return row
 
 
+def cascade_work(step, f, vis) -> dict:
+    """What one cascade_ic step's data needs: the valid slots of the rows
+    with a word that can still become new (open: a simulation lane not
+    yet visited), read once (4 B each); the frontier words gathered at
+    them — as row 2's bound, only the non-zero words gathered for open
+    words, and never more than the whole frontier plane, which one read
+    covers (4 B a word); the probability of each slot whose open
+    frontier bits are hashed (4 B); visited read once and both outputs
+    written once (12 B a word); and the coins — the open frontier bits
+    behind valid slots with p > 0, OPS_PER_COIN each (counting also
+    those the kernel skips because an earlier slot of the word already
+    hit their bit)."""
+    nbr, prob = step["nbr"], step["prob"]
+    n, w = f.shape
+    open_ = bitset.lane_words(step["num_sims"], f.device)[None] & ~vis
+    open_words = (open_ != 0).sum(1)
+    slots = (nbr >= 0).sum(1)
+    coins, p_reads, gathered = 0, 0, 0
+    for r in range(nbr.shape[1]):
+        valid = nbr[:, r] >= 0
+        fr = f[nbr[:, r].clamp(min=0).long()]
+        gathered += int(((fr != 0) & (open_ != 0) & valid[:, None]).sum())
+        ok = valid & (prob[:, r] > 0)
+        live = torch.where(ok[:, None], fr & open_, 0)
+        coins += int(bitset.popcount(live).sum(dtype=torch.int64))
+        p_reads += int((live != 0).any(1).sum())
+    work = dict(open_words=int(open_words.sum()),
+                row_slots=int(((open_words > 0) * slots).sum()),
+                gathered=min(gathered, n * w), prob_reads=p_reads,
+                coins=coins)
+    work["bytes"] = 4 * (work["row_slots"] + work["gathered"] + p_reads
+                         + 3 * n * w)
+    return work
+
+
+def time_cascade_step(label, step, f, vis, reps=10, plain_reps=3) -> dict:
+    """cascade_ic on one step's inputs: equality with its plain version
+    at every lane group width, the device time of each width (the one
+    the cascade takes is ``ms``), the wrapper call's span with its count
+    and the host's share, and the bound of :func:`cascade_work`."""
+    want, plain_once = once(lambda: plain_cascade_step(step, f, vis))
+    err = check_cascade_step(step, f, vis, want, dict(input=label))
+    new_words = int((want[0] != 0).sum())
+    del want
+    work = cascade_work(step, f, vis)
+    bound_ms, bound_by, ops_ = bound(work["bytes"],
+                                     OPS_PER_COIN * work["coins"])
+    by_lanes = {lanes: median_ms(lambda: run_cascade_step(step, f, vis, lanes),
+                                 reps, hide_host=True)
+                for lanes in CASCADE_LANES}
+    lanes = rrr_expand.step_lanes(step["nbr"].shape[1])
+    count = torch.zeros(1, dtype=torch.int32, device=f.device)
+    call_ms = median_ms(lambda: run_cascade_step(step, f, vis, count=count),
+                        reps)
+    plain_ms = (median_ms(lambda: plain_cascade_step(step, f, vis),
+                          plain_reps) if plain_reps else plain_once)
+    torch.cuda.empty_cache()
+    row = dict(name="cascade_ic", route="cuda",
+               source=SOURCES["cascade_ic"][0],
+               replaces=SOURCES["cascade_ic"][1], max_abs_err=err,
+               ms=by_lanes[lanes], plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None)
+    extra = dict(shape=label, n=f.shape[0], d=step["nbr"].shape[1],
+                 W=f.shape[1], lanes=lanes, ms_by_lanes=by_lanes,
+                 call_ms=call_ms, int_ops=ops_, new_words=new_words, **work)
+    emit(phase="timing", **row, **extra)
+    row.update(extra)
+    return row
+
+
+def cascade_timings(dev, label, argv, seeds) -> dict:
+    """cascade_ic at the spread of a full-size command (for hub rows also
+    the IMM command's graph drawn as rmat): its first step from
+    ``seeds`` (64 simulations, as the drivers estimate), then the step of
+    that cascade that hashes the most coins.  Returns the first step's
+    row with the other under ``shapes``."""
+    args = im_driver.parser().parse_args(argv)
+    g = im_driver.make_graph(args.graph, args.n, args.avg_deg, args.seed, dev)
+    step, f, vis = cascade_step(g, args.eval_sims, args.coin_chunk, dev,
+                                prng.key(args.seed).fold_in(99), seeds=seeds)
+    row = time_cascade_step(label, step, f, vis)
+    best = None
+    for i in range(64):
+        coins = cascade_work(step, f, vis)["coins"]
+        if best is None or coins > best[0]:
+            best = (coins, i + 1, f, vis)
+        f, vis = run_cascade_step(step, f, vis)
+        if not bool(f.any()):
+            break
+    del f, vis
+    dense = time_cascade_step(f"{label} densest step", step, *best[2:],
+                              plain_reps=0)
+    dense["step"] = best[1]
+    row["shapes"] = {f"{label} densest step": dense}
+    return row
+
+
 def main_path_timings(dev, final_seeds) -> dict:
     """Every kernel at the shapes the full run gives it: the first BFS
     step of a 32768-sample draw (rrr_expand_ic also at other steps and
     shapes, :func:`ic_timings`), the local solves and the receiver of
-    the selector over that incidence, and the first cascade step."""
+    the selector over that incidence, and the first cascade step
+    (cascade_ic, then the plane route's rrr_expand_streamed that the
+    cascade's --gather streamed takes)."""
     args = im_driver.parser().parse_args(FULL)
     n, theta, k, m = args.n, args.max_theta, args.k, args.machines
     g = generators.erdos_renyi(n, args.avg_deg, args.seed, device=dev)
@@ -1612,6 +1885,7 @@ def main_path_timings(dev, final_seeds) -> dict:
                     + 2 * b * k + b))
     del sent, local
 
+    rows_out["cascade_ic"] = cascade_timings(dev, "imm", FULL, final_seeds)
     sims = args.eval_sims
     chunk, n_chunks, d_pad = rrr._coin_chunks(nbr.shape[1], args.coin_chunk)
     tbl = torch.nn.functional.pad(torch.where(nbr >= 0, nbr, 0),
@@ -1621,7 +1895,7 @@ def main_path_timings(dev, final_seeds) -> dict:
                               n_chunks=n_chunks, d_pad=d_pad)
     smask = cascade.seeds_to_mask(n, final_seeds, device=dev)
     act = torch.where(smask[:, None],
-                      cascade._lane_words(sims, dev)[None], 0
+                      bitset.lane_words(sims, dev)[None], 0
                       ).to(torch.int32)
     gm_words = int(sum(int((act[tbl[:, s].long()] != 0).sum())
                        for s in range(d_pad)))
@@ -1843,6 +2117,29 @@ def serve_timings(dev, svc_lazy, trace) -> dict:
     return rows_out
 
 
+def spread_splits(dev, runs: dict):
+    """The spread of each full-size command's seeds split into its parts
+    (``tools/time_spread.py``'s clock, medians of 3 after a warm-up): the
+    IC kernel route (``auto``: cascade_ic) and the plane route it
+    replaced (``streamed``: the live-edge plane, rrr_expand_streamed),
+    whose spreads must agree."""
+    for label, (argv, seeds) in runs.items():
+        args = im_driver.parser().parse_args(argv)
+        g = im_driver.make_graph(args.graph, args.n, args.avg_deg, args.seed,
+                                 dev)
+        rows = [split_spread(g, torch.from_numpy(seeds),
+                             prng.key(args.seed).fold_in(99), gather=gather,
+                             num_sims=args.eval_sims)
+                for gather in ("auto", "streamed")]
+        for row in rows:
+            emit(phase="spread_split", command=label, n=args.n,
+                 edges=g.num_edges, **row)
+        if rows[0]["spread"] != rows[1]["spread"]:
+            raise AssertionError(f"{label}: the spread's routes disagree")
+        del g
+        torch.cuda.empty_cache()
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1890,7 +2187,8 @@ def main(argv=None) -> int:
     if args.stop_after == "full":
         return 0
     full.update(round_runs(dev))
-    full.update(supercritical_runs())
+    dense_launches, dense_seeds = supercritical_runs()
+    full.update(dense_launches)
     if args.stop_after == "round":
         return 0
     serve_launches, svc_lazy, trace = serve_runs(dev)
@@ -1910,6 +2208,15 @@ def main(argv=None) -> int:
                          + ("round's" if name == "lazy_greedy" else "IMM's")
                          + " rows": rows[name]}
         rows[name] = row
+    dense = cascade_timings(dev, "supercritical", DENSE_FULL,
+                            torch.from_numpy(dense_seeds))
+    rows["cascade_ic"]["shapes"].update(supercritical=dense,
+                                        **dense.pop("shapes"))
+    hubs = cascade_timings(dev, "rmat", at_scale(FULL, graph="rmat"),
+                           torch.from_numpy(seeds))
+    rows["cascade_ic"]["shapes"].update(rmat=hubs, **hubs.pop("shapes"))
+    spread_splits(dev, {"imm": (FULL, seeds),
+                        "supercritical": (DENSE_FULL, dense_seeds)})
     kernels, order = [], []
     for name in ops.KERNELS:
         row = rows[name]

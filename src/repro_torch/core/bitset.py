@@ -45,6 +45,13 @@ def pack_bool_matrix(dense: torch.Tensor) -> torch.Tensor:
     return pack_bits(dense.reshape(n, w, WORD_BITS))
 
 
+def lane_words(num_bits: int, device) -> torch.Tensor:
+    """int32 [num_words(num_bits)]: bit j of word w set iff w*32+j <
+    num_bits (the simulation lanes of a cascade's row)."""
+    return pack_bool_matrix(
+        torch.ones((1, num_bits), dtype=torch.bool, device=device))[0]
+
+
 def unpack_words(words: torch.Tensor, theta: int) -> torch.Tensor:
     """Inverse of :func:`pack_bool_matrix` -> bool [..., theta]."""
     shifts = torch.arange(WORD_BITS, dtype=torch.int32, device=words.device)

@@ -4,20 +4,28 @@
 Frontier/active state is word-packed int32 ``[n, num_sims/32]`` and one
 diffusion step is a gather over the padded *reverse* adjacency,
 ``hit[v] |= frontier[nbr[v, slot]] & live[v, slot]`` — the mirror of
-the RRR sampler's reverse BFS, so the ``kernel`` engine reuses the
-``kernels.rrr_expand`` CUDA kernel.  The live mask already sits in
-gather order (slot ``slot`` of row ``v`` is the word the step reads),
-so ``gather="auto"`` takes the streamed layout, which reads it
-directly; ``"resident"`` reads it through the identity index
-``v * d_pad + slot``.  The ``packed`` engine is the plain PyTorch
-path; all are bit-identical to the reference's engines.
+the RRR sampler's reverse BFS.  Live edges are the reference's, drawn
+once per simulation and keyed per lane (``fold_in(fold_in(key, chunk),
+sim)``).
 
-Live edges are drawn once per simulation, keyed per lane
-(``fold_in(fold_in(key, chunk), sim)``) as in the reference; these
-~10^8 draws stay in plain PyTorch through ``prng``.  Models: IC and LT
+- IC, ``engine="kernel"``, ``gather="auto"``: each step is the
+  ``cascade_ic`` kernel (``kernels.rrr_expand.cascade_step_ic``), which
+  hashes the coin of an in-edge only behind a frontier bit that can
+  still become new, so no live-edge plane is built; the loop stops on
+  the kernel's count of new words.
+- LT, and IC with ``gather="resident"`` or ``"streamed"``: the live
+  plane ``[n, d_pad, W]`` is drawn in plain PyTorch (``_live_mask``)
+  and read by the sampler's expansion kernel, in gather order
+  (``streamed``, ``rrr_expand_streamed``) or through the identity index
+  ``v * d_pad + slot`` (``resident``, ``rrr_expand_resident``).
+- ``engine="packed"``: the plane and the plain PyTorch step.
+
+All are bit-identical to the reference's engines.  Models: IC and LT
 (live-edge form).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -66,12 +74,6 @@ def seeds_to_mask(n: int, seeds, *, device) -> torch.Tensor:
     return mask
 
 
-def _lane_words(num_sims: int, device) -> torch.Tensor:
-    """int32 [W]: bit j of word w set iff lane w*32+j < num_sims."""
-    return bitset.pack_bool_matrix(
-        torch.ones((1, num_sims), dtype=torch.bool, device=device))[0]
-
-
 def _live_mask(nbr, prob, wt, key: Key, *, model, num_sims, chunk,
                n_chunks, d_pad):
     """int32 [n, d_pad, W]: bit s of word s//32 at [v, slot] is set iff
@@ -102,6 +104,18 @@ def _live_mask(nbr, prob, wt, key: Key, *, model, num_sims, chunk,
     return live
 
 
+# Measurement hook (``tools/time_spread.py``): when set, called with the
+# name of each part of a run (``padded_adjacency``; ``keys`` on the IC
+# kernel route, else ``tbl`` and ``live``; ``step`` and ``sync`` for each
+# step; the spread's final ``popcount``), returning the context that
+# spans it.
+_clock = None
+
+
+def _span(name: str):
+    return contextlib.nullcontext() if _clock is None else _clock(name)
+
+
 def simulate_cascades(g: CSRGraph, seeds, key: Key, *, model: str = "IC",
                       num_sims: int = 64, max_steps: int = 64,
                       engine: str = "kernel", coin_chunk: int = 32,
@@ -114,18 +128,25 @@ def simulate_cascades(g: CSRGraph, seeds, key: Key, *, model: str = "IC",
         raise ValueError(f"unknown gather {gather!r}; expected {GATHERS}")
     n = g.num_vertices
     dev = g.device
-    nbr, prob, wt = padded_adjacency(g)
+    with _span("padded_adjacency"):
+        nbr, prob, wt = padded_adjacency(g)
     smask = seeds_to_mask(n, seeds, device=dev)
-    lane = _lane_words(num_sims, dev)
+    lane = bitset.lane_words(num_sims, dev)
     active = torch.where(smask[:, None], lane[None, :], 0).to(torch.int32)
     d = nbr.shape[1]
     if d == 0:          # edgeless graph: nothing ever fires
         return active
     chunk, n_chunks, d_pad = _coin_chunks(d, coin_chunk)
-    tbl = torch.nn.functional.pad(torch.where(nbr >= 0, nbr, 0),
-                                  (0, d_pad - d)).contiguous()
-    live = _live_mask(nbr, prob, wt, key, model=model, num_sims=num_sims,
-                      chunk=chunk, n_chunks=n_chunks, d_pad=d_pad)
+    if model == "IC" and engine == "kernel" and gather == "auto":
+        return _simulate_ic(nbr, prob, key, active, num_sims=num_sims,
+                            max_steps=max_steps, chunk=chunk,
+                            n_chunks=n_chunks)
+    with _span("tbl"):
+        tbl = torch.nn.functional.pad(torch.where(nbr >= 0, nbr, 0),
+                                      (0, d_pad - d)).contiguous()
+    with _span("live"):
+        live = _live_mask(nbr, prob, wt, key, model=model, num_sims=num_sims,
+                          chunk=chunk, n_chunks=n_chunks, d_pad=d_pad)
     if engine == "kernel" and gather == "resident":
         gidx = (torch.arange(n, dtype=torch.int32, device=dev)[:, None]
                 * d_pad + torch.arange(d_pad, dtype=torch.int32,
@@ -143,10 +164,35 @@ def simulate_cascades(g: CSRGraph, seeds, key: Key, *, model: str = "IC",
             return rrr_expand.expand_step_plain(frontier, act, tbl, live)
 
     frontier = active
-    step = 0
-    while step < max_steps and bool(frontier.any()):
-        frontier, active = expand(frontier, active)
-        step += 1
+    for _ in range(max_steps):
+        with _span("sync"):
+            go = bool(frontier.any())
+        if not go:
+            break
+        with _span("step"):
+            frontier, active = expand(frontier, active)
+    return active
+
+
+def _simulate_ic(nbr, prob, key: Key, active, *, num_sims: int,
+                 max_steps: int, chunk: int, n_chunks: int):
+    """The IC kernel route: ``cascade_step_ic`` draws each step's live
+    edges itself (no plane), counting the new frontier's non-zero words,
+    and the loop stops on that count.  A first step from an empty
+    frontier adds nothing, so no check precedes it."""
+    with _span("keys"):
+        keys = rrr_expand.cascade_keys(key, n_chunks, num_sims, nbr.device)
+    count = torch.zeros(1, dtype=torch.int32, device=nbr.device)
+    frontier = active
+    for _ in range(max_steps):
+        with _span("step"):
+            frontier, active = rrr_expand.cascade_step_ic(
+                frontier, active, nbr, prob, keys, chunk, num_sims,
+                count=count)
+        with _span("sync"):
+            go = bool(count.item())
+        if not go:
+            break
     return active
 
 
@@ -157,5 +203,6 @@ def spread(g: CSRGraph, seeds, key: Key, *, model: str = "IC",
     words = simulate_cascades(g, seeds, key, model=model, num_sims=num_sims,
                               max_steps=max_steps, engine=engine,
                               coin_chunk=coin_chunk, gather=gather)
-    total = bitset.coverage_size(words).sum()
-    return total.to(torch.float32) / float(num_sims)
+    with _span("popcount"):
+        total = bitset.coverage_size(words).sum()
+        return total.to(torch.float32) / float(num_sims)

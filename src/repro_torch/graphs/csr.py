@@ -1,8 +1,8 @@
 """Compressed-sparse-row graph container (twin of ``repro.graphs.csr``).
 
-The tables are built in numpy on the host, exactly as the reference
+The graphs are built in numpy on the host, exactly as the reference
 builds them from the same seed, and then placed on the requested
-device.  The container stores CSR over *incoming* edges:
+device; the padded reverse table is scattered on that device.  The container stores CSR over *incoming* edges:
 ``indptr[v] .. indptr[v+1]`` indexes the in-neighbors of ``v``.
 """
 from __future__ import annotations
@@ -133,20 +133,29 @@ def padded_adjacency(g: CSRGraph, pad_to: Optional[int] = None):
     """Padded [n, d_max] in-neighbor / prob / weight tables: row v lists
     the in-neighbors of v, padded with -1 (prob/weight 0).  The
     reference fills rows in a per-vertex loop; this scatters every edge
-    to its (row, slot) at once, with identical output."""
+    to its (row, slot) at once, on the graph's device (one host read:
+    d_max), with identical output."""
     n = g.num_vertices
-    indptr, idx = _host(g)
-    deg = np.diff(indptr)
+    dev = g.device
+    indptr = g.indptr.long()
+    deg = indptr[1:] - indptr[:-1]
     d = int(pad_to if pad_to is not None else (deg.max() if n else 0))
-    row = np.repeat(np.arange(n, dtype=np.int64), deg)
-    slot = np.arange(idx.shape[0], dtype=np.int64) - np.repeat(
-        indptr[:-1], deg)
-    ok = slot < d
-    row, slot = row[ok], slot[ok]
-    nbr = np.full((n, d), -1, dtype=np.int32)
-    prob = np.zeros((n, d), dtype=np.float32)
-    wt = np.zeros((n, d), dtype=np.float32)
-    nbr[row, slot] = idx[ok]
-    prob[row, slot] = g.probs.cpu().numpy()[ok]
-    wt[row, slot] = g.weights.cpu().numpy()[ok]
-    return tuple(torch.from_numpy(a).to(g.device) for a in (nbr, prob, wt))
+    nbr = torch.full((n, d), -1, dtype=torch.int32, device=dev)
+    prob = torch.zeros((n, d), dtype=torch.float32, device=dev)
+    wt = torch.zeros((n, d), dtype=torch.float32, device=dev)
+    e = g.num_edges
+    if n == 0 or d == 0 or e == 0:
+        return nbr, prob, wt
+    row = torch.repeat_interleave(torch.arange(n, device=dev), deg,
+                                  output_size=e)
+    slot = torch.arange(e, device=dev) - indptr[row]
+    flat = row * d + slot
+    if pad_to is not None:
+        ok = slot < d
+        flat, keep = flat[ok], ok
+    else:
+        keep = slice(None)
+    nbr.view(-1)[flat] = g.indices[keep]
+    prob.view(-1)[flat] = g.probs[keep]
+    wt.view(-1)[flat] = g.weights[keep]
+    return nbr, prob, wt

@@ -226,3 +226,151 @@ extern "C" int rrr_expand_ic(const void* words, int64_t count,
       (int32_t*)next_words, (uint32_t*)next_count);
   return (int)cudaGetLastError();
 }
+
+// The forward cascade's IC step with its live edges drawn in the kernel
+// (cascade_ic).  Replaces rrr_expand_step_pallas
+// (repro/kernels/rrr_expand.py:271) in its cascade role, fed by the
+// reference's XLA live-edge draw (repro/core/cascade.py:231-257), which
+// this port drew as an [n, d_pad, W] plane before each spread.
+//
+// A pull over the reverse table: output word (v, w) ORs, over the valid
+// reverse slots r of v (nbr[v, r] = u >= 0, valid slots first), the set
+// bits b of frontier[u, w] whose edge is live in simulation s = 32w + b:
+//   uniform(K[c][s])[v * chunk + j] < prob[v, r],  c = r / chunk,
+//   j = r % chunk,  K[c][s] = fold_in(fold_in(key, c), s)
+// — the reference's per-lane cascade draw of shape [n, chunk], so each
+// coin is the reference's coin.  new = hit & ~visited, visited_out =
+// visited | new.  A coin is hashed only behind a frontier bit that can
+// still become new: the bits of a simulation lane (32w + b < num_sims;
+// the plane holds no live edge in pad lanes), not yet visited at v and
+// not yet hit by an earlier slot.  Dropping the others is exact: they
+// cannot change the result.  A row stops at its first invalid slot, and
+// once every open bit is hit.
+//
+// G = 1 << lg lanes share an output word and stride over its slots, each
+// lane loading four of its slots' neighbours, then their frontier words,
+// before it hashes (independent loads in flight), then the group ORs its
+// hits with shuffles: G = 1 (a thread per word, adjacent words of a row
+// in adjacent lanes, so a warp reads each row once) suits short rows; a
+// wider group spreads a hub row over lanes.  The key table ([n_chunks,
+// num_sims] pairs, built once per spread) is staged in shared memory
+// when it fits in 48 KB, else read through the read-only cache.  With
+// `count`, the kernel adds the number of non-zero new words (one atomic
+// a warp), so the cascade's loop stops on a 4-byte read.
+//
+// Bound on the H100: at the spread's shapes the frontier is sparse (a
+// few hundred vertices a simulation), so the work is the rows' valid
+// slots, the frontier words gathered at them, visited and both outputs:
+// bytes; dense frontiers make it the coins' hashing.
+template <bool kSharedKeys>
+__global__ void cascade_ic_kernel(const uint32_t* __restrict__ frontier,
+                                  const uint32_t* __restrict__ visited,
+                                  const int32_t* __restrict__ nbr,
+                                  const float* __restrict__ prob,
+                                  const uint32_t* __restrict__ keys,
+                                  int64_t n, int d, int chunk, int W,
+                                  int num_sims, int table_words, int lg,
+                                  uint32_t* __restrict__ new_frontier,
+                                  uint32_t* __restrict__ visited_out,
+                                  uint32_t* __restrict__ count) {
+  extern __shared__ uint32_t staged[];
+  const uint32_t* table = keys;
+  if (kSharedKeys) {
+    for (int i = threadIdx.x; i < table_words; i += blockDim.x)
+      staged[i] = keys[i];
+    __syncthreads();
+    table = staged;
+  }
+  const int group = 1 << lg;
+  const int lane = threadIdx.x & (group - 1);
+  const int64_t t =
+      ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> lg;
+  const bool in = t < n * W;
+  uint32_t hit = 0, vis = 0;
+  if (in) {
+    const int64_t v = t / W;
+    const int w = (int)(t - v * W);
+    vis = visited[t];
+    const int rem = num_sims - 32 * w;
+    const uint32_t lanes = rem >= 32 ? 0xffffffffu : (1u << rem) - 1u;
+    const uint32_t open = lanes & ~vis;
+    const int32_t* row = nbr + v * d;
+    const float* p_row = prob + v * d;
+    const uint32_t* kw = table + 2 * 32 * w;    // + 2 * (c * num_sims + b)
+    bool done = !open;
+    for (int r0 = lane; r0 < d && !done; r0 += 4 * group) {
+      int32_t u[4];
+      uint32_t f[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + i * group;
+        u[i] = r < d ? row[r] : -1;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        f[i] = u[i] >= 0 ? frontier[(int64_t)u[i] * W + w] : 0u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (u[i] < 0) { done = true; break; }
+        const uint32_t live = f[i] & open & ~hit;
+        if (!live) continue;
+        const int r = r0 + i * group;
+        const float p = p_row[r];
+        if (!(p > 0.0f)) continue;
+        const int c = r / chunk;
+        const uint64_t idx = (uint64_t)v * chunk + (r - c * chunk);
+        const uint32_t* kc = kw + 2 * c * num_sims;
+        for (uint32_t rest = live; rest; rest &= rest - 1) {
+          const int b = __ffs(rest) - 1;
+          if (coin_fires(kc[2 * b], kc[2 * b + 1], idx, p)) hit |= 1u << b;
+        }
+      }
+      if (!(open & ~hit)) done = true;
+    }
+  }
+  for (int off = group >> 1; off; off >>= 1)
+    hit |= __shfl_xor_sync(0xffffffffu, hit, off, group);
+  if (in && lane == 0) {
+    new_frontier[t] = hit;
+    visited_out[t] = vis | hit;
+  }
+  if (count) {
+    const unsigned live = __ballot_sync(0xffffffffu, in && lane == 0 && hit);
+    if ((threadIdx.x & 31) == 0 && live) atomicAdd(count, __popc(live));
+  }
+}
+
+static constexpr int kSharedKeyBytes = 48 * 1024;
+
+extern "C" int cascade_ic(const void* frontier, const void* visited,
+                          const void* nbr, const void* prob, const void* keys,
+                          void* new_frontier, void* visited_out, void* count,
+                          int64_t n, int64_t d, int64_t chunk,
+                          int64_t n_chunks, int64_t W, int64_t num_sims,
+                          int64_t lg, void* stream) {
+  if (d < 1 || d >= (int64_t(1) << 31) || chunk < 1 || W < 1 ||
+      num_sims <= 32 * (W - 1) || num_sims > 32 * W || lg < 0 || lg > 5 ||
+      n_chunks * chunk < d || n_chunks * num_sims >= (int64_t(1) << 30))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (count) {
+    cudaError_t err = cudaMemsetAsync(count, 0, sizeof(uint32_t), s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int table_words = (int)(2 * n_chunks * num_sims);
+  const int64_t blocks = ((n * W << lg) + kThreads - 1) / kThreads;
+  const size_t bytes = sizeof(uint32_t) * (size_t)table_words;
+  if (bytes <= (size_t)kSharedKeyBytes)
+    cascade_ic_kernel<true><<<(unsigned)blocks, kThreads, bytes, s>>>(
+        (const uint32_t*)frontier, (const uint32_t*)visited,
+        (const int32_t*)nbr, (const float*)prob, (const uint32_t*)keys, n,
+        (int)d, (int)chunk, (int)W, (int)num_sims, table_words, (int)lg,
+        (uint32_t*)new_frontier, (uint32_t*)visited_out, (uint32_t*)count);
+  else
+    cascade_ic_kernel<false><<<(unsigned)blocks, kThreads, 0, s>>>(
+        (const uint32_t*)frontier, (const uint32_t*)visited,
+        (const int32_t*)nbr, (const float*)prob, (const uint32_t*)keys, n,
+        (int)d, (int)chunk, (int)W, (int)num_sims, table_words, (int)lg,
+        (uint32_t*)new_frontier, (uint32_t*)visited_out, (uint32_t*)count);
+  return (int)cudaGetLastError();
+}

@@ -29,18 +29,30 @@ is the dense entry point around it (frontier and visited in, new
 frontier and visited out), equal word for word to
 ``rrr_expand_step_resident`` over ``coins.coin_plane`` and to the pull
 ``expand_step_ic_plain``.
+
+The forward cascade's IC step is ``cascade_step_ic`` (kernel
+``cascade_ic``), a pull over the reverse table that draws each live edge
+in the kernel: the coin of in-edge ``r`` of ``v`` in simulation ``s`` is
+the reference's per-lane cascade draw, element ``v * chunk + r % chunk``
+of ``uniform(fold_in(fold_in(key, r // chunk), s), (n, chunk))``, hashed
+only behind a frontier bit that can still become new.  Its keys come
+from ``cascade_keys``, its plain version is ``cascade_step_ic_plain``;
+both equal ``rrr_expand_step`` over the cascade's live-edge plane word
+for word, so the spread builds no plane.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from repro_torch.core import bitset
+from repro_torch.core import bitset, prng
 from repro_torch.core.prng import Key
 from repro_torch.kernels import coins, ops
 
 _RESIDENT_ARGS = [ops.PTR] * 7 + [ops.I64] * 4
 _STREAMED_ARGS = [ops.PTR] * 6 + [ops.I64] * 3
 _IC_ARGS = [ops.PTR, ops.I64] + [ops.PTR] * 8 + [ops.I64] * 5
+_CASCADE_ARGS = [ops.PTR] * 8 + [ops.I64] * 7
 
 
 def _finish(hit, visited):
@@ -294,3 +306,115 @@ def rrr_expand_step_ic(frontier, visited, nbr, prob_p, keys: list[Key],
         torch.empty(n * w, dtype=torch.int32, device=frontier.device),
         torch.empty(1, dtype=torch.int32, device=frontier.device))
     return new_frontier, new_visited
+
+
+def cascade_keys(key: Key, n_chunks: int, num_sims: int,
+                 device) -> torch.Tensor:
+    """The cascade's key table, int32 [n_chunks, num_sims, 2]: entry
+    ``[c, s]`` holds the two words of ``fold_in(fold_in(key, c), s)``,
+    the reference's per-lane key of chunk ``c`` (each level hashed at
+    once in numpy on the host; a CUDA ``device`` gets the table by a
+    pinned copy on the current stream)."""
+    c = np.arange(n_chunks, dtype=np.int64)
+    k0, k1 = prng.threefry2x32(key.k0, key.k1, np.zeros_like(c), c)
+    s = np.arange(num_sims, dtype=np.int64)[None]
+    y0, y1 = prng.threefry2x32(k0[:, None], k1[:, None], np.zeros_like(s), s)
+    table = torch.from_numpy(
+        np.stack([y0, y1], -1).astype(np.uint32).view(np.int32))
+    device = torch.device(device)
+    if device.type == "cuda":
+        return table.pin_memory().to(device, non_blocking=True)
+    return table.to(device)
+
+
+def cascade_step_ic_plain(frontier, visited, nbr, prob, keys, chunk: int,
+                          num_sims: int, count=None):
+    """:func:`cascade_step_ic` in plain PyTorch: per reverse slot, the
+    frontier bits that can still become new (simulation lanes not yet
+    visited at ``v``) behind a valid slot with ``p > 0``, each hashed at
+    its key and draw index through ``prng.threefry2x32``."""
+    open_ = bitset.lane_words(num_sims, frontier.device)[None] & ~visited
+    kw = keys.to(torch.int64) & prng.M32
+    hit = torch.zeros_like(frontier)
+    for r in range(nbr.shape[1]):
+        u = nbr[:, r].long()
+        ok = (u >= 0) & (prob[:, r] > 0)
+        f = torch.where(ok[:, None], frontier[u.clamp(min=0)] & open_, 0)
+        v, w = torch.nonzero(f, as_tuple=True)
+        if v.numel() == 0:
+            continue
+        live = bitset.unpack_words(f[v, w][:, None], bitset.WORD_BITS)
+        i, b = torch.nonzero(live, as_tuple=True)        # set bits of each
+        k = kw[r // chunk, bitset.WORD_BITS * w[i] + b]
+        idx = v[i] * chunk + r % chunk
+        y0, y1 = prng.threefry2x32(k[:, 0], k[:, 1], idx >> 32,
+                                   idx & prng.M32)
+        fire = prng.float_from_bits(y0 ^ y1) < prob[v[i], r]
+        word = torch.zeros(v.numel(), dtype=torch.int64, device=v.device)
+        word.index_add_(0, i[fire], torch.ones_like(b[fire]) << b[fire])
+        hit[v, w] |= bitset.to_words(word)
+    new = hit & ~visited
+    if count is not None:
+        count.fill_(int((new != 0).sum()))
+    return new, visited | new
+
+
+def step_lanes(d: int) -> int:
+    """Threads sharing an output word of ``cascade_ic`` for rows of ``d``
+    reverse slots (measured on the H100, ``chip_smoke.py`` phase
+    ``timing``): one thread a word on short rows (d = 16 and 128); on
+    rows past 512 slots a group of 16, since one lane walks a hub row at
+    ~0.15 us a slot (the rmat graph, d = 7,567: ~1.1 ms a step against
+    ~0.14 ms for 16 lanes) and a group of 16 costs the short rows ~0.065
+    ms a step, so they break even near d = 600."""
+    return 16 if d > 512 else 1
+
+
+def cascade_step_ic(frontier, visited, nbr, prob, keys, chunk: int,
+                    num_sims: int, count=None, lanes: int | None = None):
+    """One forward IC cascade step with its live edges drawn in the
+    step: frontier/visited int32 [n, W], nbr int32 [n, d] (the reverse
+    table, valid slots first, -1 after), prob float32 [n, d], keys int32
+    [n_chunks, num_sims, 2] (:func:`cascade_keys`, ``n_chunks * chunk >=
+    d``) -> (new_frontier, new_visited), equal word for word to
+    :func:`rrr_expand_step` over the live-edge plane of those keys.
+    ``count`` int32 [1], if given, receives the number of non-zero new
+    words.  ``lanes`` (1, 2, ..., 32): the threads that share an output
+    word on the card, striding over its slots; None takes
+    :func:`step_lanes` of ``d`` (a width is given only to test or time
+    the others)."""
+    n, w = frontier.shape
+    d = nbr.shape[1]
+    if lanes is None:
+        lanes = step_lanes(d)
+    n_chunks = keys.shape[0]
+    if n_chunks * chunk < d or chunk < 1:
+        raise ValueError(f"{n_chunks} chunk keys x {chunk} slots < d {d}")
+    if num_sims < 1 or bitset.num_words(num_sims) != w:
+        raise ValueError(f"{num_sims} simulations do not fill {w} words")
+    if lanes not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"lanes must be a power of two up to 32, got "
+                         f"{lanes}")
+    ops.check(frontier, "frontier", torch.int32, (n, w))
+    ops.check(visited, "visited", torch.int32, (n, w))
+    ops.check(nbr, "nbr", torch.int32, (n, d))
+    ops.check(prob, "prob", torch.float32, (n, d))
+    ops.check(keys, "keys", torch.int32, (n_chunks, num_sims, 2))
+    tensors = (frontier, visited, nbr, prob, keys)
+    if count is not None:
+        ops.check(count, "count", torch.int32, (1,))
+        tensors += (count,)
+    if not ops.on_card(*tensors):
+        return cascade_step_ic_plain(frontier, visited, nbr, prob, keys,
+                                     chunk, num_sims, count)
+    newf, viso = torch.empty_like(frontier), torch.empty_like(visited)
+    if n * w == 0 or d == 0:
+        if count is not None:
+            count.zero_()
+        return newf.zero_(), viso.copy_(visited)
+    ops.launch("cascade_ic", "rrr_expand", "cascade_ic", _CASCADE_ARGS,
+               frontier.data_ptr(), visited.data_ptr(), nbr.data_ptr(),
+               prob.data_ptr(), keys.data_ptr(), newf.data_ptr(),
+               viso.data_ptr(), None if count is None else count.data_ptr(),
+               n, d, chunk, n_chunks, w, num_sims, lanes.bit_length() - 1)
+    return newf, viso

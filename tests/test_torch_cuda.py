@@ -9,7 +9,8 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from repro_torch.core import greediris, imm, maxcover, prng, rrr  # noqa: E402
+from repro_torch.core import (cascade, greediris, imm, maxcover,  # noqa: E402
+                              prng, rrr)
 from repro_torch.graphs import csr, generators  # noqa: E402
 from repro_torch.kernels import (bucket, bucket_insert, coins,  # noqa: E402
                                  coverage, greedy_pick, lazy_greedy, ops,
@@ -161,6 +162,65 @@ def test_push_ic_hubs(dev, graph):
     kernel, plain = _push_both(t, f, vis, keys)
     _equal(kernel, plain)
     assert int((kernel[0] != 0).sum()) > 0
+
+
+def _cascade_inputs(gen, g, num_sims, coin_chunk, dev):
+    """A cascade step on graph ``g``: its reverse table, a frontier with
+    every word non-zero (pad lanes too), a sparse visited plane and the
+    key table."""
+    nbr, prob, _ = csr.padded_adjacency(g)
+    chunk, n_chunks, _ = rrr._coin_chunks(nbr.shape[1], coin_chunk)
+    n, w = g.num_vertices, (num_sims + 31) // 32
+    f = _words(gen, n, w, dev=dev) | 1
+    vis = _words(gen, n, w, dev=dev) & _words(gen, n, w, dev=dev)
+    keys = rrr_expand.cascade_keys(prng.key(9), n_chunks, num_sims, dev)
+    return nbr, prob, chunk, f, vis, keys
+
+
+@pytest.mark.parametrize("graph,num_sims,coin_chunk", [
+    ("er", 64, 32), ("er", 100, 3), ("er", 1, 32), ("reverse star", 64, 32),
+    ("reverse star", 33, 7)])
+def test_cascade_ic(dev, graph, num_sims, coin_chunk):
+    """cascade_ic against its plain version for every lane group width,
+    with its count of new words: dense frontiers, pad lanes, several
+    chunks, and a hub row of 1,999 slots."""
+    gen = torch.Generator().manual_seed(num_sims)
+    if graph == "er":
+        g = generators.erdos_renyi(3000, 6.0, seed=4, device=dev)
+    else:
+        g = csr.from_edge_list(np.arange(1, 2000), np.zeros(1999, np.int64),
+                               2000, seed=2, device=dev)
+    nbr, prob, chunk, f, vis, keys = _cascade_inputs(gen, g, num_sims,
+                                                     coin_chunk, dev)
+    want = rrr_expand.cascade_step_ic_plain(f, vis, nbr, prob, keys, chunk,
+                                            num_sims)
+    assert int((want[0] != 0).sum()) > 0
+    for lanes in (1, 2, 4, 8, 16, 32):
+        count = torch.full((1,), 7, dtype=torch.int32, device=dev)
+        got = rrr_expand.cascade_step_ic(f, vis, nbr, prob, keys, chunk,
+                                         num_sims, count=count, lanes=lanes)
+        _equal(got, want)
+        assert int(count) == int((want[0] != 0).sum())
+
+
+def test_cascade_ic_route_on_card(dev):
+    """The IC kernel route launches cascade_ic and no plane kernel, and
+    its words equal the plane routes' on the card and the CPU's."""
+    seeds = torch.tensor([0, 5, 77, -1, 4000])
+    words = {}
+    for device in (dev, "cpu"):
+        g = generators.erdos_renyi(3000, 4.0, seed=5, device=device)
+        for gather in ("auto", "resident", "streamed"):
+            ops.reset_launches()
+            words[(str(device), gather)] = cascade.simulate_cascades(
+                g, seeds, prng.key(2), gather=gather).cpu()
+            if device == dev and gather == "auto":
+                assert ops.LAUNCHES["cascade_ic"] > 0
+                assert not ops.LAUNCHES["rrr_expand_streamed"]
+                assert not ops.LAUNCHES["rrr_expand_resident"]
+    first = words[(str(dev), "auto")]
+    assert int((first != 0).sum()) > 5
+    assert all(torch.equal(first, w) for w in words.values())
 
 
 def test_greedy_and_bucket(dev):
@@ -368,6 +428,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="several devices"):
         rrr_expand.rrr_expand_step_ic(f, f, nbr.cpu(), prob,
                                       [prng.key(1)], 2)
+    keys = rrr_expand.cascade_keys(prng.key(1), 1, 64, dev)
+    with pytest.raises(ValueError, match="lanes"):
+        rrr_expand.cascade_step_ic(f, f, nbr, prob[:, :1].contiguous(),
+                                   keys, 1, 64, lanes=3)
+    with pytest.raises(ValueError, match="several devices"):
+        rrr_expand.cascade_step_ic(f, f, nbr, prob[:, :1].contiguous(),
+                                   keys.cpu(), 1, 64)
     words = torch.zeros(1, dtype=torch.int32, device=dev)
     listed = torch.empty(8, dtype=torch.int32, device=dev)
     count = torch.zeros(1, dtype=torch.int32, device=dev)

@@ -75,6 +75,10 @@ def test_cpu_tensors_take_plain_versions_without_launches():
     coins.coin_plane([prng.key(1)], torch.full((n, 4), 0.5), frontier, 4)
     rrr_expand.rrr_expand_step_ic(frontier, visited, nbr,
                                   torch.full((n, 4), 0.5), [prng.key(1)], 4)
+    rrr_expand.cascade_step_ic(
+        frontier, visited, nbr, torch.full((n, df), 0.5),
+        rrr_expand.cascade_keys(prng.key(1), 1, 64, "cpu"), df, 64,
+        count=torch.zeros(1, dtype=torch.int32))
     greedy_pick.greedy_maxcover_resident(w(2, n, width), 3)
     bucket_insert.bucket_insert_chunk(
         torch.arange(4, dtype=torch.int32), w(4, width), w(3, width),
