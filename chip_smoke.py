@@ -20,7 +20,9 @@ the list of the rows' non-zero words; every spread steps through
 cascade_ic, which draws the live edges in the step and builds no
 live-edge plane), drives IMM and the lazy round on a supercritical
 configuration, whose nearly dense rows take the dense layout, then times
-every kernel at the shapes those runs gave it, splits the spread into
+every kernel at the shapes those runs gave it (the receivers also at the
+supercritical shapes, with the passes, accepts and rows read of their
+grouped settlement beside each time), splits the spread into
 its parts (phase ``spread_split``) and ranks the kernels by the time each
 loses over those runs (phase ``order``).  Prints JSON lines; the line before the last
 lists the kernels, the last line is the device summary.  Exits non-zero
@@ -50,7 +52,10 @@ from repro_torch.kernels import (build, bucket, bucket_insert,  # noqa: E402
                                  ops, rrr_expand, topk_gain)
 from repro_torch.launch import im_driver, serve  # noqa: E402
 from tools.time_sampler import SamplerClock  # noqa: E402
+from tools.time_receiver import (imm_chunk, regime_inputs,  # noqa: E402
+                                 round_stream, summary)
 from tools.time_spread import split_spread  # noqa: E402
+from tools.timing import median_ms  # noqa: E402
 
 # The slice's command: SNAP com-DBLP scale (317k vertices, 1.05M edges),
 # edge probabilities U[0, 0.1] (paper §4.1), k=100 (B=63 buckets).
@@ -112,6 +117,10 @@ ROUND_RUN = {"lazy_greedy_compact": "round lazy",
 # layout rule, greedy_pick.compact_pays), and the run that launches each.
 DENSE_RUN = {"greedy_pick": "imm supercritical",
              "lazy_greedy": "round supercritical"}
+# The receivers and the supercritical run whose launches count for each
+# at the supercritical shape (phase `order`).
+RECEIVER_RUN = {"bucket_insert": "imm supercritical",
+                "bucket_insert_stream": "round supercritical"}
 # Rows 3 and 6 of the kernel table before the compact layout, the dense
 # kernels' last timing at the full-size shapes (NVIDIA H100 80GB HBM3,
 # 700.00 W; PERF.md, the kernel table).
@@ -156,8 +165,6 @@ GAIN_OPS_PER_WORD = 1          # and-not: a zero gain word needs no more
 GAIN_OPS_PER_NONZERO_WORD = 2  # popcount, add
 OPS_PER_COIN = 80              # threefry: 20 x (add, rotate, xor) + keys
                                # + float conversion and compare
-SPIN_CYCLES = 2_000_000        # ~1 ms at 1.98 GHz: longer than the host
-                               # takes to queue one kernel wrapper call
 
 SOURCES = {
     "rrr_expand_resident": (
@@ -245,32 +252,6 @@ def require_equal(name, got, want, **shape):
     if err:
         raise AssertionError(f"{name}: kernel != plain version ({shape})")
     return err
-
-
-def median_ms(fn, reps: int, setup=None, hide_host=False) -> float:
-    """Median CUDA-event ms of ``fn``; ``setup`` (untimed) runs before
-    each call, to restore what an in-place kernel changed.  With
-    ``hide_host`` a spin kernel queued before the start event keeps the
-    card busy while the host queues ``fn``, so the span holds its device
-    work alone and not the host's time to reach the launch (which a
-    kernel of a few microseconds would otherwise be timed by)."""
-    if setup:
-        setup()
-    fn()                                            # warm-up
-    times = []
-    for _ in range(reps):
-        if setup:
-            setup()
-        if hide_host:
-            torch.cuda._sleep(SPIN_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
-    return float(np.median(times))
 
 
 def once(fn):
@@ -367,6 +348,8 @@ def parity_small(dev) -> dict:
         "bucket_insert", bucket_insert.bucket_insert_chunk(*args),
         bucket_insert.bucket_insert_plain(*args), B=b, C=c, W=w_b, k=k)
     errs.update(parity_slice2(gen, dev))
+    for name, err in parity_receivers(dev).items():
+        errs[name] = max(errs[name], err)
     errs.update(parity_slice3(gen, dev))
     for name, err in parity_layouts(gen, dev).items():
         errs[name] = max(errs.get(name, 0), err)
@@ -754,6 +737,45 @@ def parity_slice2(gen, dev) -> dict:
     return errs
 
 
+def parity_receivers(dev) -> dict:
+    """The receivers' two regimes of the full-size runs
+    (``tools/time_receiver.py``'s :func:`regime_inputs`: 800 candidates
+    through 63 buckets, k = 100; filling, every bucket full at candidate
+    99 with 700 to go; rejecting, one accept a bucket) at the runs'
+    widths (1,024 and 4,096 words: the round's rows are far wider than
+    the 6 a stream chunk stages at once) and at an odd one, as one chunk
+    and as a stream of 8 chunks: the launch against the scan, its
+    figures against the grouped plain walk."""
+    errs = dict.fromkeys(("bucket_insert", "bucket_insert_stream"), 0)
+    for regime in ("filling", "rejecting"):
+        for w in (1024, 4096, 1023):
+            ids, rows, *st = regime_inputs(regime, 800, 63, w, 100, dev)
+            for name in errs:
+                a = ((ids.reshape(8, -1), rows.reshape(8, -1, rows.shape[1]))
+                     if name == "bucket_insert_stream" else (ids, rows))
+                want = (bucket_insert.bucket_insert_stream_plain
+                        if name == "bucket_insert_stream"
+                        else bucket_insert.bucket_insert_plain)(*a, *st)
+                *got, stats = bucket_insert.bucket_insert_with_stats(*a, *st)
+                errs[name] = max(errs[name], require_equal(
+                    name, got, want, regime=regime, W=w,
+                    group=int(stats[0, 4]), cluster=int(stats[0, 5])))
+                # the launch's walk, figure for figure
+                walk = bucket_insert.bucket_insert_grouped_plain(
+                    *a, *st, group=bucket_insert.GROUP)
+                if not torch.equal(stats[:, :4].cpu(), walk[3]):
+                    raise AssertionError(f"{name}: the launch's figures "
+                                         f"differ from the walk's ({regime})")
+                fig = summary(a[0], a[1], streaming.StreamState(*st),
+                              got[1], stats)
+                if (regime == "filling"
+                        and fig["last_filled_at"] != st[2].shape[1] - 1):
+                    raise AssertionError(f"{name}: a bucket did not fill at "
+                                         "candidate k - 1")
+                emit(phase="parity", kernel=name, regime=regime, W=w, **fig)
+    return errs
+
+
 def parity_slice3(gen, dev) -> dict:
     """bucket_gains at the receiver's shape (B = 63, W = 4096) and at odd
     shapes and unaligned starts; the three query-axis kernels over one
@@ -1117,6 +1139,10 @@ def supercritical_runs():
         check_ic_sampling(run, counts)
         check_ic_spread(run, counts, planes.count)
         check_layout(run, counts, "dense")
+        missing = [k for k, r in RECEIVER_RUN.items()
+                   if r == run and not counts[k]]
+        if missing:
+            raise AssertionError(f"{run}: never launched {missing}")
         if run == "imm supercritical":
             dense_seeds = seeds
     return launches, dense_seeds
@@ -1293,12 +1319,13 @@ def bound(bytes_, ops_=0.0, words=0, nonzero=0):
 
 
 def timed(name, kernel_fn, plain_fn, reps, plain_reps, bytes_, ops_=0.0,
-          words=0, nonzero=0):
+          words=0, nonzero=0, hide_host=False):
     """Kernel vs plain on the same main-path inputs: equality, medians,
     and the bound (:func:`bound`).  ``bytes_``, ``ops_``, ``words`` and
     ``nonzero`` may be callables, read once the plain version has run.
     ``plain_reps=0`` times the parity call of a slow plain version,
-    once."""
+    once; ``hide_host`` times the kernel's device span alone
+    (:func:`median_ms`)."""
     got = kernel_fn()
     if plain_reps:
         err = max_err(got, plain_fn())
@@ -1314,7 +1341,7 @@ def timed(name, kernel_fn, plain_fn, reps, plain_reps, bytes_, ops_=0.0,
     bound_ms, bound_by, ops_ = bound(bytes_, ops_, words, nonzero)
     row = dict(name=name, route="cuda", source=SOURCES[name][0],
                replaces=SOURCES[name][1], max_abs_err=err,
-               ms=median_ms(kernel_fn, reps),
+               ms=median_ms(kernel_fn, reps, hide_host=hide_host),
                plain_ms=(median_ms(plain_fn, plain_reps) if plain_reps
                          else plain_once),
                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
@@ -1508,11 +1535,52 @@ def time_dense_solve(name, rows, k, ex) -> dict:
     return r
 
 
+def time_receiver(name, ids, rows, st, label) -> dict:
+    """Row 4 (``bucket_insert``, ids [C]) or row 5
+    (``bucket_insert_stream``, ids [R, C]) at one receiver input: the
+    wrapper's launch against the scan, its device time (``ms``, the
+    host's queueing hidden) and the wrapper's (``wrapper_ms``, the
+    host's queueing in the span), and the launch's figures held against
+    the grouped walk at its group (``tools/time_receiver.py``'s
+    :func:`summary`: the passes on the critical path beside their
+    ceiling, the accepts per bucket, the candidate at which the last
+    bucket filled, the bytes read and staged).  Bound: the stream read once and the bucket state
+    read and written once (bytes); the passes stand beside it."""
+    stream = ids.dim() == 2
+    wrapper, plain = (
+        (bucket_insert.bucket_insert_stream,
+         bucket_insert.bucket_insert_stream_plain) if stream
+        else (bucket_insert.bucket_insert_chunk,
+              bucket_insert.bucket_insert_plain))
+    b, w = st.covers.shape
+    k = st.seeds.shape[1]
+    row = timed(name, lambda: wrapper(ids, rows, *st),
+                lambda: plain(ids, rows, *st), 10, 3,
+                bytes_=4 * (ids.numel() * (w + 1) + 2 * b * w + 2 * b
+                            + 2 * b * k + b), hide_host=True)
+    *got, stats = bucket_insert.bucket_insert_with_stats(ids, rows, *st)
+    *walk, walk_stats = bucket_insert.bucket_insert_grouped_plain(
+        ids, rows, *st, group=bucket_insert.GROUP)
+    err = max_err(got, walk)
+    if err or not torch.equal(stats[:, :4].cpu(), walk_stats):
+        raise AssertionError(f"{name} ({label}): the launch's walk differs "
+                             "from the grouped plain walk")
+    figures = summary(ids, rows, st, got[1], stats)
+    row.update(figures, input=label, candidates=ids.numel(), W=w, B=b,
+               max_abs_err=max(row["max_abs_err"], err),
+               wrapper_ms=median_ms(lambda: wrapper(ids, rows, *st), 10))
+    emit(phase="receiver", name=name, input=label, ms=row["ms"],
+         wrapper_ms=row["wrapper_ms"], bound_ms=row["bound_ms"], **figures)
+    return row
+
+
 def supercritical_timings(dev) -> dict:
-    """Rows 3 and 6 at the shapes the supercritical runs give them: the
-    IMM selector's local rows of a 32,768-sample draw (as
-    :func:`main_path_timings`) for ``greedy_pick``, the round's shuffled
-    rows for ``lazy_greedy``."""
+    """Rows 3, 4, 5 and 6 at the shapes the supercritical runs give them:
+    the IMM selector's local rows of a 32,768-sample draw (as
+    :func:`main_path_timings`) for ``greedy_pick`` and, from its local
+    solves, the chunk for ``bucket_insert``; the round's shuffled rows
+    for ``lazy_greedy`` and, from its lazy senders, the stream for
+    ``bucket_insert_stream``."""
     args = im_driver.parser().parse_args(DENSE_FULL)
     n, m, k = args.n, args.machines, args.k
     g = generators.erdos_renyi(n, args.avg_deg, args.seed, device=dev)
@@ -1527,14 +1595,20 @@ def supercritical_timings(dev) -> dict:
     local_rows = incidence[assign].contiguous()
     del incidence
     ex = greedy_pick.excluded_ids(None, m, dev)
-    out = {"greedy_pick": time_dense_solve("greedy_pick", local_rows, k, ex)}
+    out = {"greedy_pick": time_dense_solve("greedy_pick", local_rows, k, ex),
+           "bucket_insert": time_receiver(
+               "bucket_insert", *imm_chunk(local_rows, assign, dev),
+               "imm supercritical")}
     del local_rows
     rargs = im_driver.parser().parse_args(DENSE_ROUND)
     fn, _, _ = greediris.build_round(
         m=rargs.machines, n=n, theta=rargs.theta, k=k, max_degree=0,
         model=rargs.model, sampler="kernel", fwd=fwd)
-    x_s = fn.sample_shuffle(nbr, prob, wt, prng.key(rargs.seed))[0]
+    x_s, perm = fn.sample_shuffle(nbr, prob, wt, prng.key(rargs.seed))
     out["lazy_greedy"] = time_dense_solve("lazy_greedy", x_s, k, ex)
+    out["bucket_insert_stream"] = time_receiver(
+        "bucket_insert_stream", *round_stream(x_s, perm, dev),
+        "round supercritical")
     return out
 
 
@@ -1868,22 +1942,9 @@ def main_path_timings(dev, final_seeds) -> dict:
     del incidence
     ex = greedy_pick.excluded_ids(None, m, dev)
     rows_out.update(time_machine_solve("greedy_pick", local_rows, k, ex))
-    local = maxcover.greedy_maxcover(local_rows, k, solver="resident")
+    rows_out["bucket_insert"] = time_receiver(
+        "bucket_insert", *imm_chunk(local_rows, assign, dev), "imm")
     del local_rows
-    ids = torch.where(local.seeds >= 0, torch.gather(
-        assign, 1, local.seeds.clamp(min=0).long()).to(torch.int32), -1
-    ).reshape(-1).contiguous()
-    sent = local.rows.reshape(-1, W).contiguous()
-    st = streaming.init_state(k, args.delta, float(local.gains[:, 0].max()),
-                              W, device=dev)
-    b = st.covers.shape[0]
-    rows_out["bucket_insert"] = timed(
-        "bucket_insert",
-        lambda: bucket_insert.bucket_insert_chunk(ids, sent, *st),
-        lambda: bucket_insert.bucket_insert_plain(ids, sent, *st), 10, 3,
-        bytes_=4 * (ids.numel() * (W + 1) + 2 * b * W + 2 * b
-                    + 2 * b * k + b))
-    del sent, local
 
     rows_out["cascade_ic"] = cascade_timings(dev, "imm", FULL, final_seeds)
     sims = args.eval_sims
@@ -1927,7 +1988,6 @@ def round_timings(dev) -> dict:
     ex = greedy_pick.excluded_ids(None, m, dev)
     rows_out = {}
 
-    sol = lazy_greedy.greedy_maxcover_lazy(x_s, k, ex)
     solve = time_machine_solve("lazy_greedy", x_s, k, ex)
     rows_out["compact_rows round"] = solve.pop("compact_rows")
     rows_out.update(solve)
@@ -1947,24 +2007,9 @@ def round_timings(dev) -> dict:
         lambda: topk_gain.best_gain_index_plain(x_s, cov0, none), 10, 3,
         bytes_=4 * (x_s.numel() + m * w + 2 * m) + none.numel(),
         words=x_s.numel(), nonzero=int((x_s != 0).sum()))
+    rows_out["bucket_insert_stream"] = time_receiver(
+        "bucket_insert_stream", *round_stream(x_s, perm, dev), "round")
     del x_s
-
-    seeds, sel_rows, _, gains = sol[:4]
-    ids = torch.where(seeds >= 0, perm.reshape(m, per).gather(
-        1, seeds.clamp(min=0).long()), -1).to(torch.int32).reshape(-1)
-    st = streaming.init_state(k, args.delta, float(gains[:, 0].max()), w,
-                              device=dev)
-    cs = bucket_insert.auto_chunk_size(w, ids.numel(), dev)
-    ids_ch, rows_ch = streaming.chunk_stream(ids, sel_rows.reshape(-1, w), cs)
-    b = st.covers.shape[0]
-    rows_out["bucket_insert_stream"] = timed(
-        "bucket_insert_stream",
-        lambda: bucket_insert.bucket_insert_stream(ids_ch, rows_ch, *st),
-        lambda: bucket_insert.bucket_insert_stream_plain(ids_ch, rows_ch, *st),
-        10, 3, bytes_=4 * (ids_ch.numel() * (w + 1) + 2 * b * w + 2 * b
-                           + 2 * b * k + b))
-    rows_out["bucket_insert_stream"].update(R=ids_ch.shape[0], C=cs, B=b)
-    del sol, sel_rows, rows_ch
 
     rf, _ = greediris.build_ripples_round(
         m=m, n=n, theta=args.theta, k=k, model=args.model, sampler="kernel",
@@ -2204,6 +2249,9 @@ def main(argv=None) -> int:
     # the dense sweeps at the shapes their runs give them; the same
     # sweeps forced on the subcritical runs' rows kept beside
     for name, row in supercritical_timings(dev).items():
+        if name in RECEIVER_RUN:   # the receivers keep their full-size row
+            rows[name].setdefault("shapes", {})["supercritical"] = row
+            continue
         row["shapes"] = {"forced on the subcritical "
                          + ("round's" if name == "lazy_greedy" else "IMM's")
                          + " rows": rows[name]}
@@ -2237,19 +2285,29 @@ def main(argv=None) -> int:
         else:
             row["launches"] = 0
             row["launches_from"] = "on no path of the reference"
+        if name in RECEIVER_RUN:
+            row["launches_supercritical"] = full[RECEIVER_RUN[name]][name]
+        launched = {run: c[name] for run, c in full.items() if c.get(name)}
+        if launched and not row["launches"]:
+            raise AssertionError(f"{name}: the full-size runs launched it "
+                                 f"({launched}) but its row reports none")
         kernels.append(row)
         # Redesign order: the time each kernel loses over the full-size
         # runs, sum over runs of launches x (ms - bound_ms) at the run's
         # shape where the kernel was timed at several.
-        # A supercritical run counts only for its dense sweep, the one
-        # kernel timed at that run's shape.
+        # A supercritical run counts for the kernels timed at its shape:
+        # its dense sweep and its receiver.
         per_run = {run: full[run][name] for run in FULL_RUNS
                    if full[run][name]}
         if name in DENSE_RUN:
             per_run[DENSE_RUN[name]] = full[DENSE_RUN[name]][name]
+        if name in RECEIVER_RUN and full[RECEIVER_RUN[name]][name]:
+            per_run[RECEIVER_RUN[name]] = full[RECEIVER_RUN[name]][name]
         lost = 0.0
         for run, count in per_run.items():
             at = (row if run == DENSE_RUN.get(name) else
+                  row["shapes"]["supercritical"]
+                  if run == RECEIVER_RUN.get(name) else
                   row.get("shapes", {}).get(FULL_RUNS[run], row))
             lost += count * (at["ms"] - at["bound_ms"])
         order.append(dict(name=name, lost_ms=lost, launches=per_run,

@@ -9,13 +9,14 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from repro_torch.core import (cascade, greediris, imm, maxcover,  # noqa: E402
-                              prng, rrr)
+from repro_torch.core import (bitset, cascade, greediris, imm,  # noqa: E402
+                              maxcover, prng, rrr)
 from repro_torch.graphs import csr, generators  # noqa: E402
 from repro_torch.kernels import (bucket, bucket_insert, coins,  # noqa: E402
                                  coverage, greedy_pick, lazy_greedy, ops,
                                  rrr_expand, topk_gain)
 from repro_torch.launch import serve  # noqa: E402
+from tools import time_receiver  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -364,6 +365,73 @@ def test_bucket_insert_stream(dev, r, c, w):
     _equal(bucket_insert.bucket_insert_stream(*args),
            bucket_insert.bucket_insert_stream_plain(*args))
     assert 1 <= bucket_insert.stream_chunk_capacity(4096, dev) < 8
+
+
+def _check_settled(args):
+    """The kernel equals the scan and the grouped walk, and writes the
+    walk's figures; returns its stats."""
+    *got, stats = bucket_insert.bucket_insert_with_stats(*args)
+    plain = (bucket_insert.bucket_insert_stream_plain if args[0].dim() == 2
+             else bucket_insert.bucket_insert_plain)
+    _equal(got, plain(*args))
+    g = bucket_insert.GROUP
+    assert (stats[:, 4] == g).all()
+    *walk, walk_stats = bucket_insert.bucket_insert_grouped_plain(*args, g)
+    _equal(got, walk)
+    assert torch.equal(stats[:, :4].cpu(), walk_stats)
+    assert (stats[:, 5] == stats[0, 5]).all()
+    n = args[0].numel()
+    assert (stats[:, 0] <= -(-n // g) + stats[:, 1]).all()
+    return stats.cpu()
+
+
+@pytest.mark.parametrize("regime", ["filling", "rejecting"])
+@pytest.mark.parametrize("w", [1024, 4096, 1023, 33])
+def test_bucket_insert_regimes(dev, regime, w):
+    """The IMM chunk and the round's stream of 800 candidates through 63
+    buckets, k = 100, at full and odd W: filling, every bucket is full at
+    candidate 99 and reads no row past its group; rejecting, one
+    accept a bucket and a pass a group plus one."""
+    args = time_receiver.regime_inputs(regime, 800, 63, w, 100, dev)
+    for stream in (False, True):
+        a = ((args[0].reshape(8, 100), args[1].reshape(8, 100, w), *args[2:])
+             if stream else args)
+        st = _check_settled(a)
+        g = int(st[0, 4])
+        if regime == "filling":
+            assert st[:, 2].tolist() == [99] * 63
+            assert (st[:, 3] <= (100 // g + 1) * g).all()
+        else:
+            assert (st[:, 0] == -(-800 // g) + (g > 1)).all()
+
+
+@pytest.mark.parametrize("w", [36, 37, 4096, 1023, 1])
+def test_bucket_insert_edge_cases(dev, w):
+    """One block a bucket (W = 36, 37, 1) and a cluster of two that split
+    its words (W = 4,096 and 1,023), 16-byte and 4-byte words: random
+    ids with pads, some buckets full at the start, a row twice in a
+    group, a gain equal to a threshold; streams whose chunks straddle
+    the groups."""
+    gen = torch.Generator().manual_seed(w)
+    b, k, c = 9, 5, 150
+    ids = torch.randint(-1, 60, (c,), generator=gen, dtype=torch.int32)
+    rows = _words(gen, c, w, dev=dev) & _words(gen, c, w, dev=dev)
+    rows &= _words(gen, c, w, dev=dev)
+    rows[5] = rows[3]
+    ids[0] = 7
+    covers = _words(gen, b, w, dev=dev) & _words(gen, b, w, dev=dev)
+    covers[1] = 0
+    thr = (torch.rand(b, generator=gen) * 8 * w).to(dev)
+    thr[1] = float(bitset.coverage_size(rows[0]))   # candidate 0's gain
+    args = (ids.to(dev), rows, covers,
+            torch.tensor([0, 0, 1, 5, 2, 0, 5, 3, 4], dtype=torch.int32,
+                         device=dev),
+            torch.full((b, k), -1, dtype=torch.int32, device=dev), thr)
+    st = _check_settled(args)
+    assert (st[[3, 6], 0] == 0).all()                   # full at the start
+    assert (st[:, 5] == (2 if w in (4096, 1023) else 1)).all()
+    _check_settled((args[0].reshape(10, 15), rows.reshape(10, 15, w),
+                    *args[2:]))
 
 
 def test_round_paths_agree_on_card(dev):
