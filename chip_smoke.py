@@ -18,7 +18,11 @@ over the frontier's live words that draws the coins in the step and
 builds no coin plane, and solves its machine axis on the compact layout,
 the list of the rows' non-zero words; every spread steps through
 cascade_ic, which draws the live edges in the step and builds no
-live-edge plane), drives IMM and the lazy round on a supercritical
+live-edge plane), drives the same IMM under LT (sampling through
+rrr_expand_lt and spreading through cascade_lt, which draw each live
+in-edge in the step and build no selection or live-edge plane; its
+results held to those recorded before these kernels), drives IMM and
+the lazy round on a supercritical
 configuration, whose nearly dense rows take the dense layout, then times
 every kernel at the shapes those runs gave it (the receivers also at the
 supercritical shapes, with the passes, accepts and rows read of their
@@ -31,6 +35,8 @@ without a CUDA device or on any failure.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import hashlib
+import inspect
 import json
 import os
 import subprocess
@@ -81,6 +87,17 @@ SERVE = ["--graph", "er", "--n", "262144", "--avg-deg", "4", "--model", "IC",
          "--slab", "4096", "--queries", "32", "--batch", "8", "--k-max",
          "100", "--refresh-every", "1", "--check"]
 SERVE_PEAK_LIMIT = 40e9
+# The slice's IMM under the paper's other diffusion model, Linear
+# Threshold: the same graph, k, m and theta cut.
+LT_FULL = FULL + ["--model", "LT"]
+# Its results as first recorded on the card, through the selection and
+# live-edge planes (PERF.md §6): the kernel route must give them bit for
+# bit (seeds by the sha256 of their JSON list).
+LT_RECORDED = dict(theta=32768, rounds=1, coverage_fraction=0.058837890625,
+                   spread=16418.515625, bfs_steps=32,
+                   seeds_sha256="f49486f38e8a4694")
+# The LT run's kernels: its sampler's push and its spread's step.
+LT_RUN = ("rrr_expand_lt", "cascade_lt")
 
 
 def at_scale(argv, **flags):
@@ -129,25 +146,25 @@ SERVE_RUN = {"greedy_pick_batch": "serve resident",
              "lazy_greedy_batch": "serve lazy"}
 # Kernels that no full-size run launches, with the run of phase `paths`
 # (n = 3000) that does: the coin plane of IC --gather streamed, the
-# resident expansion of LT sampling and of the cascade's resident
-# gather, the streamed expansion of the cascade's streamed gather (and
-# of LT's), and the fused serving path.
+# resident expansion of the cascade's resident gather, the streamed
+# expansion of the cascade's streamed gather (and of LT's --gather
+# streamed sampling), and the fused serving path.
 SMALL_RUN = {
     "rrr_expand_streamed": ("IC kernel-gpu",
                             "IMM at n = 3000, IC, the spread over the "
                             "cascade's --gather streamed (phase paths)"),
     "coin_pack": ("IC kernel-gpu-streamed",
                   "IMM at n = 3000, IC, --gather streamed (phase paths)"),
-    "rrr_expand_resident": ("LT kernel-gpu",
-                            "IMM at n = 3000, LT sampling and the cascade's "
-                            "resident gather (phase paths)"),
+    "rrr_expand_resident": ("IC kernel-gpu",
+                            "IMM at n = 3000, the spread over the cascade's "
+                            "--gather resident (phase paths)"),
     "topk_gain_batch": ("serve fused",
                         "serve --check at n = 3000 (phase paths)")}
 # The full-size runs, and the shape of rrr_expand_ic's timing each takes
 # its time from (phase `order`).
-FULL_RUNS = {"imm": "imm", "round lazy": "round", "round fused": "round",
-             "ripples": "round", "serve resident": "serve",
-             "serve lazy": "serve"}
+FULL_RUNS = {"imm": "imm", "lt": "lt", "round lazy": "round",
+             "round fused": "round", "ripples": "round",
+             "serve resident": "serve", "serve lazy": "serve"}
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak bandwidth
 # INT32 ALU peak: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock (NVIDIA
@@ -181,6 +198,14 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/rrr_expand.cu",
         "src/repro/kernels/rrr_expand.py:271 (its cascade role) fused with "
         "the XLA live-edge draw at src/repro/core/cascade.py:231"),
+    "rrr_expand_lt": (
+        "src/repro_torch/kernels/csrc/rrr_expand.cu",
+        "src/repro/kernels/rrr_expand.py:351 (its LT role) fused with the "
+        "XLA selection draw at src/repro/core/rrr.py:326"),
+    "cascade_lt": (
+        "src/repro_torch/kernels/csrc/rrr_expand.cu",
+        "src/repro/kernels/rrr_expand.py:271 (its LT cascade role) fused "
+        "with the XLA one-hot draw at src/repro/core/cascade.py:243"),
     "coin_pack": (
         "src/repro_torch/kernels/csrc/coin_pack.cu",
         "src/repro/core/rrr.py:309 (XLA draw, no TPU kernel)"),
@@ -233,6 +258,23 @@ SOURCES = {
 
 def emit(**fields):
     print(json.dumps(fields), flush=True)
+
+
+# Wall seconds of each part of the run, in order (phase `done`).
+LAPS = []
+
+
+def lap(label: str):
+    """End the part ``label`` of the run at the current wall time."""
+    LAPS.append((label, time.perf_counter()))
+
+
+def lap_seconds(t_start: float) -> dict:
+    out, last = {}, t_start
+    for label, t in LAPS:
+        out[label] = out.get(label, 0.0) + t - last
+        last = t
+    return out
 
 
 def max_err(got, want) -> int:
@@ -320,6 +362,11 @@ def parity_small(dev) -> dict:
     errs["coin_pack"] = err
     errs["rrr_expand_ic"] = parity_ic(gen, dev)
     errs["cascade_ic"] = parity_cascade(gen, dev)
+    lap("parity")
+    errs["rrr_expand_lt"] = parity_lt_push(gen, dev)
+    lap("parity rrr_expand_lt")
+    errs["cascade_lt"] = parity_lt_cascade(gen, dev)
+    lap("parity cascade_lt")
 
     err = 0
     for m, n_g, w_g, k, ex in ((3, 1001, 5, 12, [[1, -1, 5000], [0, 2, 3],
@@ -354,6 +401,7 @@ def parity_small(dev) -> dict:
     for name, err in parity_layouts(gen, dev).items():
         errs[name] = max(errs.get(name, 0), err)
     torch.cuda.synchronize()
+    lap("parity")
     return errs
 
 
@@ -501,13 +549,13 @@ def push_pair(t, frontier, visited, keys):
     return outs
 
 
-def check_push(kernel, label):
+def check_push(kernel, label, name="rrr_expand_ic"):
     """The push left the frontier it read zero and listed each word of
     the next plane once."""
     if bool(kernel[3].any()):
-        raise AssertionError(f"rrr_expand_ic: frontier not cleared ({label})")
+        raise AssertionError(f"{name}: frontier not cleared ({label})")
     if kernel[2].unique().numel() != kernel[2].numel():
-        raise AssertionError(f"rrr_expand_ic: a word listed twice ({label})")
+        raise AssertionError(f"{name}: a word listed twice ({label})")
 
 
 def parity_ic(gen, dev) -> int:
@@ -563,13 +611,15 @@ CASCADE_LANES = (1, 2, 4, 8, 16, 32)
 
 
 def cascade_step(g, num_sims, coin_chunk, dev, key, *, seeds=None,
-                 gen=None):
-    """One cascade_ic step's inputs on graph ``g``: its reverse table,
-    the chunk width, the key table, and a frontier and visited plane —
-    the first step from ``seeds`` (frontier = visited = the seeds' lane
-    words, as ``cascade.simulate_cascades`` starts), or, with ``gen``,
-    every word non-zero (pad lanes too) over a sparse visited plane."""
-    nbr, prob, _ = csr.padded_adjacency(g)
+                 gen=None, model="IC"):
+    """One cascade step's inputs on graph ``g`` (``model`` IC: for
+    cascade_ic, LT: for cascade_lt): its reverse table, the chunk width
+    (IC) or the cumulative weights and row codes (LT), the key table,
+    and a frontier and visited plane — the first step from ``seeds``
+    (frontier = visited = the seeds' lane words, as
+    ``cascade.simulate_cascades`` starts), or, with ``gen``, every word
+    non-zero (pad lanes too) over a sparse visited plane."""
+    nbr, prob, wt = csr.padded_adjacency(g)
     chunk, n_chunks, _ = rrr._coin_chunks(nbr.shape[1], coin_chunk)
     n = g.num_vertices
     if seeds is not None:
@@ -581,37 +631,57 @@ def cascade_step(g, num_sims, coin_chunk, dev, key, *, seeds=None,
         w = bitset.num_words(num_sims)
         f = rand_words(gen, n, w, dev=dev) | 1
         vis = rand_words(gen, n, w, dev=dev) & rand_words(gen, n, w, dev=dev)
-    step = dict(nbr=nbr, prob=prob, chunk=chunk, num_sims=num_sims,
-                keys=rrr_expand.cascade_keys(key, n_chunks, num_sims, dev))
+    if model == "LT":
+        cumw, rows = rrr_expand.lt_tables(nbr, rrr.xla_cumsum(wt))
+        step = dict(model=model, nbr=nbr, cumw=cumw, wt=wt, rows=rows,
+                    num_sims=num_sims,
+                    keys=rrr_expand.lt_cascade_keys(key, num_sims, dev))
+    else:
+        step = dict(model=model, nbr=nbr, prob=prob, chunk=chunk,
+                    num_sims=num_sims,
+                    keys=rrr_expand.cascade_keys(key, n_chunks, num_sims, dev))
     return step, f, vis
 
 
+def cascade_name(step) -> str:
+    return "cascade_lt" if step["model"] == "LT" else "cascade_ic"
+
+
 def run_cascade_step(step, f, vis, lanes=None, count=None):
-    """cascade_ic on one step (``lanes`` None: the width the cascade
-    takes for these rows)."""
+    """cascade_ic or cascade_lt on one step (``lanes`` None: the width
+    the cascade takes for these rows)."""
+    if step["model"] == "LT":
+        return rrr_expand.cascade_step_lt(
+            f, vis, step["nbr"], step["cumw"], step["rows"], step["keys"],
+            step["num_sims"], count=count, lanes=lanes)
     return rrr_expand.cascade_step_ic(
         f, vis, step["nbr"], step["prob"], step["keys"], step["chunk"],
         step["num_sims"], count=count, lanes=lanes)
 
 
 def plain_cascade_step(step, f, vis, count=None):
+    if step["model"] == "LT":
+        return rrr_expand.cascade_step_lt_plain(
+            f, vis, step["nbr"], step["cumw"], step["rows"], step["keys"],
+            step["num_sims"], count=count)
     return rrr_expand.cascade_step_ic_plain(
         f, vis, step["nbr"], step["prob"], step["keys"], step["chunk"],
         step["num_sims"], count=count)
 
 
 def check_cascade_step(step, f, vis, want, shape) -> int:
-    """cascade_ic at every lane group width against ``want`` (its plain
-    version's result), with its count of new words."""
+    """The cascade kernel at every lane group width against ``want`` (its
+    plain version's result), with its count of new words."""
     err = 0
+    name = cascade_name(step)
     new_words = int((want[0] != 0).sum())
     for lanes in CASCADE_LANES:
         count = torch.full((1,), -1, dtype=torch.int32, device=f.device)
         err = max(err, require_equal(
-            "cascade_ic", run_cascade_step(step, f, vis, lanes, count), want,
+            name, run_cascade_step(step, f, vis, lanes, count), want,
             lanes=lanes, new_words=new_words, **shape))
         if int(count) != new_words:
-            raise AssertionError(f"cascade_ic: count {int(count)} != "
+            raise AssertionError(f"{name}: count {int(count)} != "
                                  f"{new_words} new words ({shape})")
     return err
 
@@ -664,6 +734,177 @@ def parity_cascade(gen, dev) -> int:
             del live, tbl
         if not int((want[0] != 0).sum()):
             raise AssertionError(f"cascade_ic: no edge fired ({shape})")
+        del step, f, vis, want
+    torch.cuda.empty_cache()
+    return err
+
+
+def lt_sampler_tables(g, coin_chunk: int, forward: bool = True):
+    """The LT sampler's tables on graph ``g`` (with the forward tables of
+    the plane route when ``forward``)."""
+    nbr, prob, wt = csr.padded_adjacency(g)
+    fwd = csr.padded_forward_adjacency(g) if forward else (None, None)
+    return rrr._Tables(nbr, prob, wt, *fwd, model="LT",
+                       coin_chunk=coin_chunk, forward=forward)
+
+
+def unsorted_rows(gen, t):
+    """``t`` with each row's cumulative weights permuted, so its rows
+    are marked and searched over all their slots."""
+    t.cumw, t.lt_rows = rrr_expand.lt_tables(t.nbr, t.cumw[:, torch.randperm(
+        t.d, generator=gen).to(t.cumw.device)])
+    return t
+
+
+def lt_push_pair(t, frontier, visited, key):
+    """rrr_expand_lt and its plain version from copies of one step's
+    inputs: (next plane, visited, next list sorted, frontier after)."""
+    n, w = frontier.shape
+    words = rrr_expand.live_words(frontier)
+    outs = []
+    for fn in (rrr_expand.rrr_expand_push_lt,
+               rrr_expand.expand_step_lt_push_plain):
+        f, vis, nxt = frontier.clone(), visited.clone(), torch.zeros_like(
+            frontier)
+        listed = torch.empty(n * w, dtype=torch.int32, device=f.device)
+        count = torch.zeros(1, dtype=torch.int32, device=f.device)
+        fn(words, f, vis, t.nbr, t.cumw, t.lt_rows, key, nxt, listed, count)
+        outs.append((nxt, vis, listed[:int(count)].sort().values, f))
+        del f, vis, nxt, listed
+    return outs
+
+
+def lt_first_step(t, key, theta: int, dev):
+    """The first BFS step of a ``theta``-sample LT draw: the roots'
+    frontier, visited and the step's key, derived as the sampler does."""
+    kr, kb = key.split()
+    frontier = rrr.packed_roots(kr.randint((theta,), 0, t.n, device=dev),
+                                t.n)
+    return frontier, frontier.clone(), kb.split()[1]
+
+
+def parity_lt_push(gen, dev) -> int:
+    """rrr_expand_lt against its plain version (planes word for word,
+    lists as sorted sets), and its dense entry point against the plane
+    route it replaces (the selection plane, rrr._lt_mask, through
+    rrr_expand_resident): the LT IMM's first sampling step (n = 262,144,
+    W = 1,024: the draw index s * n + v passes 2^32), the IMM-size rmat
+    graph's (hub rows, binary searched; 10 rows marked), a reverse star
+    with its rows' sums permuted (4,999 slots, marked and searched
+    whole), a star (every leaf pushes into the hub's words), and an
+    empty word list."""
+    args = im_driver.parser().parse_args(LT_FULL)
+    err = 0
+    key = prng.key(args.seed).fold_in(1)
+    rev = csr.from_edge_list(np.arange(1, 5000), np.zeros(4999, np.int64),
+                             5000, seed=2, device=dev)
+    cases = [
+        ("imm first step", lambda: lt_sampler_tables(
+            generators.erdos_renyi(args.n, args.avg_deg, args.seed,
+                                   device=dev), args.coin_chunk), True),
+        ("rmat first step", lambda: lt_sampler_tables(
+            im_driver.make_graph("rmat", args.n, args.avg_deg, args.seed,
+                                 dev), args.coin_chunk, forward=False),
+         False),
+        ("reverse star, rows permuted", lambda: unsorted_rows(
+            gen, lt_sampler_tables(rev, 32, forward=False)), False),
+        ("star", lambda: lt_sampler_tables(
+            generators.star(5000, device=dev), 32), True)]
+    for label, make, composed in cases:
+        t = make()
+        if "first step" in label:
+            f, vis, sub = lt_first_step(t, key, args.max_theta, dev)
+        else:
+            f = rand_words(gen, t.n, 7, dev=dev)
+            vis = f | (rand_words(gen, t.n, 7, dev=dev)
+                       & rand_words(gen, t.n, 7, dev=dev))
+            sub = key.fold_in(7)
+        shape = dict(input=label, n=t.n, d=t.d, W=f.shape[1],
+                     sorted_rows=int((t.lt_rows >= 0).sum()),
+                     max_flat_index=32 * f.shape[1] * t.n)
+        kernel, plain = lt_push_pair(t, f, vis, sub)
+        err = max(err, require_equal("rrr_expand_lt", kernel, plain,
+                                     against="push plain", **shape))
+        check_push(kernel, label, "rrr_expand_lt")
+        if not int((kernel[0] != 0).sum()):
+            raise AssertionError(f"rrr_expand_lt: no walk went on ({label})")
+        del kernel, plain
+        if composed:
+            got = rrr_expand.rrr_expand_step_lt(f, vis, t.nbr, t.cumw,
+                                                t.lt_rows, sub)
+            plane = rrr._lt_mask(t, sub, f).reshape(t.n * t.d_pad, -1)
+            err = max(err, require_equal(
+                "rrr_expand_lt", got, rrr_expand.rrr_expand_step_resident(
+                    f, vis, t.nbr_c, t.gidx, plane),
+                against="the plane route", **shape))
+            del plane, got
+        del t, f, vis
+        torch.cuda.empty_cache()
+    # an empty list launches nothing and lists nothing
+    f = torch.zeros((5, 2), dtype=torch.int32, device=dev)
+    count = torch.full((1,), 9, dtype=torch.int32, device=dev)
+    before = ops.LAUNCHES["rrr_expand_lt"]
+    rrr_expand.rrr_expand_push_lt(
+        torch.zeros(0, dtype=torch.int32, device=dev), f, f.clone(),
+        torch.zeros((5, 1), dtype=torch.int32, device=dev),
+        torch.zeros((5, 1), device=dev), torch.zeros(5, dtype=torch.int32,
+                                                     device=dev),
+        key, f.clone(), torch.empty(10, dtype=torch.int32, device=dev), count)
+    if int(count) or ops.LAUNCHES["rrr_expand_lt"] != before:
+        raise AssertionError("rrr_expand_lt: an empty list launched or "
+                             "listed")
+    emit(phase="parity", kernel="rrr_expand_lt", input="empty list",
+         max_abs_err=0)
+    return err
+
+
+def parity_lt_cascade(gen, dev) -> int:
+    """cascade_lt against its plain version at every lane group width:
+    the LT spread's first step on the IMM command's graph (100 random
+    seeds, 64 simulations), there also against the plane route it
+    replaces (rrr_expand_streamed over cascade._live_mask's LT plane);
+    every frontier word live (64 and 100 simulations: pad lanes); the
+    IMM-size rmat graph (hub rows, binary searched); a reverse star with
+    its rows' sums permuted (4,999 slots, marked and searched whole)."""
+    args = im_driver.parser().parse_args(LT_FULL)
+    err = 0
+    g = generators.erdos_renyi(args.n, args.avg_deg, args.seed, device=dev)
+    seeds = torch.randperm(args.n, generator=gen)[:100]
+    rev = csr.from_edge_list(np.arange(1, 5000), np.zeros(4999, np.int64),
+                             5000, seed=2, device=dev)
+    cases = [("lt first step", g, 64, dict(seeds=seeds)),
+             ("every word live", g, 64, dict(gen=gen)),
+             ("every word live", g, 100, dict(gen=gen)),
+             ("rmat", im_driver.make_graph("rmat", args.n, args.avg_deg,
+                                           args.seed, dev), 64,
+              dict(gen=gen)),
+             ("reverse star, rows permuted", rev, 64, dict(gen=gen))]
+    for label, graph, sims, how in cases:
+        key = prng.key(args.seed).fold_in(99)
+        step, f, vis = cascade_step(graph, sims, 32, dev, key, model="LT",
+                                    **how)
+        if label.endswith("permuted"):
+            perm = torch.randperm(step["nbr"].shape[1], generator=gen).to(dev)
+            step["cumw"], step["rows"] = rrr_expand.lt_tables(
+                step["nbr"], step["cumw"][:, perm])
+        want = plain_cascade_step(step, f, vis)
+        shape = dict(input=label, n=graph.num_vertices,
+                     d=step["nbr"].shape[1], W=f.shape[1], num_sims=sims,
+                     sorted_rows=int((step["rows"] >= 0).sum()))
+        err = max(err, check_cascade_step(step, f, vis, want, shape))
+        if label == "lt first step":
+            nbr, d = step["nbr"], step["nbr"].shape[1]
+            live = cascade._live_mask(nbr, None, step["wt"], key, model="LT",
+                                      num_sims=sims, chunk=d, n_chunks=1,
+                                      d_pad=d)
+            tbl = torch.where(nbr >= 0, nbr, 0).contiguous()
+            err = max(err, require_equal(
+                "cascade_lt", run_cascade_step(step, f, vis),
+                rrr_expand.rrr_expand_step(f, vis, tbl, live),
+                against="the plane route", **shape))
+            del live, tbl
+        if not int((want[0] != 0).sum()):
+            raise AssertionError(f"cascade_lt: no edge fired ({shape})")
         del step, f, vis, want
     torch.cuda.empty_cache()
     return err
@@ -898,9 +1139,14 @@ def paths_agree(dev) -> dict:
             raise AssertionError(f"{model}: paths disagree")
     ic = launches["IC kernel-gpu"]
     if (not ic["rrr_expand_ic"] or ic["coin_pack"] or not ic["cascade_ic"]
-            or not ic["rrr_expand_streamed"]):
+            or not ic["rrr_expand_streamed"]
+            or not ic["rrr_expand_resident"]):
         raise AssertionError(f"IC resident sampling and the spreads "
                              f"launched {ic}")
+    lt = launches["LT kernel-gpu"]
+    if not (lt["rrr_expand_lt"] and lt["cascade_lt"]):
+        raise AssertionError(f"LT resident sampling and the spreads "
+                             f"launched {lt}")
     return launches
 
 
@@ -1029,21 +1275,27 @@ def serve_paths_agree(dev) -> dict:
 # ---------------------------------------------------------------- phase 5
 
 class PlaneDraws:
-    """While open, counts the cascade's live-edge plane draws
-    (``cascade._live_mask``)."""
+    """While open, counts the plane draws: the cascade's live-edge planes
+    (``cascade._live_mask``) and the LT sampler's selection planes
+    (``rrr._lt_mask``)."""
 
     def __enter__(self):
         self.count = 0
-        self._fn = cascade._live_mask
-
-        def counted(*args, **kwargs):
-            self.count += 1
-            return self._fn(*args, **kwargs)
-        cascade._live_mask = counted
+        self._fns = [(mod, name, getattr(mod, name)) for mod, name in (
+            (cascade, "_live_mask"), (rrr, "_lt_mask"))]
+        for mod, name, fn in self._fns:
+            setattr(mod, name, self._counted(fn))
         return self
 
+    def _counted(self, fn):
+        def counted(*args, **kwargs):
+            self.count += 1
+            return fn(*args, **kwargs)
+        return counted
+
     def __exit__(self, *exc):
-        cascade._live_mask = self._fn
+        for mod, name, fn in self._fns:
+            setattr(mod, name, fn)
 
 
 def check_ic_spread(run: str, launches: dict, planes: int):
@@ -1085,6 +1337,46 @@ def full_run():
     check_ic_sampling("imm", launches)
     check_ic_spread("imm", launches, planes.count)
     check_layout("imm", launches)
+    return launches, seeds
+
+
+def seeds_sha256(seeds) -> str:
+    return hashlib.sha256(json.dumps(
+        [int(x) for x in seeds]).encode()).hexdigest()[:16]
+
+
+def lt_run():
+    """The slice's IMM under LT at full size through ``im_driver.run``:
+    sampling through rrr_expand_lt and the spread through cascade_lt,
+    no plane drawn and no plane kernel launched, the results those
+    recorded in ``LT_RECORDED``.  Launch counts set to 0 just before it
+    and read just after."""
+    ops.reset_launches()
+    with PlaneDraws() as planes:
+        out = im_driver.run(LT_FULL)
+        torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    seeds = out["seeds"]
+    got = dict(theta=out["theta"], rounds=out["rounds"],
+               coverage_fraction=out["coverage_fraction"],
+               spread=out["spread"], bfs_steps=out["bfs_steps"],
+               seeds_sha256=seeds_sha256(seeds))
+    emit(phase="lt", n=out["n"], edges=out["edges"], seconds=dict(
+        graph=out["graph_s"], sample=out["sample_s"], select=out["select_s"],
+        spread=out["spread_s"]), peak_bytes=out["peak_bytes"],
+         planes=planes.count, launches=launches, **got)
+    check_seeds(seeds, out["n"])
+    if got != LT_RECORDED:
+        raise AssertionError(f"lt: {got} != the recorded {LT_RECORDED}")
+    missing = [k for k in LT_RUN + SLICE1[2:] if not launches[k]]
+    planed = {k: launches[k] for k in ("rrr_expand_resident",
+                                       "rrr_expand_streamed", "coin_pack",
+                                       "rrr_expand_ic", "cascade_ic")
+              if launches[k]}
+    if missing or planed or planes.count:
+        raise AssertionError(f"lt: never launched {missing}, launched "
+                             f"{planed}, drew {planes.count} planes")
+    check_layout("lt", launches)
     return launches, seeds
 
 
@@ -1791,6 +2083,146 @@ def rmat_ic_timing(dev) -> dict:
     return row
 
 
+def choice_reads(rows, d: int, draws_v) -> int:
+    """The cumulative weights that ``draws_v[v]`` LT choices on each row
+    must read, each once: a binary search's ceil(log2(slots)) + 1 a
+    draw, at most the row's slots (a non-decreasing row's in-degree, a
+    marked row's d)."""
+    slots = torch.where(rows >= 0, rows, d).long()
+    per_draw = torch.log2(slots.clamp(min=1).double()).ceil().long() + 1
+    per_v = torch.minimum(draws_v * per_draw, slots)
+    return int(torch.where(draws_v > 0, per_v, 0).sum())
+
+
+def lt_push_work(t, frontier, key, appended: int) -> dict:
+    """What one LT sampling step's data needs: the live frontier words
+    (each read once, and its list entry), the row code of each vertex
+    with a live word (4 B), the cumulative weights its choices read
+    (:func:`choice_reads`), the nbr entry of each edge
+    taken (4 B; counted as the bits the step sets over an empty visited
+    plane), the hit words (visited and the next plane read, modified and
+    written, 16 B each), the appended entries (4 B each) and one draw a
+    live bit (OPS_PER_COIN each)."""
+    bits_v = bitset.popcount(frontier).sum(1, dtype=torch.int64)
+    cumw_reads = choice_reads(t.lt_rows, t.d, bits_v)
+    hits = rrr_expand.rrr_expand_step_lt(frontier, torch.zeros_like(frontier),
+                                         t.nbr, t.cumw, t.lt_rows, key)[0]
+    work = dict(live_words=int((frontier != 0).sum()),
+                live_rows=int((bits_v > 0).sum()), cumw_reads=cumw_reads,
+                edges=int(bitset.popcount(hits).sum(dtype=torch.int64)),
+                hit_words=int((hits != 0).sum()), appended=appended,
+                coins=int(bits_v.sum()))
+    del hits
+    work["bytes"] = (8 * work["live_words"] + 4 * work["live_rows"]
+                     + 4 * cumw_reads + 4 * work["edges"]
+                     + 16 * work["hit_words"] + 4 * appended)
+    return work
+
+
+def time_lt_step(t, frontier, visited, key, label: str, reps: int = 10,
+                 plain_reps: int = 3, composed: bool = True) -> dict:
+    """rrr_expand_lt on one step's inputs, as :func:`time_ic_step` times
+    rrr_expand_ic: the step as the sampler runs it (device time ``ms``,
+    the wrapper call's span ``call_ms``) against its plain version, the
+    dense entry point, and — with ``composed`` — the route it replaced on
+    the same inputs: the selection plane (``rrr._lt_mask``, ``plane_ms``)
+    and rrr_expand_resident over it, together ``parent_ms``.  Bound: the
+    larger of :func:`lt_push_work`'s bytes over the HBM rate and its
+    draws' operations over the INT32 rate."""
+    n, w = frontier.shape
+    kernel, plain = lt_push_pair(t, frontier, visited, key)
+    err = max_err(kernel, plain)
+    check_push(kernel, label, "rrr_expand_lt")
+    appended = kernel[2].numel()
+    del kernel, plain
+    entry = rrr_expand.rrr_expand_step_lt(frontier, visited, t.nbr, t.cumw,
+                                          t.lt_rows, key)
+    extra = dict(shape=label, n=n, d=t.d, W=w)
+    if composed:
+        def parent():
+            plane = rrr._lt_mask(t, key, frontier).reshape(n * t.d_pad, -1)
+            return rrr_expand.rrr_expand_step_resident(
+                frontier, visited, t.nbr_c, t.gidx, plane)
+        extra["composed_err"] = max_err(entry, parent())
+        extra["plane_ms"] = median_ms(lambda: rrr._lt_mask(t, key, frontier),
+                                      3)
+        extra["parent_ms"] = median_ms(parent, 3)
+        torch.cuda.empty_cache()
+    del entry
+    if err or extra.get("composed_err"):
+        raise AssertionError(f"rrr_expand_lt: kernel != plain ({err}) or "
+                             f"entry point != the plane route "
+                             f"({extra.get('composed_err')}) at {label}")
+    work = lt_push_work(t, frontier, key, appended)
+    bound_ms, bound_by, ops_ = bound(work["bytes"],
+                                     OPS_PER_COIN * work["coins"])
+    words = rrr_expand.live_words(frontier)
+    f, vis, nxt = (torch.empty_like(frontier) for _ in range(3))
+    listed = torch.empty(n * w, dtype=torch.int32, device=frontier.device)
+    count = torch.zeros(1, dtype=torch.int32, device=frontier.device)
+
+    def restore():
+        f.copy_(frontier)
+        vis.copy_(visited)
+        nxt.zero_()
+
+    def step(fn):
+        return lambda: fn(words, f, vis, t.nbr, t.cumw, t.lt_rows, key, nxt,
+                          listed, count)
+
+    ms = median_ms(step(rrr_expand.rrr_expand_push_lt), reps, restore,
+                   hide_host=True)
+    call_ms = median_ms(step(rrr_expand.rrr_expand_push_lt), reps, restore)
+    plain_ms = median_ms(step(rrr_expand.expand_step_lt_push_plain),
+                         plain_reps, restore)
+    del f, vis, nxt, listed
+    extra["entry_ms"] = median_ms(lambda: rrr_expand.rrr_expand_step_lt(
+        frontier, visited, t.nbr, t.cumw, t.lt_rows, key), reps)
+    torch.cuda.empty_cache()
+    row = dict(name="rrr_expand_lt", route="cuda",
+               source=SOURCES["rrr_expand_lt"][0],
+               replaces=SOURCES["rrr_expand_lt"][1], max_abs_err=err,
+               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None)
+    extra.update(call_ms=call_ms, int_ops=ops_, **work)
+    emit(phase="timing", **row, **extra)
+    row.update(extra)
+    return row
+
+
+def lt_timings(dev, seeds) -> dict:
+    """The LT kernels at the shapes the full-size LT run gives them:
+    rrr_expand_lt at the first sampling step of its 32,768-sample draw
+    (and of the same draw on the IMM-size rmat graph: hub rows), with
+    the selection-plane route beside it; cascade_lt at its spread's first
+    step from the run's ``seeds`` (and the densest step of that cascade,
+    and the rmat graph's first step), with the live-edge plane route
+    beside it; and, under ``selector``, the selector's kernels over the
+    LT run's incidence (:func:`selector_timings`), 8.5x denser than
+    IC's."""
+    args = im_driver.parser().parse_args(LT_FULL)
+    key = prng.key(args.seed).fold_in(1)
+    g = generators.erdos_renyi(args.n, args.avg_deg, args.seed, device=dev)
+    selector = selector_timings(args, *csr.padded_adjacency(g),
+                                csr.padded_forward_adjacency(g), dev, "lt")
+    t = lt_sampler_tables(g, args.coin_chunk)
+    lt = time_lt_step(t, *lt_first_step(t, key, args.max_theta, dev), "lt")
+    del t, g
+    torch.cuda.empty_cache()
+    t = lt_sampler_tables(im_driver.make_graph(
+        "rmat", args.n, args.avg_deg, args.seed, dev), args.coin_chunk,
+        forward=False)
+    lt["shapes"] = {"rmat": time_lt_step(
+        t, *lt_first_step(t, key, args.max_theta, dev), "rmat",
+        plain_reps=1, composed=False)}
+    del t
+    torch.cuda.empty_cache()
+    casc = cascade_timings(dev, "lt", LT_FULL, seeds)
+    casc["shapes"]["rmat"] = cascade_timings(
+        dev, "lt rmat", at_scale(LT_FULL, graph="rmat"), seeds, own_run=False)
+    return {"rrr_expand_lt": lt, "cascade_lt": casc, "selector": selector}
+
+
 def cascade_work(step, f, vis) -> dict:
     """What one cascade_ic step's data needs: the valid slots of the rows
     with a word that can still become new (open: a simulation lane not
@@ -1826,16 +2258,58 @@ def cascade_work(step, f, vis) -> dict:
     return work
 
 
+def lt_cascade_work(step, f, vis) -> dict:
+    """What one cascade_lt step's data needs: the row codes (4 B a
+    vertex); the valid slots of the rows with an open word, read once
+    (4 B each); the frontier words gathered at them — only the non-zero
+    ones gathered for open words, and never more than the whole plane
+    (4 B a word); for each candidate bit (open, and held by some
+    in-neighbour's frontier word) its draw (OPS_PER_COIN), its chosen
+    slot's nbr entry and frontier word (8 B); the cumulative weights the
+    choices read (:func:`choice_reads`); visited read once and both
+    outputs written once (12 B a word).  ``coins`` counts the draws."""
+    nbr = step["nbr"]
+    n, w = f.shape
+    d = nbr.shape[1]
+    open_ = bitset.lane_words(step["num_sims"], f.device)[None] & ~vis
+    open_words = (open_ != 0).sum(1)
+    slots = (nbr >= 0).sum(1)
+    cand = torch.zeros_like(f)
+    gathered = 0
+    for r in range(d):
+        valid = nbr[:, r] >= 0
+        fr = torch.where(valid[:, None], f[nbr[:, r].clamp(min=0).long()], 0)
+        gathered += int(((fr != 0) & (open_ != 0)).sum())
+        cand |= fr
+    cand &= open_
+    draws_v = bitset.popcount(cand).sum(1, dtype=torch.int64)
+    cumw_reads = choice_reads(step["rows"], d, draws_v)
+    work = dict(open_words=int(open_words.sum()),
+                row_slots=int(((open_words > 0) * slots).sum()),
+                gathered=min(gathered, n * w), cumw_reads=cumw_reads,
+                coins=int(draws_v.sum()))
+    work["bytes"] = (4 * (n + work["row_slots"] + work["gathered"]
+                          + cumw_reads) + 8 * work["coins"] + 12 * n * w)
+    return work
+
+
+def step_work(step, f, vis) -> dict:
+    return (lt_cascade_work if step["model"] == "LT" else cascade_work)(
+        step, f, vis)
+
+
 def time_cascade_step(label, step, f, vis, reps=10, plain_reps=3) -> dict:
-    """cascade_ic on one step's inputs: equality with its plain version
-    at every lane group width, the device time of each width (the one
-    the cascade takes is ``ms``), the wrapper call's span with its count
-    and the host's share, and the bound of :func:`cascade_work`."""
+    """cascade_ic or cascade_lt on one step's inputs: equality with its
+    plain version at every lane group width, the device time of each
+    width (the one the cascade takes is ``ms``), the wrapper call's span
+    with its count and the host's share, and the bound of
+    :func:`cascade_work` or :func:`lt_cascade_work`."""
+    name = cascade_name(step)
     want, plain_once = once(lambda: plain_cascade_step(step, f, vis))
     err = check_cascade_step(step, f, vis, want, dict(input=label))
     new_words = int((want[0] != 0).sum())
     del want
-    work = cascade_work(step, f, vis)
+    work = step_work(step, f, vis)
     bound_ms, bound_by, ops_ = bound(work["bytes"],
                                      OPS_PER_COIN * work["coins"])
     by_lanes = {lanes: median_ms(lambda: run_cascade_step(step, f, vis, lanes),
@@ -1848,9 +2322,8 @@ def time_cascade_step(label, step, f, vis, reps=10, plain_reps=3) -> dict:
     plain_ms = (median_ms(lambda: plain_cascade_step(step, f, vis),
                           plain_reps) if plain_reps else plain_once)
     torch.cuda.empty_cache()
-    row = dict(name="cascade_ic", route="cuda",
-               source=SOURCES["cascade_ic"][0],
-               replaces=SOURCES["cascade_ic"][1], max_abs_err=err,
+    row = dict(name=name, route="cuda", source=SOURCES[name][0],
+               replaces=SOURCES[name][1], max_abs_err=err,
                ms=by_lanes[lanes], plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by, library_ms=None)
     extra = dict(shape=label, n=f.shape[0], d=step["nbr"].shape[1],
@@ -1861,20 +2334,46 @@ def time_cascade_step(label, step, f, vis, reps=10, plain_reps=3) -> dict:
     return row
 
 
-def cascade_timings(dev, label, argv, seeds) -> dict:
-    """cascade_ic at the spread of a full-size command (for hub rows also
-    the IMM command's graph drawn as rmat): its first step from
-    ``seeds`` (64 simulations, as the drivers estimate), then the step of
-    that cascade that hashes the most coins.  Returns the first step's
-    row with the other under ``shapes``."""
+def cascade_timings(dev, label, argv, seeds, own_run=True) -> dict:
+    """The cascade kernel of a full-size command's model (cascade_ic or
+    cascade_lt; for hub rows also on the IMM command's graph drawn as
+    rmat) at its spread: its first step from ``seeds`` (64 simulations,
+    as the drivers estimate), then the step of that cascade that draws
+    the most coins.  Returns the first step's row with the other under
+    ``shapes``; for LT also the route it replaced on the first step's
+    inputs (``plane_ms``: cascade._live_mask's plane, drawn once a
+    spread; ``plane_step_ms``: rrr_expand_streamed over it).  Without
+    ``own_run`` (a graph the command does not run, as the rmat one) the
+    first step alone: the rmat graph's LT plane would be 16 GB."""
     args = im_driver.parser().parse_args(argv)
     g = im_driver.make_graph(args.graph, args.n, args.avg_deg, args.seed, dev)
-    step, f, vis = cascade_step(g, args.eval_sims, args.coin_chunk, dev,
-                                prng.key(args.seed).fold_in(99), seeds=seeds)
+    key = prng.key(args.seed).fold_in(99)
+    step, f, vis = cascade_step(g, args.eval_sims, args.coin_chunk, dev, key,
+                                seeds=seeds, model=args.model)
     row = time_cascade_step(label, step, f, vis)
+    if not own_run:
+        return row
+    if args.model == "LT":
+        nbr, d = step["nbr"], step["nbr"].shape[1]
+
+        def plane():
+            return cascade._live_mask(nbr, None, step["wt"], key, model="LT",
+                                      num_sims=args.eval_sims, chunk=d,
+                                      n_chunks=1, d_pad=d)
+        live = plane()
+        tbl = torch.where(nbr >= 0, nbr, 0).contiguous()
+        if max_err(rrr_expand.rrr_expand_step(f, vis, tbl, live),
+                   run_cascade_step(step, f, vis)):
+            raise AssertionError(f"cascade_lt != the plane route ({label})")
+        row.update(plane_ms=median_ms(plane, 3), plane_step_ms=median_ms(
+            lambda: rrr_expand.rrr_expand_step(f, vis, tbl, live), 10))
+        emit(phase="timing", name="cascade_lt", shape=label,
+             replaced_route=dict(plane_ms=row["plane_ms"],
+                                 plane_step_ms=row["plane_step_ms"]))
+        del live, tbl
     best = None
     for i in range(64):
-        coins = cascade_work(step, f, vis)["coins"]
+        coins = step_work(step, f, vis)["coins"]
         if best is None or coins > best[0]:
             best = (coins, i + 1, f, vis)
         f, vis = run_cascade_step(step, f, vis)
@@ -1886,6 +2385,31 @@ def cascade_timings(dev, label, argv, seeds) -> dict:
     dense["step"] = best[1]
     row["shapes"] = {f"{label} densest step": dense}
     return row
+
+
+def selector_timings(args, nbr, prob, wt, fwd, dev, label) -> dict:
+    """The IMM selector's kernels over its first round's incidence (a
+    ``args.max_theta``-sample draw keyed and cut as ``imm.imm`` draws it,
+    under ``args.model``): the machine-axis solve (:func:`time_machine_solve`)
+    over the local rows and the receiver (:func:`time_receiver`) over
+    their chunk."""
+    n, m = args.n, args.machines
+    incidence = rrr.sample_incidence(
+        nbr, prob, wt, prng.key(args.seed).fold_in(1), theta=args.max_theta,
+        n=n, model=args.model, fwd=fwd, max_steps=inspect.signature(
+            imm.imm).parameters["max_steps"].default)
+    perm = prng.key(args.seed).fold_in(0xC0FFEE).fold_in(1).permutation(
+        n, device=dev)
+    assign = perm[:(n // m) * m].reshape(m, n // m).long()
+    local_rows = incidence[assign].contiguous()
+    del incidence
+    ex = greedy_pick.excluded_ids(None, m, dev)
+    rows_out = time_machine_solve("greedy_pick", local_rows, args.k, ex)
+    rows_out["bucket_insert"] = time_receiver(
+        "bucket_insert", *imm_chunk(local_rows, assign, dev), label)
+    del local_rows
+    torch.cuda.empty_cache()
+    return rows_out
 
 
 def main_path_timings(dev, final_seeds) -> dict:
@@ -1933,18 +2457,7 @@ def main_path_timings(dev, final_seeds) -> dict:
         t, key, (frontier, visited, keys), dev)
     del t, frontier, visited
 
-    incidence = rrr.sample_incidence(nbr, prob, wt, key, theta=theta, n=n,
-                                     model="IC", fwd=fwd)
-    perm = prng.key(args.seed).fold_in(0xC0FFEE).fold_in(1).permutation(
-        n, device=dev)
-    assign = perm[:(n // m) * m].reshape(m, n // m).long()
-    local_rows = incidence[assign].contiguous()
-    del incidence
-    ex = greedy_pick.excluded_ids(None, m, dev)
-    rows_out.update(time_machine_solve("greedy_pick", local_rows, k, ex))
-    rows_out["bucket_insert"] = time_receiver(
-        "bucket_insert", *imm_chunk(local_rows, assign, dev), "imm")
-    del local_rows
+    rows_out.update(selector_timings(args, nbr, prob, wt, fwd, dev, "imm"))
 
     rows_out["cascade_ic"] = cascade_timings(dev, "imm", FULL, final_seeds)
     sims = args.eval_sims
@@ -2165,16 +2678,16 @@ def serve_timings(dev, svc_lazy, trace) -> dict:
 def spread_splits(dev, runs: dict):
     """The spread of each full-size command's seeds split into its parts
     (``tools/time_spread.py``'s clock, medians of 3 after a warm-up): the
-    IC kernel route (``auto``: cascade_ic) and the plane route it
-    replaced (``streamed``: the live-edge plane, rrr_expand_streamed),
-    whose spreads must agree."""
+    kernel route of its model (``auto``: cascade_ic or cascade_lt) and
+    the plane route it replaced (``streamed``: the live-edge plane,
+    rrr_expand_streamed), whose spreads must agree."""
     for label, (argv, seeds) in runs.items():
         args = im_driver.parser().parse_args(argv)
         g = im_driver.make_graph(args.graph, args.n, args.avg_deg, args.seed,
                                  dev)
         rows = [split_spread(g, torch.from_numpy(seeds),
                              prng.key(args.seed).fold_in(99), gather=gather,
-                             num_sims=args.eval_sims)
+                             model=args.model, num_sims=args.eval_sims)
                 for gather in ("auto", "streamed")]
         for row in rows:
             emit(phase="spread_split", command=label, n=args.n,
@@ -2212,6 +2725,7 @@ def main(argv=None) -> int:
          cuda=torch.version.cuda, nvcc=nvcc[-1] if nvcc else None)
 
     build_s = build.build()
+    lap("build")
     regs = [ln.strip() for name in build.LIBS
             for ln in build.build_log(name).splitlines()
             if "registers" in ln or "spill" in ln]
@@ -2225,26 +2739,40 @@ def main(argv=None) -> int:
     small = paths_agree(dev)
     round_paths_agree(dev)
     small.update(serve_paths_agree(dev))
+    lap("paths")
     if args.stop_after == "paths":
         return 0
     launches, seeds = full_run()
+    lap("full")
     full = {"imm": launches}
+    full["lt"], lt_seeds = lt_run()
+    lap("lt")
     if args.stop_after == "full":
         return 0
     full.update(round_runs(dev))
+    lap("round")
     dense_launches, dense_seeds = supercritical_runs()
     full.update(dense_launches)
+    lap("supercritical")
     if args.stop_after == "round":
         return 0
     serve_launches, svc_lazy, trace = serve_runs(dev)
     full.update(serve_launches)
+    lap("serve")
     if args.stop_after == "serve":
         return 0
     rows = serve_timings(dev, svc_lazy, trace)
     del svc_lazy
+    lap("timing serve")
     rows.update(main_path_timings(dev, torch.from_numpy(seeds)))
+    lap("timing imm")
+    lt_rows = lt_timings(dev, torch.from_numpy(lt_seeds))
+    lt_select = lt_rows.pop("selector")
+    rows.update(lt_rows)
+    lap("timing lt")
     rows["rrr_expand_ic"]["shapes"]["rmat"] = rmat_ic_timing(dev)
     rows.update(round_timings(dev))
+    lap("timing rmat ic, round")
     rows["compact_rows"]["shapes"] = {"round": rows.pop("compact_rows round")}
     # the dense sweeps at the shapes their runs give them; the same
     # sweeps forced on the subcritical runs' rows kept beside
@@ -2256,6 +2784,12 @@ def main(argv=None) -> int:
                          + ("round's" if name == "lazy_greedy" else "IMM's")
                          + " rows": rows[name]}
         rows[name] = row
+    # the LT run's selector kernels at the shapes its denser incidence
+    # gives them (phase `order` charges its launches there)
+    rows["greedy_pick"]["shapes"]["forced on the LT IMM's rows"] = (
+        lt_select.pop("greedy_pick"))
+    for name, row in lt_select.items():
+        rows[name].setdefault("shapes", {})["lt"] = row
     dense = cascade_timings(dev, "supercritical", DENSE_FULL,
                             torch.from_numpy(dense_seeds))
     rows["cascade_ic"]["shapes"].update(supercritical=dense,
@@ -2263,8 +2797,10 @@ def main(argv=None) -> int:
     hubs = cascade_timings(dev, "rmat", at_scale(FULL, graph="rmat"),
                            torch.from_numpy(seeds))
     rows["cascade_ic"]["shapes"].update(rmat=hubs, **hubs.pop("shapes"))
+    lap("timing supercritical, rmat cascade")
     spread_splits(dev, {"imm": (FULL, seeds),
-                        "supercritical": (DENSE_FULL, dense_seeds)})
+                        "supercritical": (DENSE_FULL, dense_seeds),
+                        "lt": (LT_FULL, lt_seeds)})
     kernels, order = [], []
     for name in ops.KERNELS:
         row = rows[name]
@@ -2272,6 +2808,8 @@ def main(argv=None) -> int:
             r["max_abs_err"] for r in row.get("shapes", {}).values()])
         if name in SLICE1:
             row["launches"] = full["imm"][name]
+        elif name in LT_RUN:
+            row["launches"] = full["lt"][name]
         elif name in ROUND_RUN:
             row["launches"] = full[ROUND_RUN[name]][name]
         elif name in SERVE_RUN:
@@ -2316,7 +2854,9 @@ def main(argv=None) -> int:
                               small_launches=row["launches"],
                               launches_from=row.get("launches_from")))))
     emit(phase="order", kernels=sorted(order, key=lambda r: -r["lost_ms"]))
-    emit(phase="done", seconds=time.perf_counter() - t_start)
+    lap("spread split, order")
+    emit(phase="done", seconds=time.perf_counter() - t_start,
+         split=lap_seconds(t_start))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,16 +8,19 @@ the RRR sampler's reverse BFS.  Live edges are the reference's, drawn
 once per simulation and keyed per lane (``fold_in(fold_in(key, chunk),
 sim)``).
 
-- IC, ``engine="kernel"``, ``gather="auto"``: each step is the
-  ``cascade_ic`` kernel (``kernels.rrr_expand.cascade_step_ic``), which
-  hashes the coin of an in-edge only behind a frontier bit that can
-  still become new, so no live-edge plane is built; the loop stops on
-  the kernel's count of new words.
-- LT, and IC with ``gather="resident"`` or ``"streamed"``: the live
-  plane ``[n, d_pad, W]`` is drawn in plain PyTorch (``_live_mask``)
-  and read by the sampler's expansion kernel, in gather order
-  (``streamed``, ``rrr_expand_streamed``) or through the identity index
-  ``v * d_pad + slot`` (``resident``, ``rrr_expand_resident``).
+- ``engine="kernel"``, ``gather="auto"``: each step is one kernel that
+  draws the live edges itself, so no live-edge plane is built:
+  ``cascade_ic`` (``kernels.rrr_expand.cascade_step_ic``) hashes the
+  coin of an in-edge only behind a frontier bit that can still become
+  new; ``cascade_lt`` (``cascade_step_lt``) draws a simulation's one
+  live in-edge of a vertex only for an open bit that some in-neighbour's
+  frontier word holds.  The loop stops on the kernel's count of new
+  words.
+- ``gather="resident"`` or ``"streamed"``: the live plane ``[n, d_pad,
+  W]`` is drawn in plain PyTorch (``_live_mask``) and read by the
+  sampler's expansion kernel, in gather order (``streamed``,
+  ``rrr_expand_streamed``) or through the identity index ``v * d_pad +
+  slot`` (``resident``, ``rrr_expand_resident``).
 - ``engine="packed"``: the plane and the plain PyTorch step.
 
 All are bit-identical to the reference's engines.  Models: IC and LT
@@ -105,10 +108,10 @@ def _live_mask(nbr, prob, wt, key: Key, *, model, num_sims, chunk,
 
 
 # Measurement hook (``tools/time_spread.py``): when set, called with the
-# name of each part of a run (``padded_adjacency``; ``keys`` on the IC
-# kernel route, else ``tbl`` and ``live``; ``step`` and ``sync`` for each
-# step; the spread's final ``popcount``), returning the context that
-# spans it.
+# name of each part of a run (``padded_adjacency``; ``keys`` on the
+# kernel routes, with ``tbl`` for LT's cumulative weights, else ``tbl``
+# and ``live``; ``step`` and ``sync`` for each step; the spread's final
+# ``popcount``), returning the context that spans it.
 _clock = None
 
 
@@ -137,10 +140,13 @@ def simulate_cascades(g: CSRGraph, seeds, key: Key, *, model: str = "IC",
     if d == 0:          # edgeless graph: nothing ever fires
         return active
     chunk, n_chunks, d_pad = _coin_chunks(d, coin_chunk)
-    if model == "IC" and engine == "kernel" and gather == "auto":
-        return _simulate_ic(nbr, prob, key, active, num_sims=num_sims,
-                            max_steps=max_steps, chunk=chunk,
-                            n_chunks=n_chunks)
+    if engine == "kernel" and gather == "auto":
+        if model == "IC":
+            return _simulate_ic(nbr, prob, key, active, num_sims=num_sims,
+                                max_steps=max_steps, chunk=chunk,
+                                n_chunks=n_chunks)
+        return _simulate_lt(nbr, wt, key, active, num_sims=num_sims,
+                            max_steps=max_steps)
     with _span("tbl"):
         tbl = torch.nn.functional.pad(torch.where(nbr >= 0, nbr, 0),
                                       (0, d_pad - d)).contiguous()
@@ -182,13 +188,34 @@ def _simulate_ic(nbr, prob, key: Key, active, *, num_sims: int,
     frontier adds nothing, so no check precedes it."""
     with _span("keys"):
         keys = rrr_expand.cascade_keys(key, n_chunks, num_sims, nbr.device)
-    count = torch.zeros(1, dtype=torch.int32, device=nbr.device)
+    return _count_loop(lambda f, act, count: rrr_expand.cascade_step_ic(
+        f, act, nbr, prob, keys, chunk, num_sims, count=count), active,
+        max_steps)
+
+
+def _simulate_lt(nbr, wt, key: Key, active, *, num_sims: int,
+                 max_steps: int):
+    """The LT kernel route: the reference's cumulative weights and their
+    row codes built once (``rrr_expand.lt_tables``), the key table
+    hashed once, then ``cascade_step_lt`` a step, stopped on its count
+    of new words."""
+    with _span("tbl"):
+        cumw, rows = rrr_expand.lt_tables(nbr, xla_cumsum(wt))
+    with _span("keys"):
+        keys = rrr_expand.lt_cascade_keys(key, num_sims, nbr.device)
+    return _count_loop(lambda f, act, count: rrr_expand.cascade_step_lt(
+        f, act, nbr, cumw, rows, keys, num_sims, count=count), active,
+        max_steps)
+
+
+def _count_loop(step, active, max_steps: int):
+    """Runs ``step(frontier, active, count)`` until its count of new
+    words is 0 or ``max_steps`` steps; returns the active words."""
+    count = torch.zeros(1, dtype=torch.int32, device=active.device)
     frontier = active
     for _ in range(max_steps):
         with _span("step"):
-            frontier, active = rrr_expand.cascade_step_ic(
-                frontier, active, nbr, prob, keys, chunk, num_sims,
-                count=count)
+            frontier, active = step(frontier, active, count)
         with _span("sync"):
             go = bool(count.item())
         if not go:

@@ -19,23 +19,24 @@ mask[v, rev_slot]`` for every forward pair ``(v, rev_slot)`` of ``u``:
 
   * ``sampler="packed"`` — the plain PyTorch path (coins through
     ``prng``, expansion as tensor gathers);
-  * ``sampler="kernel"`` — the step runs as CUDA kernels.  IC on the
+  * ``sampler="kernel"`` — the step runs as CUDA kernels.  On the
     resident layout (the default; ``gather="auto"`` means resident here,
-    there is no VMEM budget to solve for) is one kernel a step,
-    ``rrr_expand.rrr_expand_push_ic``: a push over the list of the
-    frontier's live words along the *reverse* adjacency, which draws
-    each coin inside the step, updates ``visited`` in place and appends
-    each newly live word to the next list once (see ``_ic_push``).  IC
-    with ``gather="streamed"`` draws the plane (``kernels.coins``) and
-    gathers it into the streamed mask; LT builds its selection plane
-    with tensor ops and expands through the resident or streamed kernel.
+    there is no VMEM budget to solve for) each step is one kernel,
+    ``rrr_expand.rrr_expand_push_ic`` (IC) or ``rrr_expand_push_lt``
+    (LT): a push over the list of the frontier's live words along the
+    *reverse* adjacency, which draws each coin or live in-edge inside
+    the step, updates ``visited`` in place and appends each newly live
+    word to the next list once (see ``_push``).  With
+    ``gather="streamed"``, IC draws the coin plane (``kernels.coins``)
+    and LT builds its selection plane with tensor ops (``_lt_mask``),
+    each gathered into the streamed mask of ``rrr_expand_streamed``.
 
 The per-step mask is the reference's coin / selection mask restricted
 to the frontier's live words (the expansion ANDs it with the frontier,
 so nothing else is ever read).  That keeps the per-step work
 proportional to the frontier instead of to batch * n * d.  The BFS
 ``while_loop`` becomes a host loop that synchronizes once per step: on
-the next list's count (4 bytes) for the IC push, on ``frontier.any()``
+the next list's count (4 bytes) for the push, on ``frontier.any()``
 for the other paths.
 """
 from __future__ import annotations
@@ -133,7 +134,7 @@ class _Tables:
         self.n, self.d = n, d
         self.nbr = nbr
         self.chunk, self.n_chunks, self.d_pad = _coin_chunks(d, coin_chunk)
-        if forward:     # the forward gathers; the IC push reads nbr only
+        if forward:     # the forward gathers; the push reads nbr only
             valid = fwd_nbr >= 0
             self.nbr_c = torch.where(valid, fwd_nbr, 0).contiguous()
             self.gidx = torch.where(
@@ -145,7 +146,10 @@ class _Tables:
             self.prob_p = torch.nn.functional.pad(
                 prob, (0, self.d_pad - d)).contiguous()
         elif model == "LT":
-            self.cumw = xla_cumsum(wt)
+            # rows ascending (rrr_expand.lt_tables): every count of
+            # sums at or below a draw is the reference's
+            self.cumw, self.lt_rows = rrr_expand.lt_tables(nbr,
+                                                           xla_cumsum(wt))
             self.in_deg = (nbr >= 0).sum(1)
         else:
             raise ValueError(f"unknown model {model!r}; expected IC or LT")
@@ -195,13 +199,30 @@ def _expand(t: _Tables, frontier, visited, mask, kernel: bool, gather: str):
     return rrr_expand.expand_step_plain(frontier, visited, t.nbr_c, gmask)
 
 
-def _ic_push(t: _Tables, roots, key: Key, visited, max_steps: int) -> int:
-    """The IC BFS as pushes over word lists, ``visited`` updated in
-    place; returns the steps taken.  Two frontier planes ping-pong (a
-    step zeroes the words it reads, leaving its plane zero for the step
-    after) and two word lists alternate; each step's one host sync reads
-    the next list's count, and the loop ends when it is 0.  No step
-    passes over a whole [n, W] plane."""
+def _push_ic(t: _Tables, sub: Key, *planes) -> None:
+    keys = [sub.fold_in(c) for c in range(t.n_chunks)]
+    rrr_expand.rrr_expand_push_ic(*planes[:3], t.nbr, t.prob_p, keys,
+                                  t.chunk, *planes[3:])
+
+
+def _push_lt(t: _Tables, sub: Key, *planes) -> None:
+    rrr_expand.rrr_expand_push_lt(*planes[:3], t.nbr, t.cumw, t.lt_rows, sub,
+                                  *planes[3:])
+
+
+_PUSH = {"IC": _push_ic, "LT": _push_lt}
+
+
+def _push(t: _Tables, roots, key: Key, visited, max_steps: int,
+          model: str) -> int:
+    """The BFS as pushes over word lists (the model's step kernel from
+    ``_PUSH``), ``visited`` updated in place; returns the steps taken.
+    Two frontier planes ping-pong (a step zeroes the words it reads,
+    leaving its plane zero for the step after) and two word lists
+    alternate; each step's one host sync reads the next list's count,
+    and the loop ends when it is 0.  No step passes over a whole [n, W]
+    plane."""
+    push = _PUSH[model]
     n, w = visited.shape
     dev = visited.device
     frontier, spare = visited.clone(), torch.zeros_like(visited)
@@ -212,11 +233,8 @@ def _ic_push(t: _Tables, roots, key: Key, visited, max_steps: int) -> int:
     step = 0
     while step < max_steps and words.numel():
         key, sub = key.split()
-        keys = [sub.fold_in(c) for c in range(t.n_chunks)]
         out = lists[step % 2]
-        rrr_expand.rrr_expand_push_ic(words, frontier, visited, t.nbr,
-                                      t.prob_p, keys, t.chunk, spare, out,
-                                      count)
+        push(t, sub, words, frontier, visited, spare, out, count)
         words = out[:int(count)]
         frontier, spare = spare, frontier
         step += 1
@@ -236,7 +254,7 @@ def rrr_batch_packed(nbr, prob, wt, fwd_nbr, fwd_rslot, roots, key: Key, *,
     if gather not in GATHERS:
         raise ValueError(f"unknown gather {gather!r}; expected {GATHERS}")
     kernel = expand == "kernel"
-    push = model == "IC" and kernel and gather != "streamed"
+    push = kernel and gather != "streamed"
     n, d = nbr.shape
     visited = packed_roots(roots, n)
     if d == 0:          # edgeless graph: RRR(root) = {root}
@@ -244,7 +262,7 @@ def rrr_batch_packed(nbr, prob, wt, fwd_nbr, fwd_rslot, roots, key: Key, *,
     t = _Tables(nbr, prob, wt, fwd_nbr, fwd_rslot, model=model,
                 coin_chunk=coin_chunk, forward=not push)
     if push:
-        step = _ic_push(t, roots, key, visited, max_steps)
+        step = _push(t, roots, key, visited, max_steps, model)
     else:
         frontier = visited
         step = 0

@@ -17,9 +17,10 @@
 // time, not scratch.  Invalid slots follow the reference's contract:
 // fwd_nbr is pre-clipped to 0 and the mask word is zero (gmask) or
 // gidx names row `rows`, read as zero (resident).  The IC sampler's
-// step is rrr_expand_ic at the end of this file: a push over the live
-// frontier words that draws each coin in the kernel instead of reading
-// a coin plane from HBM.
+// step is rrr_expand_ic below: a push over the live frontier words that
+// draws each coin in the kernel instead of reading a coin plane from
+// HBM; cascade_ic does the same for the IC cascade, and rrr_expand_lt
+// and cascade_lt at the end of this file for LT's one live in-edge.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -371,6 +372,275 @@ extern "C" int cascade_ic(const void* frontier, const void* visited,
         (const uint32_t*)frontier, (const uint32_t*)visited,
         (const int32_t*)nbr, (const float*)prob, (const uint32_t*)keys, n,
         (int)d, (int)chunk, (int)W, (int)num_sims, table_words, (int)lg,
+        (uint32_t*)new_frontier, (uint32_t*)visited_out, (uint32_t*)count);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
+// LT: one live in-edge per (sample or simulation, vertex), drawn in the
+// step.  The reference draws a uniform r per (sample, vertex) and takes
+// chosen = sum_j (cumw[v, j] <= r) over all d slots of the padded row
+// (jnp.sum(r >= cumw), repro/core/rrr.py:326-345 and
+// repro/core/cascade.py:243-257); the edge is live iff chosen <
+// in_deg[v], and is then slot `chosen` (valid slots come first).  cumw
+// holds the reference's cumulative sums in XLA's blocked order, each row
+// ascending, built once per sampling call or spread by the wrapper's
+// caller (rrr_expand.lt_tables): the kernels never sum.  A blocked sum
+// can round a later sum an ulp below an earlier one (10 of the IMM-size
+// rmat graph's rows); such a row is stored sorted, which leaves the count
+// unchanged, and rows[v] = -1 - in_deg[v] marks it; every other row is
+// the reference's as it is, rows[v] = in_deg[v].  In such a row the
+// valid slots decide: if some valid sum passes r, no later one counts,
+// and if none does, chosen >= in_deg and no edge is live whatever the
+// padded slots add.  So a choice binary searches in_deg sums (all d for
+// a marked row): ceil(log2) + 1 loads, within one or two sectors on a
+// short row.
+
+__device__ __forceinline__ int lt_in_deg(int32_t code) {
+  return code >= 0 ? code : -1 - code;
+}
+
+// The live slot of a draw r on a row (chosen < in_deg), or a value >=
+// in_deg when no in-edge is live.
+__device__ __forceinline__ int lt_choice(const float* __restrict__ row,
+                                         int d, int32_t code, float r) {
+  int lo = 0, hi = code >= 0 ? code : d;  // the first slot whose sum
+  while (lo < hi) {                        // passes r
+    const int mid = (lo + hi) >> 1;
+    if (row[mid] <= r) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// Push `bits` into word t of visited and of the next plane; the first
+// thread to make the next plane's word non-zero appends it to the list.
+__device__ __forceinline__ void push_bits(uint64_t t, uint32_t bits,
+                                          uint32_t* visited, uint32_t* next,
+                                          int32_t* next_words,
+                                          uint32_t* next_count) {
+  if (!(bits & ~visited[t])) return;
+  const uint32_t nw = bits & ~atomicOr(&visited[t], bits);
+  if (nw && !atomicOr(&next[t], nw))
+    next_words[atomicAdd(next_count, 1u)] = (int32_t)t;
+}
+
+// LT sampling step as a push over the live frontier words, with each
+// walk's live in-edge drawn in the kernel (rrr_expand_lt).  Replaces
+// rrr_expand_step_resident_pallas (repro/kernels/rrr_expand.py:351) in
+// its LT role, fed by the reference's XLA selection mask
+// (repro/core/rrr.py:326-345), which this port drew as an [n, d_pad, W]
+// plane each step (17 GB at the IMM shape).
+//
+// The list and the planes are rrr_expand_ic's: each entry v * W + w
+// names a non-zero frontier word, read and zeroed by its thread (the
+// planes ping-pong), and each new word of the next plane is appended
+// once.  Bit b of the word is sample s = 32w + b: it draws r =
+// uniform(key)[s * n + v] (the reference's [batch, n] draw; the index
+// passes 2^32 at the IMM shape and is split into hi and lo words), picks
+// slot j = lt_choice(r), and, if j < in_deg[v], pushes bit b into word
+// (nbr[v, j], w).  Consecutive bits that pick the same target are pushed
+// with one atomic.
+//
+// One thread per entry with a loop over its set bits: an LT walk has at
+// most one frontier vertex per sample, so the sampler's words hold one
+// bit or a few, and a bit has one target, not one per slot as IC's coins
+// have (IC's push spreads a word over a lane group per slot).  Bound on
+// the H100: the list, the live words, a cumw row and one nbr entry per
+// bit, the visited and next words read-modify-written, and ~80 integer
+// operations a draw — a few MB at the sampler's frontiers (at most
+// theta live bits a step), so the step's time is latency: the launch and
+// a chain of dependent loads and atomics per thread.
+__global__ void push_lt_kernel(const int32_t* __restrict__ words,
+                               uint32_t count, uint32_t* frontier,
+                               uint32_t* visited,
+                               const int32_t* __restrict__ nbr,
+                               const float* __restrict__ cumw,
+                               const int32_t* __restrict__ rows, uint32_t k0,
+                               uint32_t k1, uint32_t n, uint32_t d,
+                               uint32_t W, uint32_t* next,
+                               int32_t* __restrict__ next_words,
+                               uint32_t* next_count) {
+  const uint32_t e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= count) return;
+  const uint32_t word = (uint32_t)words[e];
+  const uint32_t f = frontier[word];
+  frontier[word] = 0u;
+  const uint32_t v = word / W;
+  const int32_t code = rows[v];
+  const int deg = lt_in_deg(code);
+  if (!f || !deg) return;               // no in-edge: no walk goes on
+  const uint32_t w = word - v * W;
+  const float* row = cumw + (uint64_t)v * d;
+  const int32_t* nrow = nbr + (uint64_t)v * d;
+  const uint64_t sample0 = (uint64_t)(32u * w) * n + v;
+  uint64_t pend_t = 0;
+  uint32_t pend = 0;
+  for (uint32_t rest = f; rest; rest &= rest - 1) {
+    const int b = __ffs(rest) - 1;
+    const int j = lt_choice(row, (int)d, code,
+                            uniform_at(k0, k1, sample0 + (uint64_t)b * n));
+    if (j >= deg) continue;
+    const uint64_t t = (uint64_t)nrow[j] * W + w;
+    if (pend && t != pend_t) {
+      push_bits(pend_t, pend, visited, next, next_words, next_count);
+      pend = 0;
+    }
+    pend_t = t;
+    pend |= 1u << b;
+  }
+  if (pend) push_bits(pend_t, pend, visited, next, next_words, next_count);
+}
+
+extern "C" int rrr_expand_lt(const void* words, int64_t count,
+                             void* frontier, void* visited, const void* nbr,
+                             const void* cumw, const void* rows, int64_t k0,
+                             int64_t k1, void* next, void* next_words,
+                             void* next_count, int64_t n, int64_t d,
+                             int64_t W, void* stream) {
+  // 32-bit words, as rrr_expand_ic: int32 list entries, 32 * W samples.
+  if (count < 1 || d < 1 || d >= (int64_t(1) << 31) ||
+      n * W >= (int64_t(1) << 31) || 32 * W >= (int64_t(1) << 32))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(next_count, 0, sizeof(uint32_t),
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t blocks = (count + kThreads - 1) / kThreads;
+  push_lt_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)words, (uint32_t)count, (uint32_t*)frontier,
+      (uint32_t*)visited, (const int32_t*)nbr, (const float*)cumw,
+      (const int32_t*)rows, (uint32_t)k0, (uint32_t)k1, (uint32_t)n,
+      (uint32_t)d, (uint32_t)W, (uint32_t*)next, (int32_t*)next_words,
+      (uint32_t*)next_count);
+  return (int)cudaGetLastError();
+}
+
+// The forward cascade's LT step with its one live in-edge drawn in the
+// kernel (cascade_lt).  Replaces rrr_expand_step_pallas
+// (repro/kernels/rrr_expand.py:271) in its LT cascade role, fed by the
+// reference's XLA one-hot selection (repro/core/cascade.py:243-257),
+// which this port drew as an [n, d_pad, W] plane, a simulation at a
+// time, before each spread.
+//
+// A pull: output word (v, w) holds simulations s = 32w + b.  A bit can
+// become new only if it is open (s < num_sims, not yet active at v) and
+// some valid in-neighbour's frontier word holds it: the group's lanes
+// stride over the row's valid slots and OR those words (cand).  Each
+// candidate bit then draws r = uniform(K[s])[v], K[s] = fold_in(key, s)
+// (the reference's per-simulation [n] draw; keys hashed once per spread,
+// staged in shared memory when they fit in 48 KB), picks slot j =
+// lt_choice(r), and is hit iff j < in_deg[v] and the frontier word of
+// nbr[v, j] holds bit b.  The candidate bits are dealt round robin to
+// the group's lanes.  new = hit & ~visited (hit holds open bits only),
+// visited_out = visited | new; with `count`, the number of non-zero new
+// words is added (one atomic a warp), so the loop stops on a 4-byte read.
+//
+// Bound on the H100: bytes at the spread's shapes (the rows' valid slots
+// for words that are open, the frontier words gathered at them, visited
+// and both outputs); the draws (one per candidate bit) are few, since a
+// cascade's frontier is sparse.
+template <bool kSharedKeys>
+__global__ void cascade_lt_kernel(const uint32_t* __restrict__ frontier,
+                                  const uint32_t* __restrict__ visited,
+                                  const int32_t* __restrict__ nbr,
+                                  const float* __restrict__ cumw,
+                                  const int32_t* __restrict__ rows,
+                                  const uint32_t* __restrict__ keys,
+                                  int64_t n, int d, int W, int num_sims,
+                                  int lg, uint32_t* __restrict__ new_frontier,
+                                  uint32_t* __restrict__ visited_out,
+                                  uint32_t* __restrict__ count) {
+  extern __shared__ uint32_t staged[];
+  const uint32_t* table = keys;
+  if (kSharedKeys) {
+    for (int i = threadIdx.x; i < 2 * num_sims; i += blockDim.x)
+      staged[i] = keys[i];
+    __syncthreads();
+    table = staged;
+  }
+  const int group = 1 << lg;
+  const int lane = threadIdx.x & (group - 1);
+  const int64_t t =
+      ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> lg;
+  const bool in = t < n * W;
+  int64_t v = 0;
+  int w = 0, deg = 0;
+  int32_t code = 0;
+  uint32_t vis = 0, cand = 0;
+  if (in) {
+    v = t / W;
+    w = (int)(t - v * W);
+    vis = visited[t];
+    const int rem = num_sims - 32 * w;
+    const uint32_t open =
+        (rem >= 32 ? 0xffffffffu : (1u << rem) - 1u) & ~vis;
+    code = rows[v];
+    deg = lt_in_deg(code);
+    if (open) {
+      const int32_t* row = nbr + v * d;
+#pragma unroll 4
+      for (int r = lane; r < deg; r += group)
+        cand |= frontier[(int64_t)row[r] * W + w];
+      cand &= open;
+    }
+  }
+  for (int off = group >> 1; off; off >>= 1)
+    cand |= __shfl_xor_sync(0xffffffffu, cand, off, group);
+  uint32_t hit = 0;
+  if (cand) {
+    const float* crow = cumw + v * d;
+    const int32_t* row = nbr + v * d;
+    const uint32_t* kw = table + 2 * 32 * w;
+    int i = 0;
+    for (uint32_t rest = cand; rest; rest &= rest - 1, ++i) {
+      if ((i & (group - 1)) != lane) continue;
+      const int b = __ffs(rest) - 1;
+      const int j = lt_choice(crow, d, code,
+                              uniform_at(kw[2 * b], kw[2 * b + 1],
+                                         (uint64_t)v));
+      if (j < deg && ((frontier[(int64_t)row[j] * W + w] >> b) & 1u))
+        hit |= 1u << b;
+    }
+  }
+  for (int off = group >> 1; off; off >>= 1)
+    hit |= __shfl_xor_sync(0xffffffffu, hit, off, group);
+  if (in && lane == 0) {
+    new_frontier[t] = hit;
+    visited_out[t] = vis | hit;
+  }
+  if (count) {
+    const unsigned live = __ballot_sync(0xffffffffu, in && lane == 0 && hit);
+    if ((threadIdx.x & 31) == 0 && live) atomicAdd(count, __popc(live));
+  }
+}
+
+extern "C" int cascade_lt(const void* frontier, const void* visited,
+                          const void* nbr, const void* cumw, const void* rows,
+                          const void* keys, void* new_frontier,
+                          void* visited_out, void* count, int64_t n,
+                          int64_t d, int64_t W, int64_t num_sims, int64_t lg,
+                          void* stream) {
+  if (d < 1 || d >= (int64_t(1) << 31) || W < 1 ||
+      num_sims <= 32 * (W - 1) || num_sims > 32 * W || lg < 0 || lg > 5)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (count) {
+    cudaError_t err = cudaMemsetAsync(count, 0, sizeof(uint32_t), s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int64_t blocks = ((n * W << lg) + kThreads - 1) / kThreads;
+  const size_t bytes = 2 * sizeof(uint32_t) * (size_t)num_sims;
+  if (bytes <= (size_t)kSharedKeyBytes)
+    cascade_lt_kernel<true><<<(unsigned)blocks, kThreads, bytes, s>>>(
+        (const uint32_t*)frontier, (const uint32_t*)visited,
+        (const int32_t*)nbr, (const float*)cumw, (const int32_t*)rows,
+        (const uint32_t*)keys, n, (int)d, (int)W, (int)num_sims, (int)lg,
+        (uint32_t*)new_frontier, (uint32_t*)visited_out, (uint32_t*)count);
+  else
+    cascade_lt_kernel<false><<<(unsigned)blocks, kThreads, 0, s>>>(
+        (const uint32_t*)frontier, (const uint32_t*)visited,
+        (const int32_t*)nbr, (const float*)cumw, (const int32_t*)rows,
+        (const uint32_t*)keys, n, (int)d, (int)W, (int)num_sims, (int)lg,
         (uint32_t*)new_frontier, (uint32_t*)visited_out, (uint32_t*)count);
   return (int)cudaGetLastError();
 }

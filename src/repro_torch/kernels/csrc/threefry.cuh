@@ -1,8 +1,9 @@
-// The IC coin's random bits: threefry-2x32 (20 rounds) as jax.random
-// draws them in partitionable mode, and the mapping of 32 bits to a
-// float32 uniform in [0, 1).  Shared by coin_pack.cu (the coin plane)
-// and rrr_expand.cu (rrr_expand_ic, which draws each coin inside the
-// expansion); a device helper, not a launch of its own.
+// The random bits of the IC coins and the LT live-edge uniforms:
+// threefry-2x32 (20 rounds) as jax.random draws them in partitionable
+// mode, and the mapping of 32 bits to a float32 uniform in [0, 1).
+// Shared by coin_pack.cu (the coin plane) and rrr_expand.cu (the IC and
+// LT sampler and cascade steps, which draw inside the expansion); a
+// device helper, not a launch of its own.
 #pragma once
 #include <cstdint>
 
@@ -34,11 +35,17 @@ __device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
 
 #undef TF_ROUND
 
-// True iff uniform(key)[idx] < p, with jax.random.uniform's mapping:
-// (bits >> 9) | 0x3f800000 read as a float, minus 1.
-__device__ __forceinline__ bool coin_fires(uint32_t k0, uint32_t k1,
-                                           uint64_t idx, float p) {
+// uniform(key)[idx], with jax.random.uniform's mapping: (bits >> 9) |
+// 0x3f800000 read as a float, minus 1 (exact: the float lies in [1, 2)).
+__device__ __forceinline__ float uniform_at(uint32_t k0, uint32_t k1,
+                                            uint64_t idx) {
   const uint32_t bits =
       threefry_bits(k0, k1, (uint32_t)(idx >> 32), (uint32_t)idx);
-  return __uint_as_float((bits >> 9) | 0x3f800000u) - 1.0f < p;
+  return __uint_as_float((bits >> 9) | 0x3f800000u) - 1.0f;
+}
+
+// True iff uniform(key)[idx] < p.
+__device__ __forceinline__ bool coin_fires(uint32_t k0, uint32_t k1,
+                                           uint64_t idx, float p) {
+  return uniform_at(k0, k1, idx) < p;
 }

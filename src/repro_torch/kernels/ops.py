@@ -23,11 +23,11 @@ import torch
 from repro_torch.kernels import build
 
 KERNELS = ("rrr_expand_resident", "rrr_expand_streamed", "rrr_expand_ic",
-           "cascade_ic", "coin_pack", "greedy_pick", "bucket_insert",
-           "coverage", "topk_gain", "lazy_greedy", "bucket_insert_stream",
-           "bucket_gains", "greedy_pick_batch", "lazy_greedy_batch",
-           "topk_gain_batch", "compact_rows", "greedy_pick_compact",
-           "lazy_greedy_compact")
+           "cascade_ic", "rrr_expand_lt", "cascade_lt", "coin_pack",
+           "greedy_pick", "bucket_insert", "coverage", "topk_gain",
+           "lazy_greedy", "bucket_insert_stream", "bucket_gains",
+           "greedy_pick_batch", "lazy_greedy_batch", "topk_gain_batch",
+           "compact_rows", "greedy_pick_compact", "lazy_greedy_compact")
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 

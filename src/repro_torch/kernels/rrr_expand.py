@@ -39,6 +39,23 @@ only behind a frontier bit that can still become new.  Its keys come
 from ``cascade_keys``, its plain version is ``cascade_step_ic_plain``;
 both equal ``rrr_expand_step`` over the cascade's live-edge plane word
 for word, so the spread builds no plane.
+
+LT has one live in-edge per (sample or simulation, vertex): slot
+``chosen`` = the count of ``cumw[v, j] <= r`` over the padded row, live
+below the in-degree (``cumw`` the reference's blocked cumulative
+weights, built by the caller with ``lt_tables``, which also codes each
+row's in-degree).  The LT sampler's step is
+``rrr_expand_push_lt`` (kernel ``rrr_expand_lt``): the IC push's list
+and planes, with bit ``b`` of live word ``(v, w)`` drawing ``r =
+uniform(key)[(32 w + b) * n + v]`` and pushing into the word of
+``nbr[v, chosen]``; plain version ``expand_step_lt_push_plain``, dense
+entry point ``rrr_expand_step_lt``.  The LT cascade's step is
+``cascade_step_lt`` (kernel ``cascade_lt``), a pull whose simulation
+``s`` draws ``r = uniform(fold_in(key, s), (n,))[v]`` only for an open
+bit that some in-neighbour's frontier word holds (keys from
+``lt_cascade_keys``); plain version ``cascade_step_lt_plain``.  Both
+equal the expansions over the reference's LT selection plane word for
+word.
 """
 from __future__ import annotations
 
@@ -53,6 +70,9 @@ _RESIDENT_ARGS = [ops.PTR] * 7 + [ops.I64] * 4
 _STREAMED_ARGS = [ops.PTR] * 6 + [ops.I64] * 3
 _IC_ARGS = [ops.PTR, ops.I64] + [ops.PTR] * 8 + [ops.I64] * 5
 _CASCADE_ARGS = [ops.PTR] * 8 + [ops.I64] * 7
+_LT_ARGS = ([ops.PTR, ops.I64] + [ops.PTR] * 5 + [ops.I64] * 2
+            + [ops.PTR] * 3 + [ops.I64] * 3)
+_CASCADE_LT_ARGS = [ops.PTR] * 9 + [ops.I64] * 5
 
 
 def _finish(hit, visited):
@@ -166,27 +186,35 @@ def live_words(frontier: torch.Tensor) -> torch.Tensor:
     return torch.nonzero(frontier.reshape(-1)).reshape(-1).to(torch.int32)
 
 
-def _check_push(words, frontier, visited, nbr, prob_p, keys, chunk,
-                next_frontier, next_words, next_count):
+def _check_lists(words, frontier, visited, nbr, next_frontier, next_words,
+                 next_count):
+    """The push's list, planes and reverse table, either model."""
     n, w = frontier.shape
-    d_pad = prob_p.shape[1]
-    if len(keys) * chunk != d_pad:
-        raise ValueError(f"{len(keys)} chunk keys x {chunk} slots != "
-                         f"d_pad {d_pad}")
     ops.check(words, "words", torch.int32, (None,))
     for name, t in (("frontier", frontier), ("visited", visited),
                     ("next_frontier", next_frontier)):
         ops.check(t, name, torch.int32, (n, w))
     ops.check(nbr, "nbr", torch.int32, (n, None))
-    ops.check(prob_p, "prob_p", torch.float32, (n, d_pad))
     ops.check(next_words, "next_words", torch.int32, (n * w,))
     ops.check(next_count, "next_count", torch.int32, (1,))
-    if nbr.shape[1] > d_pad:
-        raise ValueError(f"nbr has {nbr.shape[1]} slots, prob_p {d_pad}")
     planes = {t.data_ptr() for t in (frontier, visited, next_frontier)}
     if len(planes) != 3:
         raise ValueError("frontier, visited and next_frontier must be "
                          "three distinct planes")
+
+
+def _check_push(words, frontier, visited, nbr, prob_p, keys, chunk,
+                next_frontier, next_words, next_count):
+    n = frontier.shape[0]
+    d_pad = prob_p.shape[1]
+    if len(keys) * chunk != d_pad:
+        raise ValueError(f"{len(keys)} chunk keys x {chunk} slots != "
+                         f"d_pad {d_pad}")
+    _check_lists(words, frontier, visited, nbr, next_frontier, next_words,
+                 next_count)
+    ops.check(prob_p, "prob_p", torch.float32, (n, d_pad))
+    if nbr.shape[1] > d_pad:
+        raise ValueError(f"nbr has {nbr.shape[1]} slots, prob_p {d_pad}")
 
 
 # Entries x row width of one pass of the plain push (bounds its memory
@@ -224,14 +252,28 @@ def expand_step_ic_push_plain(words, frontier, visited, nbr, prob_p,
     contract (:func:`rrr_expand_push_ic`); the next list comes out
     ascending.  Slots with ``nbr >= 0`` are valid."""
     n, w_total = frontier.shape
-    flat_f, flat_vis = frontier.view(-1), visited.view(-1)
-    flat_next = next_frontier.view(-1)
-    idx = words.long()
-    f = flat_f[idx]
-    flat_f[idx] = 0
+    idx, f = _take(words, frontier)
     per = max(1, _PLAIN_SLOTS // max(nbr.shape[1], 1))
     fired = [_fired(idx[lo:lo + per], f[lo:lo + per], nbr, prob_p, keys,
                     chunk, n, w_total) for lo in range(0, idx.numel(), per)]
+    _settle(fired, idx, visited, next_frontier, next_words, next_count)
+
+
+def _take(words, frontier):
+    """The listed words' flat indices and values, zeroed in the plane."""
+    flat_f = frontier.view(-1)
+    idx = words.long()
+    f = flat_f[idx]
+    flat_f[idx] = 0
+    return idx, f
+
+
+def _settle(fired, idx, visited, next_frontier, next_words,
+            next_count) -> None:
+    """The push's writes, from the bits ``(u * W + w) * 32 + b`` that
+    reach their targets: visited and the next plane gain the new ones,
+    and the next list (ascending) the words that turn non-zero."""
+    flat_vis, flat_next = visited.view(-1), next_frontier.view(-1)
     hit_bits = torch.unique(torch.cat(fired) if fired else idx)
     hw, inv = torch.unique_consecutive(hit_bits // bitset.WORD_BITS,
                                        return_inverse=True)
@@ -298,14 +340,121 @@ def rrr_expand_step_ic(frontier, visited, nbr, prob_p, keys: list[Key],
     reverse slots -> (new_frontier, new_visited).  Lists the frontier's
     live words, clones visited and the frontier, then runs
     :func:`rrr_expand_push_ic`."""
+    return _dense_step(
+        lambda *planes: rrr_expand_push_ic(planes[0], planes[1], planes[2],
+                                           nbr, prob_p, keys, chunk,
+                                           *planes[3:]),
+        frontier, visited)
+
+
+def _dense_step(push, frontier, visited):
     n, w = frontier.shape
     new_frontier, new_visited = torch.zeros_like(frontier), visited.clone()
-    rrr_expand_push_ic(
-        live_words(frontier), frontier.clone(), new_visited, nbr, prob_p,
-        keys, chunk, new_frontier,
-        torch.empty(n * w, dtype=torch.int32, device=frontier.device),
-        torch.empty(1, dtype=torch.int32, device=frontier.device))
+    push(live_words(frontier), frontier.clone(), new_visited, new_frontier,
+         torch.empty(n * w, dtype=torch.int32, device=frontier.device),
+         torch.empty(1, dtype=torch.int32, device=frontier.device))
     return new_frontier, new_visited
+
+
+def lt_tables(nbr, cumw):
+    """The LT kernels' tables from the reference's cumulative weights
+    ``cumw`` [n, d]: (the weights with each row ascending, the row codes
+    int32 [n]).  A row whose sums decrease somewhere (the rounding of a
+    blocked sum) is sorted — the count of sums at or below a draw is the
+    same in any order — and coded ``-1 - in_degree``, so the kernels
+    search all its d sums; every other row stays as it is, coded with
+    its in-degree (its valid slots, ``nbr >= 0``), whose sums alone
+    decide a choice."""
+    in_deg = (nbr >= 0).sum(1)
+    rising = (cumw[:, 1:] >= cumw[:, :-1]).all(1)
+    if not bool(rising.all()):
+        cumw = cumw.clone()
+        cumw[~rising] = cumw[~rising].sort(1).values
+    return (cumw.contiguous(),
+            torch.where(rising, in_deg, -1 - in_deg).to(torch.int32))
+
+
+def _lt_slots(cumw, rows, v, r):
+    """(slot, live) of the LT draws ``r`` at vertices ``v``: the
+    reference's count of ``cumw[v, j] <= r`` over the whole padded row
+    (in any order), live below the in-degree (in passes of at most
+    ``_PLAIN_SLOTS`` entries)."""
+    d = cumw.shape[1]
+    per = max(1, _PLAIN_SLOTS // max(d, 1))
+    chosen = torch.cat([(cumw[v[lo:lo + per]] <= r[lo:lo + per, None]).sum(1)
+                        for lo in range(0, v.numel(), per)]
+                       ) if v.numel() else v.clone()
+    deg = torch.where(rows >= 0, rows, -1 - rows)[v]
+    return chosen, chosen < deg
+
+
+def _check_lt(nbr, cumw, rows):
+    n, d = nbr.shape
+    ops.check(cumw, "cumw", torch.float32, (n, d))
+    ops.check(rows, "rows", torch.int32, (n,))
+
+
+def expand_step_lt_push_plain(words, frontier, visited, nbr, cumw, rows,
+                              key: Key, next_frontier, next_words,
+                              next_count) -> None:
+    """The LT push step in plain PyTorch, with the kernel's in-place
+    contract (:func:`rrr_expand_push_lt`); the next list comes out
+    ascending."""
+    n, w_total = frontier.shape
+    idx, f = _take(words, frontier)
+    live = bitset.unpack_words(f[:, None], bitset.WORD_BITS)
+    i, b = torch.nonzero(live, as_tuple=True)          # set bits of each
+    v, w = idx[i] // w_total, idx[i] % w_total
+    r = key.uniform_at((bitset.WORD_BITS * w + b) * n + v)
+    chosen, ok = _lt_slots(cumw, rows, v, r)
+    tgt = nbr[v[ok], chosen[ok]].long() * w_total + w[ok]
+    _settle([tgt * bitset.WORD_BITS + b[ok]], idx, visited, next_frontier,
+            next_words, next_count)
+
+
+def rrr_expand_push_lt(words, frontier, visited, nbr, cumw, rows, key: Key,
+                       next_frontier, next_words, next_count) -> None:
+    """One LT sampling step as a push over the live frontier words, in
+    place, with :func:`rrr_expand_push_ic`'s contract for ``words``,
+    ``frontier``, ``visited``, ``next_frontier``, ``next_words`` and
+    ``next_count``.  ``nbr`` int32 [n, d] is the reverse adjacency
+    (valid slots first, -1 after), ``cumw`` float32 [n, d] and ``rows``
+    int32 [n] its LT tables (:func:`lt_tables`), ``key`` the step's key:
+    sample ``s`` at vertex ``v`` draws ``uniform(key)[s * n + v]``."""
+    n, w = frontier.shape
+    _check_lists(words, frontier, visited, nbr, next_frontier, next_words,
+                 next_count)
+    _check_lt(nbr, cumw, rows)
+    tensors = (words, frontier, visited, nbr, cumw, rows, next_frontier,
+               next_words, next_count)
+    if not ops.on_card(*tensors):
+        return expand_step_lt_push_plain(words, frontier, visited, nbr, cumw,
+                                         rows, key, next_frontier,
+                                         next_words, next_count)
+    if n * w >= 2**31:
+        raise ValueError(f"n x W = {n * w} words do not fit the int32 "
+                         "word list")
+    if words.numel() == 0:
+        next_count.zero_()
+        return None
+    ops.launch("rrr_expand_lt", "rrr_expand", "rrr_expand_lt", _LT_ARGS,
+               words.data_ptr(), words.numel(), frontier.data_ptr(),
+               visited.data_ptr(), nbr.data_ptr(), cumw.data_ptr(),
+               rows.data_ptr(), key.k0, key.k1, next_frontier.data_ptr(),
+               next_words.data_ptr(), next_count.data_ptr(), n,
+               nbr.shape[1], w)
+    return None
+
+
+def rrr_expand_step_lt(frontier, visited, nbr, cumw, rows, key: Key):
+    """The dense entry point of the LT push (frontier and visited left
+    untouched) -> (new_frontier, new_visited), equal word for word to
+    the expansion over the reference's LT selection plane."""
+    return _dense_step(
+        lambda *planes: rrr_expand_push_lt(planes[0], planes[1], planes[2],
+                                           nbr, cumw, rows, key,
+                                           *planes[3:]),
+        frontier, visited)
 
 
 def cascade_keys(key: Key, n_chunks: int, num_sims: int,
@@ -317,6 +466,18 @@ def cascade_keys(key: Key, n_chunks: int, num_sims: int,
     pinned copy on the current stream)."""
     c = np.arange(n_chunks, dtype=np.int64)
     k0, k1 = prng.threefry2x32(key.k0, key.k1, np.zeros_like(c), c)
+    return _sim_keys(k0, k1, num_sims, device)
+
+
+def lt_cascade_keys(key: Key, num_sims: int, device) -> torch.Tensor:
+    """The LT cascade's key table, int32 [num_sims, 2]: row ``s`` holds
+    ``fold_in(key, s)``, the reference's key of simulation ``s``."""
+    return _sim_keys(np.array([key.k0], np.int64),
+                     np.array([key.k1], np.int64), num_sims, device)[0]
+
+
+def _sim_keys(k0, k1, num_sims: int, device) -> torch.Tensor:
+    """int32 [len(k0), num_sims, 2]: ``fold_in((k0[c], k1[c]), s)``."""
     s = np.arange(num_sims, dtype=np.int64)[None]
     y0, y1 = prng.threefry2x32(k0[:, None], k1[:, None], np.zeros_like(s), s)
     table = torch.from_numpy(
@@ -417,4 +578,81 @@ def cascade_step_ic(frontier, visited, nbr, prob, keys, chunk: int,
                prob.data_ptr(), keys.data_ptr(), newf.data_ptr(),
                viso.data_ptr(), None if count is None else count.data_ptr(),
                n, d, chunk, n_chunks, w, num_sims, lanes.bit_length() - 1)
+    return newf, viso
+
+
+def cascade_step_lt_plain(frontier, visited, nbr, cumw, rows, keys,
+                          num_sims: int, count=None):
+    """:func:`cascade_step_lt` in plain PyTorch: the open bits that some
+    valid in-neighbour's frontier word holds, each drawn at its key and
+    vertex through ``prng.threefry2x32`` and hit iff its live slot's
+    frontier word holds the bit."""
+    n, w = frontier.shape
+    d = nbr.shape[1]
+    cand = torch.zeros_like(frontier)
+    for r in range(d):
+        u = nbr[:, r].long()
+        cand |= torch.where((u >= 0)[:, None], frontier[u.clamp(min=0)], 0)
+    cand &= bitset.lane_words(num_sims, frontier.device)[None] & ~visited
+    v, wi = torch.nonzero(cand, as_tuple=True)
+    live = bitset.unpack_words(cand[v, wi][:, None], bitset.WORD_BITS)
+    i, b = torch.nonzero(live, as_tuple=True)            # set bits of each
+    vi, wb = v[i], wi[i]
+    k = keys.to(torch.int64)[bitset.WORD_BITS * wb + b] & prng.M32
+    y0, y1 = prng.threefry2x32(k[:, 0], k[:, 1], torch.zeros_like(vi), vi)
+    chosen, ok = _lt_slots(cumw, rows, vi, prng.float_from_bits(y0 ^ y1))
+    u = nbr[vi, chosen.clamp(max=max(d - 1, 0))].long().clamp(min=0)
+    fire = ok & ((frontier[u, wb] >> b) & 1).bool()
+    word = torch.zeros(v.numel(), dtype=torch.int64, device=v.device)
+    word.index_add_(0, i[fire], torch.ones_like(b[fire]) << b[fire])
+    hit = torch.zeros_like(frontier)
+    hit[v, wi] = bitset.to_words(word)
+    new = hit & ~visited
+    if count is not None:
+        count.fill_(int((new != 0).sum()))
+    return new, visited | new
+
+
+def cascade_step_lt(frontier, visited, nbr, cumw, rows, keys, num_sims: int,
+                    count=None, lanes: int | None = None):
+    """One forward LT cascade step with each simulation's live in-edge
+    drawn in the step: frontier/visited int32 [n, W], nbr int32 [n, d]
+    (the reverse table, valid slots first, -1 after), cumw float32 [n,
+    d] and rows int32 [n] its LT tables (:func:`lt_tables`), keys int32
+    [num_sims, 2]
+    (:func:`lt_cascade_keys`) -> (new_frontier, new_visited), equal word
+    for word to :func:`rrr_expand_step` over the LT live-edge plane of
+    those keys.  ``count`` and ``lanes`` as :func:`cascade_step_ic`."""
+    n, w = frontier.shape
+    d = nbr.shape[1]
+    if lanes is None:
+        lanes = step_lanes(d)
+    if num_sims < 1 or bitset.num_words(num_sims) != w:
+        raise ValueError(f"{num_sims} simulations do not fill {w} words")
+    if lanes not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"lanes must be a power of two up to 32, got "
+                         f"{lanes}")
+    ops.check(frontier, "frontier", torch.int32, (n, w))
+    ops.check(visited, "visited", torch.int32, (n, w))
+    ops.check(nbr, "nbr", torch.int32, (n, d))
+    _check_lt(nbr, cumw, rows)
+    ops.check(keys, "keys", torch.int32, (num_sims, 2))
+    tensors = (frontier, visited, nbr, cumw, rows, keys)
+    if count is not None:
+        ops.check(count, "count", torch.int32, (1,))
+        tensors += (count,)
+    if not ops.on_card(*tensors):
+        return cascade_step_lt_plain(frontier, visited, nbr, cumw, rows,
+                                     keys, num_sims, count)
+    newf, viso = torch.empty_like(frontier), torch.empty_like(visited)
+    if n * w == 0 or d == 0:
+        if count is not None:
+            count.zero_()
+        return newf.zero_(), viso.copy_(visited)
+    ops.launch("cascade_lt", "rrr_expand", "cascade_lt", _CASCADE_LT_ARGS,
+               frontier.data_ptr(), visited.data_ptr(), nbr.data_ptr(),
+               cumw.data_ptr(), rows.data_ptr(), keys.data_ptr(),
+               newf.data_ptr(), viso.data_ptr(),
+               None if count is None else count.data_ptr(), n, d, w,
+               num_sims, lanes.bit_length() - 1)
     return newf, viso

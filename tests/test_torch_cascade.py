@@ -89,7 +89,9 @@ def test_ic_kernel_route_matches_reference(kind, n, num_sims, coin_chunk,
 
 def test_ic_kernel_route_builds_no_live_plane(monkeypatch):
     """IC kernel/auto runs cascade_step_ic and never draws the plane; the
-    other gathers and LT still do, with the same words."""
+    other gathers still do, with the same words.  LT kernel/auto now
+    steps through its own kernel (cascade_step_lt) and draws no plane
+    either (tests/test_torch_lt.py holds its other gathers)."""
     g = port_graph(_graph("er", 200))
     key, seeds = prng.key(3), torch.tensor([0, 5, 9])
     draws, steps = [], []
@@ -106,8 +108,11 @@ def test_ic_kernel_route_builds_no_live_plane(monkeypatch):
                                                      gather=gather), got)
         assert draws and not steps
         draws.clear()
+    lt_steps, lt_step = [], rrr_expand.cascade_step_lt
+    monkeypatch.setattr(rrr_expand, "cascade_step_lt",
+                        lambda *a, **k: lt_steps.append(1) or lt_step(*a, **k))
     cascade.simulate_cascades(g, seeds, key, model="LT")
-    assert draws and not steps
+    assert lt_steps and not draws and not steps
 
 
 def _plane_inputs(kind, n, num_sims, coin_chunk, seed):

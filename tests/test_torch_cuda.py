@@ -224,6 +224,156 @@ def test_cascade_ic_route_on_card(dev):
     assert all(torch.equal(first, w) for w in words.values())
 
 
+def _lt_graph(graph, dev):
+    if graph == "er":
+        return generators.erdos_renyi(3000, 4.0, seed=4, device=dev)
+    if graph == "star":
+        return generators.star(5000, device=dev)
+    if graph in ("reverse star", "unsorted rows"):
+        return csr.from_edge_list(np.arange(1, 2000), np.zeros(1999, np.int64),
+                                  2000, seed=2, device=dev)
+    if graph == "rmat":
+        return generators.rmat(14, 1 << 16, seed=3, device=dev)
+    return generators.erdos_renyi(262144, 4.0, seed=0, device=dev)
+
+
+def _lt_sampler_tables(gen, graph, dev, forward=True):
+    """LT tables on ``graph``; "unsorted rows" permutes each row's
+    cumulative weights, so the hub row is marked and searched whole."""
+    g = _lt_graph(graph, dev)
+    nbr, prob, wt = csr.padded_adjacency(g)
+    fwd = csr.padded_forward_adjacency(g) if forward else (None, None)
+    t = rrr._Tables(nbr, prob, wt, *fwd, model="LT", coin_chunk=32,
+                    forward=forward)
+    if graph == "unsorted rows":
+        t.cumw, t.lt_rows = rrr_expand.lt_tables(t.nbr, t.cumw[
+            :, torch.randperm(t.d, generator=gen).to(dev)])
+        assert int((t.lt_rows < 0).sum()) > 0
+    return t
+
+
+def _lt_push_both(t, f, vis, key):
+    n, w = f.shape
+    words = rrr_expand.live_words(f)
+    outs = []
+    for fn in (rrr_expand.rrr_expand_push_lt,
+               rrr_expand.expand_step_lt_push_plain):
+        fc, vc, nxt = f.clone(), vis.clone(), torch.zeros_like(f)
+        listed = torch.empty(n * w, dtype=torch.int32, device=f.device)
+        count = torch.zeros(1, dtype=torch.int32, device=f.device)
+        fn(words, fc, vc, t.nbr, t.cumw, t.lt_rows, key, nxt, listed, count)
+        outs.append((nxt, vc, listed[:int(count)].sort().values, fc))
+    return outs
+
+
+@pytest.mark.parametrize("graph,w", [
+    ("er", 3), ("er", 1), ("star", 7), ("reverse star", 7), ("rmat", 7),
+    ("unsorted rows", 7), ("imm", 520)])   # imm: the draw index passes 2**32
+def test_expand_lt(dev, graph, w):
+    """rrr_expand_lt against its plain version (planes word for word,
+    lists as sorted sets, each word listed once, the frontier it read
+    zeroed), and the dense entry point against the selection plane
+    through the resident expansion: short rows and hub rows binary
+    searched (reverse star, rmat), a marked row searched whole, a star
+    whose leaves all push into the hub, and the IMM graph's roots at
+    W = 520, where s * n + v passes 2**32."""
+    gen = torch.Generator().manual_seed(w)
+    t = _lt_sampler_tables(gen, graph, dev)
+    n = t.n
+    if graph == "imm":
+        f = rrr.packed_roots(torch.randint(0, n, (32 * w,), generator=gen
+                                           ).to(dev), n)
+        vis = f.clone()
+    else:
+        f = _words(gen, n, w, dev=dev) & _words(gen, n, w, dev=dev)
+        vis = f | (_words(gen, n, w, dev=dev) & _words(gen, n, w, dev=dev))
+    key = prng.key(13).fold_in(w)
+    kernel, plain = _lt_push_both(t, f, vis, key)
+    _equal(kernel, plain)
+    assert not bool(kernel[3].any())
+    assert kernel[2].unique().numel() == kernel[2].numel()
+    assert int((kernel[0] != 0).sum()) > 0
+    got = rrr_expand.rrr_expand_step_lt(f, vis, t.nbr, t.cumw, t.lt_rows, key)
+    _equal(got, kernel[:2])
+    if graph != "unsorted rows":
+        plane = rrr._lt_mask(t, key, f).reshape(n * t.d_pad, -1)
+        _equal(got, rrr_expand.rrr_expand_step_resident(f, vis, t.nbr_c,
+                                                        t.gidx, plane))
+
+
+def test_expand_lt_empty_list(dev):
+    """An empty word list launches nothing and lists nothing."""
+    t = _lt_sampler_tables(torch.Generator().manual_seed(0), "er", dev,
+                           forward=False)
+    f = torch.zeros((t.n, 2), dtype=torch.int32, device=dev)
+    listed = torch.empty(t.n * 2, dtype=torch.int32, device=dev)
+    count = torch.full((1,), 9, dtype=torch.int32, device=dev)
+    ops.reset_launches()
+    rrr_expand.rrr_expand_push_lt(
+        torch.zeros(0, dtype=torch.int32, device=dev), f, f.clone(), t.nbr,
+        t.cumw, t.lt_rows, prng.key(1), f.clone(), listed, count)
+    assert int(count) == 0 and ops.LAUNCHES["rrr_expand_lt"] == 0
+
+
+@pytest.mark.parametrize("graph,num_sims", [
+    ("er", 64), ("er", 100), ("er", 1), ("reverse star", 64),
+    ("reverse star", 33), ("rmat", 64), ("unsorted rows", 64)])
+def test_cascade_lt(dev, graph, num_sims):
+    """cascade_lt against its plain version for every lane group width,
+    with its count of new words: dense frontiers, pad lanes, hub rows
+    searched and a marked row searched whole."""
+    gen = torch.Generator().manual_seed(num_sims)
+    t = _lt_sampler_tables(gen, graph, dev, forward=False)
+    n, w = t.n, bitset.num_words(num_sims)
+    f = _words(gen, n, w, dev=dev) | 1
+    vis = _words(gen, n, w, dev=dev) & _words(gen, n, w, dev=dev)
+    keys = rrr_expand.lt_cascade_keys(prng.key(9), num_sims, dev)
+    want = rrr_expand.cascade_step_lt_plain(f, vis, t.nbr, t.cumw, t.lt_rows,
+                                            keys, num_sims)
+    assert int((want[0] != 0).sum()) > 0
+    for lanes in (1, 2, 4, 8, 16, 32):
+        count = torch.full((1,), 7, dtype=torch.int32, device=dev)
+        got = rrr_expand.cascade_step_lt(f, vis, t.nbr, t.cumw, t.lt_rows,
+                                         keys, num_sims, count=count,
+                                         lanes=lanes)
+        _equal(got, want)
+        assert int(count) == int((want[0] != 0).sum())
+
+
+def test_lt_routes_on_card(dev):
+    """LT sampling on the resident layout launches rrr_expand_lt and no
+    plane kernel, the LT spread's kernel route cascade_lt and no plane
+    kernel; both equal the plane routes and the CPU."""
+    seeds = torch.tensor([0, 5, 77, -1, 4000])
+    words, x = {}, {}
+    for device in (dev, "cpu"):
+        g = generators.erdos_renyi(3000, 4.0, seed=5, device=device)
+        nbr, prob, wt = csr.padded_adjacency(g)
+        fwd = csr.padded_forward_adjacency(g)
+        for gather in ("auto", "streamed"):
+            ops.reset_launches()
+            x[(str(device), gather)] = rrr.sample_incidence(
+                nbr, prob, wt, prng.key(4), theta=256, n=3000, model="LT",
+                fwd=fwd, gather=gather).cpu()
+            if device == dev and gather == "auto":
+                assert ops.LAUNCHES["rrr_expand_lt"] > 0
+                assert not ops.LAUNCHES["rrr_expand_resident"]
+                assert not ops.LAUNCHES["rrr_expand_streamed"]
+        for gather in ("auto", "resident", "streamed"):
+            ops.reset_launches()
+            words[(str(device), gather)] = cascade.simulate_cascades(
+                g, seeds, prng.key(2), model="LT", gather=gather).cpu()
+            if device == dev and gather == "auto":
+                assert ops.LAUNCHES["cascade_lt"] > 0
+                assert not ops.LAUNCHES["rrr_expand_streamed"]
+                assert not ops.LAUNCHES["rrr_expand_resident"]
+    first = x[(str(dev), "auto")]
+    assert all(torch.equal(first, v) for v in x.values())
+    first = words[(str(dev), "auto")]
+    assert int((first != 0).sum()) > 5
+    assert all(torch.equal(first, v) for v in words.values())
+
+
 def test_greedy_and_bucket(dev):
     gen = torch.Generator().manual_seed(2)
     rows = _words(gen, 4, 300, 3, dev=dev) & _words(gen, 4, 300, 3, dev=dev)

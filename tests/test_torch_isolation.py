@@ -79,6 +79,14 @@ def test_cpu_tensors_take_plain_versions_without_launches():
         frontier, visited, nbr, torch.full((n, df), 0.5),
         rrr_expand.cascade_keys(prng.key(1), 1, 64, "cpu"), df, 64,
         count=torch.zeros(1, dtype=torch.int32))
+    cumw, lt_rows = rrr_expand.lt_tables(
+        nbr, torch.linspace(0.2, 1.0, df).expand(n, df))
+    rrr_expand.rrr_expand_step_lt(frontier, visited, nbr, cumw, lt_rows,
+                                  prng.key(1))
+    rrr_expand.cascade_step_lt(
+        frontier, visited, nbr, cumw, lt_rows,
+        rrr_expand.lt_cascade_keys(prng.key(1), 64, "cpu"), 64,
+        count=torch.zeros(1, dtype=torch.int32))
     greedy_pick.greedy_maxcover_resident(w(2, n, width), 3)
     bucket_insert.bucket_insert_chunk(
         torch.arange(4, dtype=torch.int32), w(4, width), w(3, width),

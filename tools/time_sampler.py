@@ -41,9 +41,11 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # (module, function) of every kernel wrapper an RRR step may call; the
-# ones a version lacks are skipped.  The IC push (rrr_expand_push_ic)
-# leaves its count on the card, so its events bracket the launch alone.
+# ones a version lacks are skipped.  The pushes (rrr_expand_push_ic,
+# rrr_expand_push_lt) leave their count on the card, so their events
+# bracket the launch alone.
 KERNEL_FNS = (("rrr_expand", "rrr_expand_push_ic"),
+              ("rrr_expand", "rrr_expand_push_lt"),
               ("rrr_expand", "rrr_expand_step_ic"),
               ("rrr_expand", "rrr_expand_step_resident"),
               ("rrr_expand", "rrr_expand_step"),
