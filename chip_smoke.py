@@ -9,14 +9,20 @@ equality: every output is integer words or ids, so the tolerance is
 zero), checks the kernel paths against the plain paths end to end at a
 small size (the IMM loop, the fixed-theta GreediRIS round and the
 Ripples round over every solver, receiver, schedule and shuffle, the
-serving replay over every solver, and OPIM), drives every path at full
+serving replay over every solver, OPIM, and the spread under IC, LT and
+WC over every engine and gather, against the CPU's map and packed
+engines), drives every path at full
 size through the entry points a user calls (the IMM loop with the
-GreediRIS selector; the fixed-theta round with the lazy and the fused
-senders; the Ripples round; the serving replay with the resident and
+GreediRIS selector and the spread's cross-check over the map, packed
+and kernel engines, phase ``full``; the weighted-cascade spread of its
+seeds over every route, phase ``wc``; the fixed-theta round with the
+lazy and the fused senders, and under injected faults through the
+resilient round (survivors merge, plain twin, all machines lost), phase
+``faulted``; the Ripples round; the serving replay with the resident and
 the lazy senders; every one samples IC through rrr_expand_ic, a push
 over the frontier's live words that draws the coins in the step and
 builds no coin plane, and solves its machine axis on the compact layout,
-the list of the rows' non-zero words; every spread steps through
+the list of the rows' non-zero words; every kernel-engine spread steps through
 cascade_ic, which draws the live edges in the step and builds no
 live-edge plane), drives the same IMM under LT (sampling through
 rrr_expand_lt and spreading through cascade_lt, which draw each live
@@ -35,12 +41,14 @@ without a CUDA device or on any failure.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import inspect
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -50,7 +58,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.core import bitset, greediris, imm, prng, rrr  # noqa: E402
-from repro_torch.core import cascade, maxcover, streaming  # noqa: E402
+from repro_torch.core import (cascade, maxcover, randgreedi,  # noqa: E402
+                              streaming)
 from repro_torch.graphs import csr, generators  # noqa: E402
 from repro_torch.core import service  # noqa: E402
 from repro_torch.kernels import (build, bucket, bucket_insert,  # noqa: E402
@@ -98,6 +107,25 @@ LT_RECORDED = dict(theta=32768, rounds=1, coverage_fraction=0.058837890625,
                    seeds_sha256="f49486f38e8a4694")
 # The LT run's kernels: its sampler's push and its spread's step.
 LT_RUN = ("rrr_expand_lt", "cascade_lt")
+# Slice 4, the paths that check a result: the slice-1 IMM run with the
+# spread's cross-check (--eval-spread: the map, packed and kernel
+# engines on its seeds, one value required) ...
+FULL_CHECKED = FULL + ["--eval-spread"]
+# ... the weighted cascade (p(u -> v) = the normalized LT weight, ~1/d_in)
+# on FULL's graph and the FULL run's seeds, over every route of the
+# spread: (engine, gather) ...
+WC_ROUTES = (("kernel", "auto"), ("kernel", "resident"),
+             ("kernel", "streamed"), ("packed", "auto"), ("map", "auto"))
+# ... and the round of ROUND under injected faults (runtime.faults):
+# machine 3 dropped, machine 5's gains poisoned, machine 2 a straggler
+# and the first merge raising (retried): the survivors merge.
+FAULTS = ["--faults", "local.greedy:drop:3", "--faults",
+          "local.greedy:nan:5", "--faults", "local.greedy:delay:2:0.05",
+          "--faults", "receiver.insert:raise:0"]
+FAULTED = ROUND + FAULTS
+FAULT_SURVIVORS = (0, 1, 2, 4, 6, 7)
+ALL_LOST = [a for j in range(8) for a in ("--faults",
+                                          f"local.greedy:drop:{j}")]
 
 
 def at_scale(argv, **flags):
@@ -164,7 +192,8 @@ SMALL_RUN = {
 # its time from (phase `order`).
 FULL_RUNS = {"imm": "imm", "lt": "lt", "round lazy": "round",
              "round fused": "round", "ripples": "round",
-             "serve resident": "serve", "serve lazy": "serve"}
+             "serve resident": "serve", "serve lazy": "serve",
+             "wc": "wc", "faulted lazy": "round"}
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak bandwidth
 # INT32 ALU peak: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock (NVIDIA
@@ -612,7 +641,7 @@ CASCADE_LANES = (1, 2, 4, 8, 16, 32)
 
 def cascade_step(g, num_sims, coin_chunk, dev, key, *, seeds=None,
                  gen=None, model="IC"):
-    """One cascade step's inputs on graph ``g`` (``model`` IC: for
+    """One cascade step's inputs on graph ``g`` (``model`` IC or WC: for
     cascade_ic, LT: for cascade_lt): its reverse table, the chunk width
     (IC) or the cumulative weights and row codes (LT), the key table,
     and a frontier and visited plane — the first step from ``seeds``
@@ -637,8 +666,8 @@ def cascade_step(g, num_sims, coin_chunk, dev, key, *, seeds=None,
                     num_sims=num_sims,
                     keys=rrr_expand.lt_cascade_keys(key, num_sims, dev))
     else:
-        step = dict(model=model, nbr=nbr, prob=prob, chunk=chunk,
-                    num_sims=num_sims,
+        step = dict(model=model, nbr=nbr, chunk=chunk, num_sims=num_sims,
+                    prob=cascade._edge_prob(nbr, prob, wt, model),
                     keys=rrr_expand.cascade_keys(key, n_chunks, num_sims, dev))
     return step, f, vis
 
@@ -1311,19 +1340,24 @@ def check_ic_spread(run: str, launches: dict, planes: int):
 
 
 def full_run():
+    """The slice-1 command with the spread's cross-check (FULL_CHECKED):
+    the map, packed and kernel engines must give its spread.  Only the
+    cross-check's packed engine draws a live-edge plane."""
     ops.reset_launches()
     with PlaneDraws() as planes:
-        out = im_driver.run(FULL)
+        out = im_driver.run(FULL_CHECKED)
         torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     seeds = out["seeds"]
+    check = out["spread_check"]
     emit(phase="full", theta=out["theta"], rounds=out["rounds"],
          coverage_fraction=out["coverage_fraction"], spread=out["spread"],
          n=out["n"], edges=out["edges"], seconds=dict(
              graph=out["graph_s"], sample=out["sample_s"],
              select=out["select_s"], spread=out["spread_s"]),
          bfs_steps=out["bfs_steps"], peak_bytes=out["peak_bytes"],
-         live_planes=planes.count, launches=launches)
+         live_planes=planes.count, launches=launches,
+         spread_check=check)
     real = seeds[seeds >= 0]
     if not (len(real) == 100 and len(set(real.tolist())) == 100
             and real.max() < out["n"]):
@@ -1331,13 +1365,221 @@ def full_run():
     if not (0.0 < out["coverage_fraction"] <= 1.0
             and np.isfinite(out["spread"]) and out["spread"] >= len(real)):
         raise AssertionError("coverage or spread out of range")
+    if set(check["spread"]) != set(cascade.ENGINES) or set(
+            check["spread"].values()) != {out["spread"]}:
+        raise AssertionError(f"the spread's cross-check: {check}")
     missing = [k for k in SLICE1 if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
+    if planes.count != 1:
+        raise AssertionError(f"imm: {planes.count} planes drawn; only the "
+                             "cross-check's packed engine draws one")
     check_ic_sampling("imm", launches)
-    check_ic_spread("imm", launches, planes.count)
+    check_ic_spread("imm", launches, planes.count - 1)
     check_layout("imm", launches)
     return launches, seeds
+
+
+class StepCount:
+    """While open, the cascade module's measurement hook: counts the
+    spans named ``step`` (one a diffusion step, on every route but the
+    map engine, which names none: its count reads None)."""
+
+    def __enter__(self):
+        self.count = 0
+        self._old, cascade._clock = cascade._clock, self
+        return self
+
+    def __call__(self, name: str):
+        self.count += name == "step"
+        return contextlib.nullcontext()
+
+    def __exit__(self, *exc):
+        cascade._clock = self._old
+
+
+def route_label(engine: str, gather: str) -> str:
+    return f"kernel {gather}" if engine == "kernel" else engine
+
+
+def check_routes(label, model: str, routes: dict, launches: dict):
+    """Every route of a spread gave one value, the routes that step took
+    as many steps, the kernel route launched its cascade kernel a step
+    and drew no plane, the plane routes launched their expansion kernel
+    a step, and the plain engines launched nothing."""
+    if len({r["spread"] for r in routes.values()}) != 1:
+        raise AssertionError(f"{label}: the routes disagree {routes}")
+    steps = {r["steps"] for name, r in routes.items() if name != "map"}
+    want = {"kernel auto": "cascade_lt" if model == "LT" else "cascade_ic",
+            "kernel resident": "rrr_expand_resident",
+            "kernel streamed": "rrr_expand_streamed"}
+    bad = [name for name, kernel in want.items()
+           if launches[name][kernel] != routes[name]["steps"]
+           or sum(launches[name].values()) != routes[name]["steps"]]
+    bad += [name for name in ("packed", "map") if sum(launches[name].values())]
+    if len(steps) != 1 or bad or routes["kernel auto"]["planes"] \
+            or not routes["kernel auto"]["steps"]:
+        raise AssertionError(f"{label}: steps {steps}, launches of "
+                             f"{bad}: {routes}")
+
+
+def engines_agree(dev) -> dict:
+    """The spread at n = 3000 under IC, LT and WC: the map and packed
+    engines on the CPU and every route on the card (kernel over each
+    gather, packed, map) give one value.  Returns the card's WC kernel
+    route's launches (set to 0 just before it)."""
+    out = {}
+    for model in ("IC", "LT", "WC"):
+        g = {d: generators.erdos_renyi(3000, 4.0, seed=5, device=d)
+             for d in ("cpu", dev)}
+        seeds = torch.arange(0, 3000, 150)
+        key = prng.key(5).fold_in(99)
+        cpu = {eng: float(cascade.spread(g["cpu"], seeds, key, model=model,
+                                         engine=eng))
+               for eng in ("packed", "map")}
+        card, launches = {}, {}
+        for engine, gather in WC_ROUTES:
+            name = route_label(engine, gather)
+            ops.reset_launches()
+            with StepCount() as steps, PlaneDraws() as planes:
+                sp = float(cascade.spread(g[dev], seeds.to(dev), key,
+                                          model=model, engine=engine,
+                                          gather=gather))
+                torch.cuda.synchronize()
+            launches[name] = dict(ops.LAUNCHES)
+            card[name] = dict(spread=sp, steps=(steps.count if engine != "map"
+                                                else None),
+                              planes=planes.count)
+        emit(phase="paths", path="engines", model=model, cpu=cpu,
+             card=card)
+        if set(cpu.values()) != {card["map"]["spread"]}:
+            raise AssertionError(f"{model}: the CPU's engines {cpu} != the "
+                                 f"card's {card}")
+        check_routes(f"{model} at n = 3000", model, card, launches)
+        out[model] = launches["kernel auto"]
+    return out
+
+
+def wc_spread(dev, seeds) -> dict:
+    """The WC spread at full size: FULL's graph, the FULL run's seeds,
+    its 64 simulations and key, over every route (WC_ROUTES), each
+    route's launch counts set to 0 just before it and read just after.
+    Emits each route's spread, steps, seconds, peak bytes and launches;
+    returns the kernel route's launches."""
+    args = im_driver.parser().parse_args(FULL)
+    g = im_driver.make_graph(args.graph, args.n, args.avg_deg, args.seed, dev)
+    key = prng.key(args.seed).fold_in(99)
+    seeds = torch.from_numpy(seeds)
+    routes, launches = {}, {}
+    for engine, gather in WC_ROUTES:
+        name = route_label(engine, gather)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        with StepCount() as steps, PlaneDraws() as planes:
+            t0 = time.perf_counter()
+            sp = float(cascade.spread(g, seeds, key, model="WC",
+                                      num_sims=args.eval_sims, engine=engine,
+                                      gather=gather))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launches[name] = dict(ops.LAUNCHES)
+        routes[name] = dict(
+            spread=sp, steps=steps.count if engine != "map" else None,
+            seconds=seconds,
+            planes=planes.count,
+            peak_bytes=torch.cuda.max_memory_allocated(dev),
+            launches={k: v for k, v in launches[name].items() if v})
+    emit(phase="wc", n=g.num_vertices, edges=g.num_edges,
+         sims=args.eval_sims, routes=routes)
+    real = seeds[seeds >= 0]
+    sp = routes["map"]["spread"]
+    if not (np.isfinite(sp) and sp >= len(real)):
+        raise AssertionError(f"wc: spread {sp} out of range")
+    check_routes("wc", "WC", routes, launches)
+    del g
+    torch.cuda.empty_cache()
+    return launches["kernel auto"]
+
+
+def faulted_round(dev) -> dict:
+    """The round of ROUND under FAULTS through ``im_driver.run`` (the lazy
+    senders, then the plain ones, --solver scan), then a plan that loses
+    all 8 machines.  The faulted round must keep FAULT_SURVIVORS, report
+    round_survived, and give the seeds and coverage of the survivors
+    merge run directly on the same rows (``randgreedi_maxcover(rows,
+    fold_in(key, 2), survivors=...)``) and of the plain run; the lost
+    round must return 1 with round_survived false.  Each run's launch
+    counts are set to 0 just before it and read just after."""
+    runs, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, argv in (("faulted lazy", FAULTED),
+                            ("faulted scan", at_scale(FAULTED,
+                                                      solver="scan")),
+                            ("all lost", ROUND + ALL_LOST)):
+            path = os.path.join(tmp, label.replace(" ", "_") + ".json")
+            ops.reset_launches()
+            out = im_driver.run(argv + ["--fault-report", path])
+            torch.cuda.synchronize()
+            launches[label] = dict(ops.LAUNCHES)
+            with open(path) as f:
+                report = json.load(f)
+            runs[label] = (out, report)
+            emit(phase="faulted", run=label, rc=out["rc"],
+                 survivors=list(out["survivors"]),
+                 alpha_used=out["alpha_used"], coverage=out["coverage"],
+                 spread=out["spread"], theta=out["theta"],
+                 straggler_flags=out["straggler_flags"],
+                 seconds=dict(graph=out["graph_s"], **out["stats"]),
+                 peak_bytes=out["peak_bytes"], report_pass=report["pass"],
+                 checks=report["checks"],
+                 events=[(e["site"], e["kind"], e["occurrence"])
+                         for e in report["events"]],
+                 launches={k: v for k, v in launches[label].items() if v})
+    args = im_driver.parser().parse_args(ROUND)
+    g = generators.erdos_renyi(args.n, args.avg_deg, args.seed, device=dev)
+    nbr, prob, wt = csr.padded_adjacency(g)
+    key = prng.key(args.seed)
+    rows = rrr.sample_incidence(
+        nbr, prob, wt, key.fold_in(1), theta=args.theta, n=args.n,
+        model=args.model, sampler=args.sampler,
+        fwd=csr.padded_forward_adjacency(g), coin_chunk=args.coin_chunk,
+        gather=args.gather)
+    lazy, lazy_report = runs["faulted lazy"]
+    direct = randgreedi.randgreedi_maxcover(
+        rows, key.fold_in(2), m=args.machines, k=args.k,
+        alpha_trunc=lazy["alpha_used"], survivors=FAULT_SURVIVORS)
+    del rows, g
+    torch.cuda.empty_cache()
+    want = dict(seeds=direct.seeds.cpu().tolist(),
+                coverage=int(direct.coverage))
+    emit(phase="faulted", run="direct survivors merge", **want)
+    for label in ("faulted lazy", "faulted scan"):
+        out, report = runs[label]
+        got = dict(seeds=out["seeds"].tolist(), coverage=out["coverage"])
+        if (out["rc"] or tuple(out["survivors"]) != FAULT_SURVIVORS
+                or got != want or not report["pass"]
+                or report["checks"][0]["name"] != "round_survived"):
+            raise AssertionError(f"{label}: rc {out['rc']}, survivors "
+                                 f"{out['survivors']}, {got} != the direct "
+                                 f"merge {want}, report {report['checks']}")
+        check_seeds(out["seeds"], args.n)
+    if runs["faulted scan"][0]["spread"] != lazy["spread"]:
+        raise AssertionError("the faulted round's spread differs by solver")
+    lost, report = runs["all lost"]
+    if lost["rc"] != 1 or report["pass"] or \
+            report["checks"][0]["name"] != "round_survived":
+        raise AssertionError(f"all lost: rc {lost['rc']}, {report}")
+    solver_kernels = [k for k in ops.KERNELS
+                      if k.startswith(("greedy_pick", "lazy_greedy",
+                                       "topk_gain", "compact_rows"))]
+    mine = launches["faulted lazy"]
+    if not (mine["rrr_expand_ic"] and mine["cascade_ic"]
+            and mine["lazy_greedy_compact"] + mine["lazy_greedy"]) \
+            or mine["bucket_insert"] or mine["bucket_insert_stream"] \
+            or any(launches["faulted scan"][k] for k in solver_kernels):
+        raise AssertionError(f"the faulted rounds launched {launches}")
+    return launches
 
 
 def seeds_sha256(seeds) -> str:
@@ -2334,7 +2576,8 @@ def time_cascade_step(label, step, f, vis, reps=10, plain_reps=3) -> dict:
     return row
 
 
-def cascade_timings(dev, label, argv, seeds, own_run=True) -> dict:
+def cascade_timings(dev, label, argv, seeds, own_run=True,
+                    model=None) -> dict:
     """The cascade kernel of a full-size command's model (cascade_ic or
     cascade_lt; for hub rows also on the IMM command's graph drawn as
     rmat) at its spread: its first step from ``seeds`` (64 simulations,
@@ -2344,16 +2587,19 @@ def cascade_timings(dev, label, argv, seeds, own_run=True) -> dict:
     inputs (``plane_ms``: cascade._live_mask's plane, drawn once a
     spread; ``plane_step_ms``: rrr_expand_streamed over it).  Without
     ``own_run`` (a graph the command does not run, as the rmat one) the
-    first step alone: the rmat graph's LT plane would be 16 GB."""
+    first step alone: the rmat graph's LT plane would be 16 GB.
+    ``model`` (default the command's) may name WC, which the command
+    line does not take."""
     args = im_driver.parser().parse_args(argv)
+    model = model or args.model
     g = im_driver.make_graph(args.graph, args.n, args.avg_deg, args.seed, dev)
     key = prng.key(args.seed).fold_in(99)
     step, f, vis = cascade_step(g, args.eval_sims, args.coin_chunk, dev, key,
-                                seeds=seeds, model=args.model)
+                                seeds=seeds, model=model)
     row = time_cascade_step(label, step, f, vis)
     if not own_run:
         return row
-    if args.model == "LT":
+    if model == "LT":
         nbr, d = step["nbr"], step["nbr"].shape[1]
 
         def plane():
@@ -2739,18 +2985,23 @@ def main(argv=None) -> int:
     small = paths_agree(dev)
     round_paths_agree(dev)
     small.update(serve_paths_agree(dev))
+    engines_agree(dev)
     lap("paths")
     if args.stop_after == "paths":
         return 0
     launches, seeds = full_run()
     lap("full")
     full = {"imm": launches}
+    full["wc"] = wc_spread(dev, seeds)
+    lap("wc")
     full["lt"], lt_seeds = lt_run()
     lap("lt")
     if args.stop_after == "full":
         return 0
     full.update(round_runs(dev))
     lap("round")
+    full["faulted lazy"] = faulted_round(dev)["faulted lazy"]
+    lap("faulted")
     dense_launches, dense_seeds = supercritical_runs()
     full.update(dense_launches)
     lap("supercritical")
@@ -2797,7 +3048,10 @@ def main(argv=None) -> int:
     hubs = cascade_timings(dev, "rmat", at_scale(FULL, graph="rmat"),
                            torch.from_numpy(seeds))
     rows["cascade_ic"]["shapes"].update(rmat=hubs, **hubs.pop("shapes"))
-    lap("timing supercritical, rmat cascade")
+    wc = cascade_timings(dev, "wc", FULL, torch.from_numpy(seeds),
+                         model="WC")
+    rows["cascade_ic"]["shapes"].update(wc=wc, **wc.pop("shapes"))
+    lap("timing supercritical, rmat, wc cascade")
     spread_splits(dev, {"imm": (FULL, seeds),
                         "supercritical": (DENSE_FULL, dense_seeds),
                         "lt": (LT_FULL, lt_seeds)})

@@ -79,6 +79,11 @@ def marginal_gain(rows: torch.Tensor, covered: torch.Tensor) -> torch.Tensor:
     return coverage_size(rows & ~covered)
 
 
+def union(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Bitwise OR of two packed word arrays (the union of their sets)."""
+    return a | b
+
+
 def or_reduce(words: torch.Tensor, axis: int) -> torch.Tensor:
     """Bitwise-OR reduction of packed words along ``axis`` (exact in any
     order; an empty axis reduces to zero words)."""

@@ -22,9 +22,15 @@ sim)``).
   ``rrr_expand_streamed``) or through the identity index ``v * d_pad +
   slot`` (``resident``, ``rrr_expand_resident``).
 - ``engine="packed"``: the plane and the plain PyTorch step.
+- ``engine="map"``: the per-simulation oracle in plain PyTorch, one
+  bool ``[n]`` state per simulation.  IC/WC fire the out-edges of each
+  active vertex over the forward table, each forward slot's coin
+  gathered through ``(fwd_nbr, fwd_rslot)`` from that simulation's own
+  reverse-slot draw; LT follows each vertex's one chosen in-edge.
 
-All are bit-identical to the reference's engines.  Models: IC and LT
-(live-edge form).
+All are bit-identical to the reference's engines.  Models: IC, WC (IC
+dynamics with the normalized LT weight as the probability, so a weight
+of 1.0 fires surely) and LT (live-edge form).
 """
 from __future__ import annotations
 
@@ -35,20 +41,17 @@ import torch
 from repro_torch.core import bitset
 from repro_torch.core.prng import Key
 from repro_torch.core.rrr import GATHERS, _coin_chunks, xla_cumsum
-from repro_torch.graphs.csr import CSRGraph, padded_adjacency
+from repro_torch.graphs.csr import (CSRGraph, padded_adjacency,
+                                    padded_forward_adjacency)
 from repro_torch.kernels import rrr_expand
 
-MODELS = ("IC", "LT")
-ENGINES = ("packed", "kernel")
+MODELS = ("IC", "LT", "WC")
+ENGINES = ("map", "packed", "kernel")
 
 
 def resolve_engine(engine: str | None, default: str = "kernel") -> str:
     if engine is None:
         engine = default
-    if engine == "map":
-        raise NotImplementedError(
-            "engine='map' is not ported yet: ROADMAP Queue 1, 'the WC "
-            "model and the map cascade engine'")
     if engine not in ENGINES:
         raise ValueError(
             f"unknown cascade engine {engine!r}; expected one of {ENGINES}")
@@ -58,10 +61,6 @@ def resolve_engine(engine: str | None, default: str = "kernel") -> str:
 def resolve_model(model: str | None, default: str = "IC") -> str:
     if model is None:
         model = default
-    if model == "WC":
-        raise NotImplementedError(
-            "model='WC' is not ported yet: ROADMAP Queue 1, 'the WC "
-            "model and the map cascade engine'")
     if model not in MODELS:
         raise ValueError(
             f"unknown diffusion model {model!r}; expected one of {MODELS}")
@@ -77,15 +76,22 @@ def seeds_to_mask(n: int, seeds, *, device) -> torch.Tensor:
     return mask
 
 
+def _edge_prob(nbr, prob, wt, model: str):
+    """The firing probability of each reverse slot: ``prob`` under IC,
+    the normalized LT weight under WC (zero at pads)."""
+    return prob if model == "IC" else torch.where(nbr >= 0, wt, 0.0)
+
+
 def _live_mask(nbr, prob, wt, key: Key, *, model, num_sims, chunk,
                n_chunks, d_pad):
     """int32 [n, d_pad, W]: bit s of word s//32 at [v, slot] is set iff
-    in-edge ``slot`` of v is live in simulation s."""
+    in-edge ``slot`` of v is live in simulation s.  IC and WC fire with
+    ``prob`` (WC's callers pass :func:`_edge_prob`)."""
     n, d = nbr.shape
     dev = nbr.device
     w = bitset.num_words(num_sims)
     live = torch.zeros((n, d_pad, w), dtype=torch.int32, device=dev)
-    if model == "IC":
+    if model != "LT":
         prob_p = torch.nn.functional.pad(prob, (0, d_pad - d))
         for c in range(n_chunks):
             kc = key.fold_in(c)
@@ -140,8 +146,14 @@ def simulate_cascades(g: CSRGraph, seeds, key: Key, *, model: str = "IC",
     if d == 0:          # edgeless graph: nothing ever fires
         return active
     chunk, n_chunks, d_pad = _coin_chunks(d, coin_chunk)
+    if model != "LT":
+        prob = _edge_prob(nbr, prob, wt, model)
+    if engine == "map":
+        return _simulate_map(g, nbr, prob, wt, smask, key, model=model,
+                             num_sims=num_sims, max_steps=max_steps,
+                             chunk=chunk, n_chunks=n_chunks)
     if engine == "kernel" and gather == "auto":
-        if model == "IC":
+        if model != "LT":
             return _simulate_ic(nbr, prob, key, active, num_sims=num_sims,
                                 max_steps=max_steps, chunk=chunk,
                                 n_chunks=n_chunks)
@@ -178,6 +190,61 @@ def simulate_cascades(g: CSRGraph, seeds, key: Key, *, model: str = "IC",
         with _span("step"):
             frontier, active = expand(frontier, active)
     return active
+
+
+def _simulate_map(g: CSRGraph, nbr, prob, wt, smask, key: Key, *,
+                  model: str, num_sims: int, max_steps: int, chunk: int,
+                  n_chunks: int):
+    """The per-simulation engine: bool ``[n]`` frontier and active state
+    for each simulation in turn, packed at the end.  IC/WC scatter over
+    the forward table, each forward slot's coin read from the
+    simulation's reverse-slot draw ``fold_in(fold_in(key, c), s)
+    .uniform((n, chunk))`` through its ``(v, rev_slot)`` pair; LT follows
+    the one in-edge chosen by ``sum(r >= cumw)``.  An IC/WC step writes
+    True at every launched target, which no order of the writes
+    changes."""
+    n, d = nbr.shape
+    dev = nbr.device
+    if model != "LT":
+        fwd_nbr, fwd_rslot = padded_forward_adjacency(g)
+        fwd_valid = fwd_nbr >= 0
+        safe_v = torch.where(fwd_valid, fwd_nbr, 0).long()
+        safe_slot = fwd_rslot.clamp(min=0).long()
+        tgt = fwd_nbr.long()
+        prob_p = torch.nn.functional.pad(prob, (0, n_chunks * chunk - d))
+    else:
+        cumw = xla_cumsum(wt)
+        in_deg = (nbr >= 0).sum(1)
+        rows = torch.arange(n, device=dev)
+    visited = torch.empty((num_sims, n), dtype=torch.bool, device=dev)
+    for s in range(num_sims):
+        if model != "LT":
+            fr = torch.empty((n, n_chunks * chunk), dtype=torch.bool,
+                             device=dev)
+            for c in range(n_chunks):
+                coins = key.fold_in(c).fold_in(s).uniform((n, chunk),
+                                                          device=dev)
+                sl = slice(c * chunk, (c + 1) * chunk)
+                fr[:, sl] = coins < prob_p[:, sl]
+            fire_fwd = fr[safe_v, safe_slot] & fwd_valid
+        else:
+            r = key.fold_in(s).uniform((n,), device=dev)
+            chosen = (r[:, None] >= cumw).sum(1)
+            has = chosen < in_deg
+            pick = nbr[rows, chosen.clamp(0, d - 1)].clamp(min=0).long()
+        frontier = active = smask
+        for _ in range(max_steps):
+            if not bool(frontier.any()):
+                break
+            if model != "LT":
+                hit = torch.zeros(n, dtype=torch.bool, device=dev)
+                hit[tgt[frontier[:, None] & fire_fwd]] = True
+            else:
+                hit = frontier[pick] & has
+            frontier = hit & ~active
+            active = active | frontier
+        visited[s] = active
+    return bitset.pack_bool_matrix(visited.T)
 
 
 def _simulate_ic(nbr, prob, key: Key, active, *, num_sims: int,
@@ -221,6 +288,17 @@ def _count_loop(step, active, max_steps: int):
         if not go:
             break
     return active
+
+
+def cascade_counts(g: CSRGraph, seeds, key: Key, *, model: str = "IC",
+                   num_sims: int = 64, max_steps: int = 64,
+                   engine: str = "kernel", coin_chunk: int = 32,
+                   gather: str = "auto") -> torch.Tensor:
+    """Per-simulation activation counts int32 [num_sims]."""
+    words = simulate_cascades(g, seeds, key, model=model, num_sims=num_sims,
+                              max_steps=max_steps, engine=engine,
+                              coin_chunk=coin_chunk, gather=gather)
+    return bitset.unpack_words(words, num_sims).sum(0, dtype=torch.int32)
 
 
 def spread(g: CSRGraph, seeds, key: Key, *, model: str = "IC",

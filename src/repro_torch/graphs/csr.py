@@ -88,6 +88,18 @@ def from_edge_list(src: np.ndarray, dst: np.ndarray, n: int,
     return from_arrays(indptr, src, probs, weights, device=device)
 
 
+def to_dense_prob(g: CSRGraph) -> np.ndarray:
+    """Dense [n, n] IC probability matrix P[v, u] = p(u -> v), as numpy
+    on the host (a later duplicate edge overwrites an earlier one, as
+    the reference's loop does).  Test helper."""
+    n = g.num_vertices
+    indptr, src = _host(g)
+    dst = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+    dense = np.zeros((n, n), dtype=np.float32)
+    dense[dst, src] = g.probs.cpu().numpy()
+    return dense
+
+
 def _host(g: CSRGraph):
     return (g.indptr.cpu().numpy().astype(np.int64),
             g.indices.cpu().numpy().astype(np.int64))

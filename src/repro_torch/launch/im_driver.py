@@ -18,32 +18,36 @@ the device and never falls back.  On one card ``--machines`` sets the
 round's machine count m (the reference takes its device count).
 ``--use-opim`` runs the OPIM-C loop instead of IMM, and ``--serve``
 hands the graph, model, solver and sampler flags to the serving replay
-(``repro_torch.launch.serve --check``).  Flags of paths not ported yet
-raise ``NotImplementedError`` naming their ROADMAP entry.
+(``repro_torch.launch.serve --check``).  ``--eval-spread`` estimates the
+spread with every cascade engine and requires one value; ``--faults``
+runs the fault-injected resilient round
+(``runtime.faults.resilient_randgreedi``) instead of the normal one.
+
+  PYTHONPATH=src python -m repro_torch.launch.im_driver --graph er \
+      --n 262144 --avg-deg 4 --k 100 --machines 8 --theta 131072 \
+      --sampler kernel --solver lazy --eval-engine kernel --eval-sims 64 \
+      --faults local.greedy:drop:3 --faults receiver.insert:raise:0 \
+      --fault-report report.json
 """
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import (cascade, greediris, imm, maxcover, opim,
-                              prng, resolve_device, theory)
+from repro_torch.core import (StageClock, cascade, greediris, imm,
+                              maxcover, opim, prng, resolve_device, rrr,
+                              theory)
 from repro_torch.core.diffusion import influence
 from repro_torch.core.rrr import resolve_sampler
 from repro_torch.graphs import generators
 from repro_torch.graphs.csr import padded_adjacency, padded_forward_adjacency
-
-# flag -> (value that means "not asked for", ROADMAP entry porting it)
-_NOT_PORTED = {
-    "faults": ([], "Queue 1, 'runtime'"),
-    "fault_report": (None, "Queue 1, 'runtime'"),
-    "eval_spread": (False, "Queue 1, 'the WC model and the map cascade "
-                           "engine'"),
-}
+from repro_torch.runtime import faults
+from repro_torch.runtime.fault_tolerance import StragglerMonitor
 
 
 def _coin_chunk_arg(text: str) -> int:
@@ -153,13 +157,26 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--eval-sims", type=int, default=32)
     ap.add_argument("--eval-engine", default="kernel",
                     choices=("map", "packed", "kernel"))
-    ap.add_argument("--eval-spread", action="store_true")
+    ap.add_argument("--eval-spread", action="store_true",
+                    help="after selection, estimate the spread with every "
+                         "cascade engine (map, packed, kernel) and require "
+                         "one value")
     ap.add_argument("--serve", action="store_true",
                     help="run the serving replay (repro_torch.launch.serve "
                          "--check) on the same graph, model, solver and "
                          "sampler flags instead of one selection")
-    ap.add_argument("--faults", action="append", default=[])
-    ap.add_argument("--fault-report", default=None)
+    ap.add_argument("--faults", action="append", default=[],
+                    type=faults.cli_fault_arg,
+                    metavar="SITE:KIND[:AT[:ARG]]",
+                    help="run the fault-injected resilient round (RandGreedi "
+                         "with a survivors merge) under these fault specs; "
+                         "at site local.greedy the occurrence index is the "
+                         "machine id (e.g. 'local.greedy:drop:1' loses "
+                         "machine 1, 'local.greedy:delay:2:0.1' makes "
+                         "machine 2 a straggler).  Repeatable.")
+    ap.add_argument("--fault-report", default=None, metavar="PATH",
+                    help="write the JSON fault report (fired events and "
+                         "checks) of the --faults round to PATH")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cuda' raises without a card")
@@ -170,13 +187,16 @@ def run(argv=None) -> dict:
     """Parse ``argv``, run the driver, print the ``[im]`` lines, and
     return the result with per-stage seconds and counts (``round``: the
     fixed-theta round's coverages and stage seconds, else None;
-    ``guarantee``: OPIM's certified ratio, else None).  With
-    ``--serve``, returns ``serve.run``'s result under ``serve``."""
-    args = parser().parse_args(argv)
-    for flag, (off, item) in _NOT_PORTED.items():
-        if getattr(args, flag) != off:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet: ROADMAP {item}")
+    ``guarantee``: OPIM's certified ratio, else None; ``spread_check``:
+    each engine's spread and seconds under ``--eval-spread``, else
+    None).  With ``--serve``, returns ``serve.run``'s result under
+    ``serve``; with ``--faults``, the resilient round's result
+    (:func:`_main_faulted`), whose ``rc`` is the exit status."""
+    ap = parser()
+    args = ap.parse_args(argv)
+    if args.fault_report and not args.faults:
+        ap.error("--fault-report needs --faults (the resilient round "
+                 "is what produces the report)")
     if args.serve:
         from repro_torch.launch import serve
         return dict(serve=serve.run([
@@ -197,6 +217,8 @@ def run(argv=None) -> dict:
     graph_s = time.perf_counter() - t0
     n = g.num_vertices
     key = prng.key(args.seed)
+    if args.faults:
+        return _main_faulted(args, g, key, device, graph_s)
     print(f"[im] graph n={n} m={g.num_edges} model={args.model} "
           f"selector={args.selector}")
 
@@ -243,6 +265,8 @@ def run(argv=None) -> dict:
                              model=args.model, num_sims=args.eval_sims,
                              engine=args.eval_engine))
     spread_s = time.perf_counter() - t1
+    spread_check = (_spread_check(args, g, seeds, key.fold_in(99), device)
+                    if args.eval_spread else None)
     ratio = theory.greediris_ratio(args.delta, args.eps,
                                    args.alpha if "trunc" in args.selector
                                    else 1.0)
@@ -256,15 +280,14 @@ def run(argv=None) -> dict:
         edges=g.num_edges, graph_s=graph_s,
         sample_s=stats.get("sample_s", 0.0),
         select_s=stats.get("select_s", 0.0), spread_s=spread_s,
-        bfs_steps=stats.get("bfs_steps", 0),
+        bfs_steps=stats.get("bfs_steps", 0), spread_check=spread_check,
         round=(dict(coverage=res.coverage,
                     global_coverage=res.global_coverage,
                     best_local_coverage=res.best_local_coverage,
                     seconds={name: stats[f"{name}_s"]
                              for name in _ROUND_STAGES})
                if isinstance(res, RoundResult) else None),
-        peak_bytes=(torch.cuda.max_memory_allocated(device)
-                    if device.type == "cuda" else None))
+        peak_bytes=_peak_bytes(device))
 
 
 _ROUND_STAGES = ("sample_shuffle", "senders", "receiver", "merge")
@@ -306,9 +329,101 @@ def _fixed_theta_round(args, g, m: int, key, stats: dict) -> RoundResult:
                        int(out.best_local_coverage))
 
 
+def _spread_check(args, g, seeds, eval_key, device) -> dict:
+    """The spread of ``seeds`` with each cascade engine on the same key;
+    raises unless the three are one value.  Returns each engine's spread
+    and seconds."""
+    values, seconds = {}, {}
+    for eng in cascade.ENGINES:
+        with StageClock(seconds, eng, device):
+            values[eng] = float(influence(
+                g, torch.from_numpy(seeds), eval_key, model=args.model,
+                num_sims=args.eval_sims, engine=eng))
+    if len(set(values.values())) != 1:
+        raise AssertionError(f"the cascade engines disagree: {values}")
+    print("[im] spread cross-check: " + "  ".join(
+        f"{e}={v:.2f}" for e, v in values.items()) + "  (bit-identical)")
+    return dict(spread=values, seconds=seconds)
+
+
+def _main_faulted(args, g, key, device, graph_s: float) -> dict:
+    """The ``--faults`` path: one fixed-theta RandGreedi round through
+    :func:`repro_torch.runtime.faults.resilient_randgreedi`.  Injected
+    machine failures become a survivors merge (equal to a round on the
+    survivors alone), injected stragglers shrink the truncation knob
+    through the StragglerMonitor.  Returns the seeds, survivors,
+    ``alpha_used``, coverage, spread, stage seconds and ``rc`` (1 when
+    every machine was lost, the report written all the same)."""
+    n = g.num_vertices
+    m = args.machines or 1
+    theta = args.theta or 1024
+    stats: dict = {}
+    with StageClock(stats, "sample_s", device):
+        nbr, prob, wt = padded_adjacency(g)
+        fwd = (padded_forward_adjacency(g)
+               if args.sampler != "dense" else None)
+        rows = rrr.sample_incidence(
+            nbr, prob, wt, key.fold_in(1), theta=theta, n=n,
+            model=args.model, sampler=args.sampler, fwd=fwd,
+            coin_chunk=args.coin_chunk, gather=args.gather)
+    plan = faults.FaultPlan(args.faults)
+    monitor = StragglerMonitor()
+    alpha0 = args.alpha if "trunc" in args.selector else 1.0
+    print(f"[im] resilient round: n={n} theta={theta} m={m} "
+          f"k={args.k} faults={len(plan.specs)}")
+    report = faults.FaultReport()
+    out = dict(n=n, edges=g.num_edges, theta=theta, graph_s=graph_s,
+               stats=stats)
+    try:
+        with StageClock(stats, "round_s", device):
+            res, survivors, alpha_used = faults.resilient_randgreedi(
+                rows, key.fold_in(2), m=m, k=args.k, plan=plan,
+                monitor=monitor, delta=args.delta, alpha_trunc=alpha0,
+                solver=args.solver)
+    except faults.PartitionsLostError as e:
+        print(f"[im] FATAL: {e}", file=sys.stderr)
+        report.add_events(plan)
+        report.check("round_survived", False, error=str(e))
+        if args.fault_report:
+            report.write(args.fault_report)
+        return dict(out, rc=1, seeds=None, survivors=(), alpha_used=None,
+                    coverage=None, spread=None,
+                    straggler_flags=monitor.flags,
+                    peak_bytes=_peak_bytes(device))
+    del rows
+    seeds = res.seeds.cpu().numpy()
+    t1 = time.perf_counter()
+    spread = float(influence(g, torch.from_numpy(seeds), key.fold_in(99),
+                             model=args.model, num_sims=args.eval_sims,
+                             engine=args.eval_engine))
+    stats["spread_s"] = time.perf_counter() - t1
+    lost = m - len(survivors)
+    print(f"[im] survivors={len(survivors)}/{m} (lost {lost}) "
+          f"alpha={alpha0}->{alpha_used} "
+          f"coverage={int(res.coverage)} spread={spread:.1f} "
+          f"({100 * spread / n:.2f}% of graph) in {stats['round_s']:.2f}s")
+    report.add_events(plan)
+    report.check("round_survived", True, survivors=len(survivors),
+                 lost=lost, coverage=int(res.coverage),
+                 spread=spread, alpha_used=alpha_used,
+                 straggler_flags=monitor.flags)
+    if args.fault_report:
+        report.write(args.fault_report)
+        print(f"[im] fault report -> {args.fault_report}")
+    return dict(out, rc=0, seeds=seeds, survivors=survivors,
+                alpha_used=alpha_used, coverage=int(res.coverage),
+                spread=spread, straggler_flags=monitor.flags,
+                peak_bytes=_peak_bytes(device))
+
+
+def _peak_bytes(device):
+    return (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else None)
+
+
 def main(argv=None) -> int:
     out = run(argv)
-    return out["serve"]["rc"] if "serve" in out else 0
+    return out["serve"]["rc"] if "serve" in out else out.get("rc", 0)
 
 
 if __name__ == "__main__":

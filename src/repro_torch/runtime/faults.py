@@ -1,6 +1,7 @@
-"""Deterministic fault injection — the port's own copy of what serving
-needs from ``repro.runtime.faults`` (the reference module is stdlib
-only; the port copies it rather than importing it).
+"""Deterministic fault injection and the resilient RandGreedi round —
+the port's own copy of ``repro.runtime.faults`` (the reference module is
+stdlib only at import time; the port copies it rather than importing
+it).
 
 * :class:`FaultPlan` — a deterministic schedule of faults at named
   injection sites (``SITES``).  Each spec fires on one occurrence of its
@@ -9,6 +10,12 @@ only; the port copies it rather than importing it).
   :class:`InjectedFault`), ``delay`` (sleep ``arg`` seconds through the
   plan's injectable ``sleep_fn``), and ``nan`` / ``drop`` /
   ``write_fail``, which the caller interprets.
+* :func:`resilient_randgreedi` — the fault-tolerant round: probe each
+  machine's local greedy under the plan, drop dead and poisoned
+  machines, and merge only the survivors through
+  ``randgreedi_maxcover(survivors=...)``, bit-identical to a round on
+  those machines alone.  Persistent stragglers shrink the truncation
+  knob ``alpha`` through ``StragglerMonitor.suggest_alpha``.
 * :class:`FaultReport` — the JSON fault report: fired events plus named
   pass/fail checks.
 
@@ -16,16 +23,16 @@ Sites (callers pass the plan explicitly — no globals):
 
   ==================  =================================================
   sampler.slab_fill   repro_torch.core.service._sample_slabs (per slab)
-  local.greedy        per-machine local greedy (the resilient round,
-                      not ported yet)
-  receiver.insert     the receiver-side merge (the resilient round)
+  local.greedy        per-machine local greedy (resilient_randgreedi;
+                      occurrence index == machine id within a round)
+  receiver.insert     the receiver-side merge (resilient_randgreedi)
   checkpoint.write    repro_torch.checkpoint.store.CheckpointStore._write
   service.admit       InfluenceService.admit (per query)
   service.answer      InfluenceService.answer (per batch)
   ==================  =================================================
 
-The resilient round (``resilient_randgreedi``) and the run supervisor
-belong to the runtime slice and are not here.
+Nothing here imports torch at import time (the round imports it when
+called), so ``checkpoint.store`` depends on this module without cycles.
 """
 from __future__ import annotations
 
@@ -243,3 +250,82 @@ class FaultReport:
         with open(path, "w") as f:
             json.dump(self.to_dict(), f, indent=2, sort_keys=True)
             f.write("\n")
+
+
+def resilient_randgreedi(rows, key, *, m: int, k: int,
+                         plan: Optional[FaultPlan] = None,
+                         monitor=None, aggregator: str = "streaming",
+                         delta: float = 0.077,
+                         alpha_trunc: float = 1.0,
+                         solver: str = "scan",
+                         clock: Callable[[], float] = time.monotonic,
+                         merge_retries: int = 2):
+    """Fault-tolerant RandGreedi round over packed rows int32 ``[n, W]``.
+
+    Probes each of the m per-machine local greedy solves under ``plan``
+    (site ``local.greedy``; occurrence index == machine id): a
+    ``raise``/``drop`` kills the machine, a ``nan`` poisons its gains
+    (caught by the finiteness check, and the machine is dropped), a
+    ``delay`` makes it a straggler (observed by ``monitor``, a
+    :class:`~repro_torch.runtime.fault_tolerance.StragglerMonitor`).
+    The merge runs over only the surviving partitions through
+    ``randgreedi_maxcover(survivors=...)``: the partition depends only
+    on ``(n, m, key)``, so the result equals a round on the m'
+    survivors from scratch.  The merge is probed at ``receiver.insert``
+    and retried up to ``merge_retries`` times on an injected raise.
+
+    Returns ``(result, survivors, alpha_used)``; raises
+    :class:`PartitionsLostError` when every machine is lost.
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch.core import maxcover, randgreedi
+
+    assign = randgreedi.partition_blocks(rows.shape[0], m, key)
+    dead: set[int] = set()
+    for j in range(m):
+        t0 = clock()
+        try:
+            spec = fire(plan, "local.greedy", machine=j)
+        except InjectedFault:
+            dead.add(j)
+            continue
+        if spec is not None and spec.kind == "drop":
+            dead.add(j)
+            continue
+        block = torch.from_numpy(assign[j]).to(rows.device).long()
+        sol = maxcover.greedy_maxcover(rows[block], k, solver=solver)
+        gains = sol.gains.cpu().numpy().astype(np.float64)
+        if spec is not None and spec.kind == "nan":
+            gains = np.full_like(gains, np.nan)  # poisoned payload
+        if monitor is not None:
+            monitor.observe(clock() - t0)
+        if not np.isfinite(gains).all():
+            dead.add(j)
+            continue
+    survivors = tuple(j for j in range(m) if j not in dead)
+    if not survivors:
+        raise PartitionsLostError(
+            f"all {m} partitions lost — cannot merge (injected plan: "
+            f"{plan.specs if plan else ()})")
+
+    alpha_used = alpha_trunc
+    if monitor is not None:
+        alpha_used = monitor.suggest_alpha(alpha_trunc)
+
+    last: Optional[InjectedFault] = None
+    for _ in range(merge_retries + 1):
+        try:
+            fire(plan, "receiver.insert", survivors=len(survivors))
+        except InjectedFault as e:
+            last = e
+            continue
+        # A kept fault's traceback holds this frame, and so ``rows``,
+        # until the cycle collector runs: drop it.
+        last = None
+        res = randgreedi.randgreedi_maxcover(
+            rows, key, m=m, k=k, aggregator=aggregator, delta=delta,
+            alpha_trunc=alpha_used, solver=solver, survivors=survivors)
+        return res, survivors, alpha_used
+    raise last  # the merge kept failing past the retry budget

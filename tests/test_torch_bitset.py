@@ -67,3 +67,13 @@ def test_packed_nonzero(n, w, density, size):
     assert s.dtype == v.dtype == torch.int32
     np.testing.assert_array_equal(s.numpy(), np.asarray(s_ref))
     np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
+
+
+@pytest.mark.parametrize("n,w", SHAPES)
+def test_union(n, w):
+    rng = np.random.default_rng(3 * n + w)
+    a, b = words(rng, (n, w)), words(rng, (n, w), density=0.2)
+    got = bitset.union(to_port(a), to_port(b))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        u32(got), u32(ref.union(jnp.asarray(a), jnp.asarray(b))))

@@ -1,13 +1,16 @@
-"""Port parity: the spread estimate's IC kernel route (``cascade_ic``,
-which draws each live edge inside the step and builds no live-edge
-plane) against ``repro``'s packed engine on the same graph, seeds and
-key — the activation words and the spread exactly equal (tolerance
-zero).  On the CPU the route runs the kernel's plain version,
+"""Port parity: the spread estimate's engines against ``repro``'s on the
+same graph, seeds and key — the activation words, the counts and the
+spread exactly equal (tolerance zero).  The IC kernel route
+(``cascade_ic``, which draws each live edge inside the step and builds
+no live-edge plane) runs its plain version on the CPU,
 ``cascade_step_ic_plain``, which is also held word for word against the
 plane route it replaces (``expand_step_plain`` over ``_live_mask``) on
 random dense frontiers; its key table against the reference's
 ``fold_in(fold_in(key, c), s)``; and the padded reverse table, now
-scattered on the graph's device, against the reference's."""
+scattered on the graph's device, against the reference's.  The engine
+triad (``map``, ``packed``, ``kernel``) under IC, LT and WC against the
+reference's engine of the same name, with the WC model's coupling
+properties and ``cascade_counts``."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -202,3 +205,182 @@ def test_cascade_step_refuses_what_the_kernel_does_not_take():
     ops.reset_launches()
     rrr_expand.cascade_step_ic(f, f, nbr, prob, keys, 4, 64)
     assert ops.LAUNCHES["cascade_ic"] == 0
+
+
+# ---------------------------------------------------------------------
+# The engine triad under IC, LT and WC, cascade_counts, and WC semantics
+# ---------------------------------------------------------------------
+
+def _chain_graph(n):
+    return ref_csr.from_edge_list(np.arange(n - 1), np.arange(1, n), n,
+                                  probs=np.ones(n - 1, dtype=np.float32))
+
+
+# (graph, n, num_sims, coin_chunk, seeds): the lane count swept across
+# the word boundary (31, 32, 33) and to two words, -1 pads and ids past
+# n, hub rows (the star's), several coin chunks.
+TRIAD = [
+    ("er", 200, 31, 32, [0, 5, -1, 7]),
+    ("er", 200, 32, 3, [3, -1, 250, 9]),
+    ("er", 120, 33, 32, [1, 2, 3]),
+    ("star", 60, 33, 7, [0, -1]),
+    ("reverse star", 60, 64, 16, [1, 2, 3, 4, 5, -1]),
+]
+
+
+@pytest.mark.parametrize("model", ["IC", "LT", "WC"])
+@pytest.mark.parametrize("kind,n,num_sims,coin_chunk,seeds", TRIAD)
+def test_engine_triad_matches_reference(model, kind, n, num_sims,
+                                        coin_chunk, seeds):
+    """map, packed and kernel (its plain versions on the CPU) give the
+    reference's words for the engine of the same name, and the same
+    spread."""
+    g_ref = _graph(kind, n)
+    jk = jax.random.key(13)
+    kw = dict(model=model, num_sims=num_sims, coin_chunk=coin_chunk)
+    g, key = port_graph(g_ref), port_key(jk)
+    for engine in cascade.ENGINES:
+        want = ref_cascade.simulate_cascades(g_ref, np.asarray(seeds), jk,
+                                             engine=engine, **kw)
+        got = cascade.simulate_cascades(g, torch.tensor(seeds), key,
+                                        engine=engine, **kw)
+        np.testing.assert_array_equal(u32(got), u32(want), err_msg=engine)
+        total = np.float32(np.unpackbits(u32(want).view(np.uint8)).sum())
+        assert float(cascade.spread(g, torch.tensor(seeds), key,
+                                    engine=engine, **kw)) == \
+            float(total / np.float32(num_sims))
+
+
+@pytest.mark.parametrize("gather", ["auto", "resident", "streamed"])
+@pytest.mark.parametrize("num_sims,coin_chunk", [(33, 3), (64, 32)])
+def test_wc_kernel_gathers_match_reference(gather, num_sims, coin_chunk):
+    """WC steps through cascade_ic (auto) or the live plane (resident,
+    streamed) with p = the normalized LT weight: the reference's words."""
+    g_ref = _graph("er", 200)
+    jk = jax.random.key(21)
+    kw = dict(model="WC", num_sims=num_sims, coin_chunk=coin_chunk)
+    want = ref_cascade.simulate_cascades(g_ref, np.array([0, 9, 44]), jk,
+                                         engine="packed", **kw)
+    got = cascade.simulate_cascades(port_graph(g_ref),
+                                    torch.tensor([0, 9, 44]), port_key(jk),
+                                    engine="kernel", gather=gather, **kw)
+    np.testing.assert_array_equal(u32(got), u32(want))
+
+
+def test_wc_kernel_route_is_cascade_ic(monkeypatch):
+    """WC kernel/auto runs cascade_step_ic with the LT weights as its
+    probabilities and draws no live plane."""
+    g = port_graph(_graph("er", 200))
+    draws, probs = [], []
+    live_mask, step = cascade._live_mask, rrr_expand.cascade_step_ic
+    monkeypatch.setattr(cascade, "_live_mask",
+                        lambda *a, **k: draws.append(1) or live_mask(*a, **k))
+    monkeypatch.setattr(rrr_expand, "cascade_step_ic",
+                        lambda *a, **k: probs.append(a[3]) or step(*a, **k))
+    cascade.simulate_cascades(g, torch.tensor([0, 5]), prng.key(2),
+                              model="WC")
+    nbr, _, wt = csr.padded_adjacency(g)
+    assert probs and not draws
+    assert torch.equal(probs[0], torch.where(nbr >= 0, wt, 0.0))
+
+
+@pytest.mark.parametrize("model", ["IC", "LT", "WC"])
+@pytest.mark.parametrize("engine", ["map", "kernel"])
+def test_cascade_counts_match_reference(model, engine):
+    g_ref = _graph("er", 120)
+    jk = jax.random.key(3)
+    kw = dict(model=model, num_sims=33, engine=engine)
+    want = np.asarray(ref_cascade.cascade_counts(g_ref, np.array([1, 4]),
+                                                 jk, **kw))
+    got = cascade.cascade_counts(port_graph(g_ref), torch.tensor([1, 4]),
+                                 port_key(jk), **kw)
+    assert got.dtype == torch.int32 and got.shape == (33,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.min() >= 2          # seeds always activate
+
+
+def test_wc_spread_monotone_in_edge_weight():
+    """Shared coins couple the runs: halving every normalized weight can
+    only shrink each simulation's activation set, on every engine, and
+    the words are the reference's."""
+    g_ref = ref_generators.erdos_renyi(60, 5.0, seed=4)
+    g_half_ref = ref_csr.CSRGraph(g_ref.indptr, g_ref.indices, g_ref.probs,
+                                  g_ref.weights * 0.5)
+    jk = jax.random.key(5)
+    key = port_key(jk)
+    seeds = torch.tensor([0, 1])
+    for engine in cascade.ENGINES:
+        full, half = (cascade.simulate_cascades(
+            port_graph(gr), seeds, key, model="WC", num_sims=64,
+            engine=engine) for gr in (g_ref, g_half_ref))
+        assert torch.equal(half & full, half)
+        np.testing.assert_array_equal(u32(full), u32(
+            ref_cascade.simulate_cascades(g_ref, np.array([0, 1]), jk,
+                                          model="WC", num_sims=64,
+                                          engine=engine)))
+        lo = float(cascade.spread(port_graph(g_half_ref), seeds, key,
+                                  model="WC", num_sims=64, engine=engine))
+        hi = float(cascade.spread(port_graph(g_ref), seeds, key,
+                                  model="WC", num_sims=64, engine=engine))
+        assert lo < hi
+
+
+@pytest.mark.parametrize("gather", ["auto", "resident", "streamed"])
+def test_wc_weight_one_chain_is_deterministic(gather):
+    """Each vertex's single in-edge normalizes to weight 1.0, and a
+    uniform in [0, 1) is always below it: every engine fires the whole
+    chain from vertex 0 (cascade_ic's skip of p == 0 slots and its coin
+    test hold at p = 1)."""
+    n = 10
+    g = port_graph(_chain_graph(n))
+    assert torch.equal(g.weights, torch.ones(n - 1))
+    for engine in cascade.ENGINES:
+        sp = float(cascade.spread(g, torch.tensor([0]), prng.key(2),
+                                  model="WC", num_sims=8, engine=engine,
+                                  gather=gather))
+        assert sp == float(n)
+    assert float(cascade.spread(g, torch.tensor([0]), prng.key(2),
+                                model="WC", num_sims=8, max_steps=3,
+                                gather=gather)) == 4.0
+
+
+@pytest.mark.parametrize("model", ["IC", "LT", "WC"])
+def test_map_drops_minus_one_pads(model):
+    """-1 pads and ids past n are no seeds on the map engine either."""
+    g_ref = _graph("er", 50)
+    jk = jax.random.key(0)
+    g, key = port_graph(g_ref), port_key(jk)
+    padded = torch.tensor([3, 7, 11, -1, -1, 50, 999])
+    clean = torch.tensor([3, 7, 11])
+    kw = dict(model=model, num_sims=32, engine="map")
+    got = cascade.simulate_cascades(g, padded, key, **kw)
+    assert torch.equal(got, cascade.simulate_cascades(g, clean, key, **kw))
+    np.testing.assert_array_equal(u32(got), u32(ref_cascade.simulate_cascades(
+        g_ref, padded.numpy(), jk, **kw)))
+
+
+@pytest.mark.parametrize("model", ["IC", "LT", "WC"])
+def test_edgeless_graph_spread_is_seed_count(model):
+    g_ref = _graph("edgeless", 5)
+    g = port_graph(g_ref)
+    for engine in cascade.ENGINES:
+        words = cascade.simulate_cascades(g, torch.tensor([0, 3]),
+                                          prng.key(0), model=model,
+                                          num_sims=16, engine=engine)
+        np.testing.assert_array_equal(u32(words), u32(
+            ref_cascade.simulate_cascades(g_ref, np.array([0, 3]),
+                                          jax.random.key(0), model=model,
+                                          num_sims=16, engine=engine)))
+        assert float(cascade.spread(g, torch.tensor([0, 3]), prng.key(0),
+                                    model=model, num_sims=16,
+                                    engine=engine)) == 2.0
+
+
+def test_engine_and_model_tables_match_reference():
+    assert cascade.ENGINES == ref_cascade.ENGINES
+    assert cascade.MODELS == ref_cascade.MODELS
+    assert cascade.resolve_engine(None) == "kernel"
+    with pytest.raises(ValueError):
+        cascade.resolve_engine("vectorized")
+    with pytest.raises(ValueError):
+        cascade.resolve_model("SIR")

@@ -374,6 +374,63 @@ def test_lt_routes_on_card(dev):
     assert all(torch.equal(first, v) for v in words.values())
 
 
+@pytest.mark.parametrize("model", ["IC", "LT", "WC"])
+def test_engines_on_card(dev, model):
+    """Every engine and gather of the spread gives the CPU's words on the
+    card; WC's kernel route launches cascade_ic (its probabilities the LT
+    weights) and no plane kernel; map and packed launch nothing."""
+    seeds = torch.tensor([0, 5, 77, -1, 4000])
+    want = cascade.simulate_cascades(
+        generators.erdos_renyi(3000, 4.0, seed=5, device="cpu"), seeds,
+        prng.key(2), model=model, engine="map")
+    g = generators.erdos_renyi(3000, 4.0, seed=5, device=dev)
+    for engine, gather in (("kernel", "auto"), ("kernel", "resident"),
+                           ("kernel", "streamed"), ("packed", "auto"),
+                           ("map", "auto")):
+        ops.reset_launches()
+        got = cascade.simulate_cascades(g, seeds, prng.key(2), model=model,
+                                        engine=engine, gather=gather)
+        assert torch.equal(got.cpu(), want)
+        if engine != "kernel":
+            assert not any(ops.LAUNCHES.values())
+        elif gather == "auto":
+            assert ops.LAUNCHES["cascade_lt" if model == "LT"
+                                else "cascade_ic"] > 0
+            assert not ops.LAUNCHES["rrr_expand_streamed"]
+            assert not ops.LAUNCHES["rrr_expand_resident"]
+    assert int((want != 0).sum()) > 5
+
+
+def test_faulted_round_on_card(dev):
+    """The resilient round on the card, lazy senders: the survivors and
+    the seeds of the CPU's round and of the direct survivors merge."""
+    from repro_torch.core import randgreedi
+    from repro_torch.runtime import faults
+    g = generators.erdos_renyi(3000, 4.0, seed=5, device=dev)
+    nbr, prob, wt = csr.padded_adjacency(g)
+    rows = rrr.sample_incidence(nbr, prob, wt, prng.key(1), theta=1024,
+                                n=3000, model="IC",
+                                fwd=csr.padded_forward_adjacency(g))
+    plan = [("local.greedy", "drop", 1), ("local.greedy", "nan", 2),
+            ("receiver.insert", "raise", 0)]
+    out = {}
+    for rows_on, solver in ((rows, "lazy"), (rows.cpu(), "scan")):
+        ops.reset_launches()
+        res, surv, alpha = faults.resilient_randgreedi(
+            rows_on, prng.key(2), m=4, k=10, solver=solver,
+            plan=faults.FaultPlan([faults.FaultSpec(*p) for p in plan]))
+        if solver == "lazy":
+            assert ops.LAUNCHES["lazy_greedy_compact"] + \
+                ops.LAUNCHES["lazy_greedy"] > 0
+        out[solver] = (res.seeds.cpu().tolist(), int(res.coverage), surv,
+                       alpha)
+    clean = randgreedi.randgreedi_maxcover(rows, prng.key(2), m=4, k=10,
+                                           survivors=(0, 3))
+    assert out["lazy"] == out["scan"]
+    assert out["lazy"][:3] == (clean.seeds.cpu().tolist(),
+                               int(clean.coverage), (0, 3))
+
+
 def test_greedy_and_bucket(dev):
     gen = torch.Generator().manual_seed(2)
     rows = _words(gen, 4, 300, 3, dev=dev) & _words(gen, 4, 300, 3, dev=dev)

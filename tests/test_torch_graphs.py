@@ -46,3 +46,15 @@ def test_padded_forward_adjacency(pad_to, rev_pad_to):
     got = csr.padded_forward_adjacency(port_graph(g_ref), pad_to, rev_pad_to)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("kind", sorted(BUILDERS))
+def test_to_dense_prob(kind):
+    """The dense [n, n] matrix P[v, u] = p(u -> v), as numpy float32;
+    rmat's repeated edges keep the later one, as the reference's loop."""
+    pick, args = BUILDERS[kind]
+    g_ref = pick(ref_gen)(*args)
+    got = csr.to_dense_prob(port_graph(g_ref))
+    want = ref_csr.to_dense_prob(g_ref)
+    assert isinstance(got, np.ndarray) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)

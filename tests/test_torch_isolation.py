@@ -1,8 +1,8 @@
 """The port stands alone and never falls back: it imports nothing of jax
 or ``repro``, CUDA requests without a card raise, CPU tensors take the
-plain versions without counting a launch, flags of paths not ported yet
-raise ``NotImplementedError``, and flags that used to be refused run
-and equal their plain twins."""
+plain versions without counting a launch, and flags that used to be
+refused run and equal their plain twins."""
+import json
 import os
 import subprocess
 import sys
@@ -110,15 +110,6 @@ def test_cpu_tensors_take_plain_versions_without_launches():
     assert ops.LAUNCHES == dict.fromkeys(ops.KERNELS, 0)
 
 
-@pytest.mark.parametrize("flags", [
-    ["--faults", "x"], ["--fault-report", "x"], ["--eval-engine", "map"],
-    ["--eval-spread"],
-])
-def test_unported_paths_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, '"):
-        im_driver.main(["--n", "50", "--device", "cpu", *flags])
-
-
 PLAIN = ["--sampler", "packed", "--solver", "scan", "--eval-engine",
          "packed"]
 
@@ -133,26 +124,72 @@ PLAIN = ["--sampler", "packed", "--solver", "scan", "--eval-engine",
     ["--use-opim", "--selector", "greedy"],
     ["--sampler", "dense", "--machines", "4"],
     ["--sampler", "dense", "--theta", "256", "--machines", "2"],
+    ["--eval-spread", "--machines", "4"],
+    ["--eval-engine", "map", "--machines", "4"],
+    ["--faults", "local.greedy:drop:1", "--theta", "256", "--machines", "4"],
+    ["--faults", "local.greedy:nan:0", "--faults", "receiver.insert:raise:0",
+     "--theta", "256", "--machines", "4", "--solver", "lazy",
+     "--fault-report", "{tmp}"],
 ])
-def test_ported_paths_equal_their_plain_twin(flags):
+def test_ported_paths_equal_their_plain_twin(flags, tmp_path):
     """Paths that used to be refused now run on the CPU and give what
     the plain paths (packed sampler, scan solver and receiver, packed
-    spread engine) give."""
+    spread engine) give; a fault report is the same file."""
     base = ["--n", "60", "--k", "3", "--max-theta", "256", "--device",
             "cpu"]
-    got = im_driver.run(base + flags)
-    plain = [f for f in flags if f not in ("--use-kernel",)]
+    got = im_driver.run(base + [f.format(tmp=tmp_path / "got.json")
+                                for f in flags])
+    plain = [f.format(tmp=tmp_path / "want.json") for f in flags
+             if f not in ("--use-kernel",)]
     for flag in ("--solver", "--chunk-size"):
         if flag in plain:
             i = plain.index(flag)
             del plain[i:i + 2]
     want = im_driver.run(base + plain + PLAIN)
-    for key in ("seeds", "theta", "rounds", "coverage_fraction", "guarantee",
-                "spread", "round"):
+    assert set(got) == set(want)
+    keys = (("seeds", "survivors", "alpha_used", "coverage", "spread", "rc",
+             "theta") if "--faults" in flags else
+            ("seeds", "theta", "rounds", "coverage_fraction", "guarantee",
+             "spread", "round", "spread_check"))
+    for key in keys:
         if key == "seeds":
             assert got[key].tolist() == want[key].tolist()
-        elif key == "round" and got[key] is not None:
+        elif key in ("round", "spread_check") and got[key] is not None:
             assert {k: v for k, v in got[key].items() if k != "seconds"} == \
                 {k: v for k, v in want[key].items() if k != "seconds"}
         else:
             assert got[key] == want[key]
+    if "--eval-spread" in flags:
+        assert set(got["spread_check"]["spread"].values()) == {got["spread"]}
+    if "--faults" in flags:
+        assert got["rc"] == 0 and len(got["survivors"]) == 3
+    if "--fault-report" in flags:
+        reports = [json.loads((tmp_path / f"{name}.json").read_text())
+                   for name in ("got", "want")]
+        for report in reports:      # the monitor's flags read the clock
+            report["checks"][0].pop("straggler_flags")
+        assert reports[0] == reports[1] and reports[0]["pass"] is True
+        assert [e["kind"] for e in reports[0]["events"]] == ["nan", "raise"]
+
+
+def test_fault_report_needs_faults(capsys):
+    """--fault-report alone exits through argparse, as the reference's
+    driver does."""
+    with pytest.raises(SystemExit) as e:
+        im_driver.main(["--n", "50", "--device", "cpu", "--fault-report",
+                        "x"])
+    assert e.value.code == 2
+    assert "--fault-report needs --faults" in capsys.readouterr().err
+
+
+def test_all_partitions_lost_exit_status(tmp_path):
+    """A plan that loses every machine returns status 1 and writes a
+    report whose check failed."""
+    path = tmp_path / "report.json"
+    rc = im_driver.main(["--n", "60", "--k", "3", "--theta", "256",
+                         "--machines", "2", "--device", "cpu", "--faults",
+                         "local.greedy:drop:0", "--faults",
+                         "local.greedy:raise:1", "--fault-report", str(path)])
+    report = json.loads(path.read_text())
+    assert rc == 1 and report["pass"] is False
+    assert report["checks"][0]["name"] == "round_survived"
