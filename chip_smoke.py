@@ -14,15 +14,19 @@ WC over every engine and gather, against the CPU's map and packed
 engines), drives every path at full
 size through the entry points a user calls (the IMM loop with the
 GreediRIS selector and the spread's cross-check over the map, packed
-and kernel engines, phase ``full``; the weighted-cascade spread of its
-seeds over every route, phase ``wc``; the fixed-theta round with the
+and kernel engines, phase ``full``; the same IMM on the sampler's
+streamed layout, whose steps draw the coin plane through coin_pack and
+expand through rrr_expand_streamed, phase ``streamed``, which must give
+``full``'s results; the weighted-cascade spread of its seeds over every
+route, phase ``wc``; the fixed-theta round with the
 lazy and the fused senders, and under injected faults through the
 resilient round (survivors merge, plain twin, all machines lost), phase
-``faulted``; the Ripples round; the serving replay with the resident and
-the lazy senders; every one samples IC through rrr_expand_ic, a push
-over the frontier's live words that draws the coins in the step and
-builds no coin plane, and solves its machine axis on the compact layout,
-the list of the rows' non-zero words; every kernel-engine spread steps through
+``faulted``; the Ripples round; the serving replay with the resident,
+the fused and the lazy senders; every one but ``streamed`` samples IC
+through rrr_expand_ic, a push over the frontier's live words that draws
+the coins in the step and builds no coin plane, and solves its machine
+axis on the compact layout, the list of the rows' non-zero words; every
+kernel-engine spread steps through
 cascade_ic, which draws the live edges in the step and builds no
 live-edge plane), drives the same IMM under LT (sampling through
 rrr_expand_lt and spreading through cascade_lt, which draw each live
@@ -111,6 +115,12 @@ LT_RUN = ("rrr_expand_lt", "cascade_lt")
 # spread's cross-check (--eval-spread: the map, packed and kernel
 # engines on its seeds, one value required) ...
 FULL_CHECKED = FULL + ["--eval-spread"]
+# The sampler's other layout at full size: FULL with --gather streamed,
+# whose IC steps draw the coin plane (coin_pack, 17.2 GB at the first
+# step) and expand through the gathered mask (rrr_expand_streamed).
+# Every gather gives the same bits, so its results must be FULL's.
+STREAMED = FULL + ["--gather", "streamed"]
+STREAMED_RUN = ("coin_pack", "rrr_expand_streamed")
 # ... the weighted cascade (p(u -> v) = the normalized LT weight, ~1/d_in)
 # on FULL's graph and the FULL run's seeds, over every route of the
 # spread: (engine, gather) ...
@@ -171,29 +181,22 @@ RECEIVER_RUN = {"bucket_insert": "imm supercritical",
 # 700.00 W; PERF.md, the kernel table).
 PR16_MS = {"greedy_pick": 34.708736419677734, "lazy_greedy": 22.682687759399414}
 SERVE_RUN = {"greedy_pick_batch": "serve resident",
-             "lazy_greedy_batch": "serve lazy"}
+             "lazy_greedy_batch": "serve lazy",
+             "topk_gain_batch": "serve fused"}
 # Kernels that no full-size run launches, with the run of phase `paths`
-# (n = 3000) that does: the coin plane of IC --gather streamed, the
-# resident expansion of the cascade's resident gather, the streamed
-# expansion of the cascade's streamed gather (and of LT's --gather
-# streamed sampling), and the fused serving path.
+# (n = 3000) that does: the resident expansion of the cascade's resident
+# gather.
 SMALL_RUN = {
-    "rrr_expand_streamed": ("IC kernel-gpu",
-                            "IMM at n = 3000, IC, the spread over the "
-                            "cascade's --gather streamed (phase paths)"),
-    "coin_pack": ("IC kernel-gpu-streamed",
-                  "IMM at n = 3000, IC, --gather streamed (phase paths)"),
     "rrr_expand_resident": ("IC kernel-gpu",
                             "IMM at n = 3000, the spread over the cascade's "
-                            "--gather resident (phase paths)"),
-    "topk_gain_batch": ("serve fused",
-                        "serve --check at n = 3000 (phase paths)")}
+                            "--gather resident (phase paths)")}
 # The full-size runs, and the shape of rrr_expand_ic's timing each takes
 # its time from (phase `order`).
-FULL_RUNS = {"imm": "imm", "lt": "lt", "round lazy": "round",
-             "round fused": "round", "ripples": "round",
-             "serve resident": "serve", "serve lazy": "serve",
-             "wc": "wc", "faulted lazy": "round"}
+FULL_RUNS = {"imm": "imm", "imm streamed": "imm", "lt": "lt",
+             "round lazy": "round", "round fused": "round",
+             "ripples": "round", "serve resident": "serve",
+             "serve fused": "serve", "serve lazy": "serve", "wc": "wc",
+             "faulted lazy": "round"}
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak bandwidth
 # INT32 ALU peak: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock (NVIDIA
@@ -374,8 +377,12 @@ def parity_small(dev) -> dict:
     key = prng.key(7).fold_in(3)
     err = 0
     for n_c, chunk, n_chunks, w_c, dens in ((301, 3, 2, 3, 3),
+                                            (97, 2, 3, 33, 0),
+                                            (64, 4, 2, 1, 1),
                                             (262144, 16, 1, 40, 12)):
-        # the second shape's flat draw index passes 2**32
+        # W = 3, 33 and 1 take the 4-byte path (33: eight 16-byte chunks'
+        # worth and a tail; half the frontier bits set, so every chunk
+        # hashes); the last shape's flat draw index passes 2**32
         keys = [key.fold_in(c) for c in range(n_chunks)]
         prob = torch.rand((n_c, chunk * n_chunks), generator=gen) * 0.6
         prob[:, -1] = 0.0
@@ -1377,7 +1384,45 @@ def full_run():
     check_ic_sampling("imm", launches)
     check_ic_spread("imm", launches, planes.count - 1)
     check_layout("imm", launches)
-    return launches, seeds
+    return launches, out
+
+
+def streamed_run(full: dict) -> dict:
+    """FULL on the sampler's streamed layout (STREAMED) through
+    ``im_driver.run``: each IC BFS step draws the coin plane (coin_pack)
+    and expands through the gathered mask (rrr_expand_streamed), once
+    each a step; the spread steps through cascade_ic as FULL's does.
+    Seeds, theta, coverage fraction, BFS steps and spread must be those
+    of the ``full`` run.  Launch counts set to 0 just before it and read
+    just after."""
+    ops.reset_launches()
+    with PlaneDraws() as planes:
+        out = im_driver.run(STREAMED)
+        torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    emit(phase="streamed", theta=out["theta"], rounds=out["rounds"],
+         coverage_fraction=out["coverage_fraction"], spread=out["spread"],
+         seconds=dict(graph=out["graph_s"], sample=out["sample_s"],
+                      select=out["select_s"], spread=out["spread_s"]),
+         bfs_steps=out["bfs_steps"], peak_bytes=out["peak_bytes"],
+         live_planes=planes.count, launches=launches)
+    differ = {key: (out[key], full[key]) for key in (
+        "theta", "rounds", "coverage_fraction", "spread", "bfs_steps")
+        if out[key] != full[key]}
+    if differ or out["seeds"].tolist() != full["seeds"].tolist():
+        raise AssertionError(f"imm streamed: {differ or 'other seeds'} "
+                             "than the resident layout's run")
+    steps = out["bfs_steps"]
+    drawn = {k: launches[k] for k in STREAMED_RUN + (
+        "rrr_expand_ic", "rrr_expand_resident")}
+    if drawn != dict(coin_pack=steps, rrr_expand_streamed=steps,
+                     rrr_expand_ic=0, rrr_expand_resident=0) \
+            or not launches["cascade_ic"] or planes.count:
+        raise AssertionError(f"imm streamed: {steps} BFS steps launched "
+                             f"{drawn}, cascade_ic {launches['cascade_ic']} "
+                             f"times, and drew {planes.count} planes")
+    check_layout("imm streamed", launches)
+    return launches
 
 
 class StepCount:
@@ -1761,7 +1806,8 @@ def round_runs(dev):
 
 def serve_runs(dev):
     """The serving replay at full size through ``serve.run`` with the
-    resident and the lazy senders.  Each run's launch counts and peak
+    resident, the fused and the lazy senders, which must give the same
+    answers.  Each run's launch counts and peak
     memory are reset just before it and read just after; the launches
     returned are the replay's, read before ``--check`` replays every
     query through the sequential solver (its launches are printed
@@ -1778,7 +1824,7 @@ def serve_runs(dev):
         replay.update(ops.LAUNCHES)
         return check(*args, **kwargs)
 
-    for solver in ("resident", "lazy"):
+    for solver in ("resident", "fused", "lazy"):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1824,12 +1870,15 @@ def serve_runs(dev):
                     and (real < 262144).all() and a.coverage > 0
                     and np.isfinite(a.sigma_lower) and np.isfinite(a.sigma_upper)):
                 raise AssertionError(f"serve {solver}: bad answer {a}")
-        if solver == "resident":
+        if solver != "lazy":
             del out["service"]              # free its pools before the next
         outs[solver] = out
-    if not all(serve.answers_equal(a, b) for a, b in zip(
-            outs["resident"]["answers"], outs["lazy"]["answers"])):
-        raise AssertionError("serve: resident and lazy answers differ")
+    for solver in ("fused", "lazy"):
+        want, got = outs["resident"]["answers"], outs[solver]["answers"]
+        if len(got) != len(want) or not all(
+                serve.answers_equal(a, b) for a, b in zip(want, got)):
+            raise AssertionError(f"serve: resident and {solver} answers "
+                                 "differ")
     missing = [k for k, run in SERVE_RUN.items() if launches[run][k] == 0]
     if missing:
         raise AssertionError(f"the serving path never launched {missing}")
@@ -2661,10 +2710,11 @@ def selector_timings(args, nbr, prob, wt, fwd, dev, label) -> dict:
 def main_path_timings(dev, final_seeds) -> dict:
     """Every kernel at the shapes the full run gives it: the first BFS
     step of a 32768-sample draw (rrr_expand_ic also at other steps and
-    shapes, :func:`ic_timings`), the local solves and the receiver of
-    the selector over that incidence, and the first cascade step
-    (cascade_ic, then the plane route's rrr_expand_streamed that the
-    cascade's --gather streamed takes)."""
+    shapes, :func:`ic_timings`; coin_pack and rrr_expand_streamed as the
+    streamed layout's run takes that step), the local solves and the
+    receiver of the selector over that incidence, and the first cascade
+    step (cascade_ic, then the plane route's rrr_expand_streamed that
+    the cascade's --gather streamed takes)."""
     args = im_driver.parser().parse_args(FULL)
     n, theta, k, m = args.n, args.max_theta, args.k, args.machines
     g = generators.erdos_renyi(n, args.avg_deg, args.seed, device=dev)
@@ -2696,6 +2746,22 @@ def main_path_timings(dev, final_seeds) -> dict:
         lambda: rrr_expand.expand_step_resident_plain(
             frontier, visited, t.nbr_c, t.gidx, plane),
         10, 3, bytes_=4 * fb + 8 * t.nbr_c.numel() + 4 * plane_words)
+    # the streamed layout's step: the plane gathered into [n, df, W] as
+    # rrr._expand gathers it (zero at invalid slots), then expanded; the
+    # kernel loads a mask word only behind a non-zero frontier word
+    gm = plane.view(n, t.d_pad, W)[t.nbr_c.long(), t.rslot]
+    gm.masked_fill_(~t.valid[:, :, None], 0)
+    gm_words = sum(int((frontier[t.nbr_c[:, s].long()] != 0).sum())
+                   for s in range(t.nbr_c.shape[1]))
+    rows_out["rrr_expand_streamed"] = timed(
+        "rrr_expand_streamed",
+        lambda: rrr_expand.rrr_expand_step(frontier, visited, t.nbr_c, gm),
+        lambda: rrr_expand.expand_step_plain(frontier, visited, t.nbr_c, gm),
+        10, 3, bytes_=4 * (4 * frontier.numel() + t.nbr_c.numel()
+                           + gm_words))
+    rows_out["rrr_expand_streamed"]["gmask_shape"] = list(gm.shape)
+    del gm
+    torch.cuda.empty_cache()
     rows_out["rrr_expand_ic"] = time_ic_step(t, frontier, visited, keys,
                                              "imm", plane=plane)
     del plane
@@ -2719,11 +2785,11 @@ def main_path_timings(dev, final_seeds) -> dict:
                       ).to(torch.int32)
     gm_words = int(sum(int((act[tbl[:, s].long()] != 0).sum())
                        for s in range(d_pad)))
-    rows_out["rrr_expand_streamed"] = timed(
+    rows_out["rrr_expand_streamed"]["shapes"] = {"cascade": timed(
         "rrr_expand_streamed",
         lambda: rrr_expand.rrr_expand_step(act, act, tbl, live),
         lambda: rrr_expand.expand_step_plain(act, act, tbl, live), 10, 3,
-        bytes_=4 * (4 * act.numel() + tbl.numel() + gm_words))
+        bytes_=4 * (4 * act.numel() + tbl.numel() + gm_words))}
     return rows_out
 
 
@@ -2917,7 +2983,10 @@ def serve_timings(dev, svc_lazy, trace) -> dict:
         bytes_=4 * (r1.numel() + bq * w + 2 * bq) + picked.numel(),
         words=bq * r1.numel(),
         nonzero=int(((r1 != 0).sum(1)[None] * ~picked).sum()))
-    rows_out["topk_gain_batch"].update(B=bq, n=n, W=w)
+    g_fused, groups_fused = greedy_pick.query_plan("topk_gain", bq, w, dev)
+    rows_out["topk_gain_batch"].update(
+        B=bq, n=n, W=w, G=g_fused, groups=groups_fused,
+        sweep_bytes=4 * r1.numel() * groups_fused)
     return rows_out
 
 
@@ -2989,9 +3058,13 @@ def main(argv=None) -> int:
     lap("paths")
     if args.stop_after == "paths":
         return 0
-    launches, seeds = full_run()
+    launches, full_out = full_run()
+    seeds = full_out["seeds"]
     lap("full")
     full = {"imm": launches}
+    full["imm streamed"] = streamed_run(full_out)
+    del full_out
+    lap("streamed")
     full["wc"] = wc_spread(dev, seeds)
     lap("wc")
     full["lt"], lt_seeds = lt_run()
@@ -3068,6 +3141,8 @@ def main(argv=None) -> int:
             row["launches"] = full[ROUND_RUN[name]][name]
         elif name in SERVE_RUN:
             row["launches"] = full[SERVE_RUN[name]][name]
+        elif name in STREAMED_RUN:
+            row["launches"] = full["imm streamed"][name]
         elif name in SMALL_RUN:
             run, row["launches_from"] = SMALL_RUN[name]
             row["launches"] = small[run][name]

@@ -7,12 +7,13 @@ calls the C entry point on ``torch.cuda.current_stream()``, raises if it
 returns an error, and only then adds one to that kernel's count in
 :data:`LAUNCHES` (so a run can show that it went through the kernels).
 The ``*_batch`` counts are the query-axis launches of the sender
-kernels: B queries over one shared row pool, which ``greedy_pick_batch``
-and ``lazy_greedy_batch`` read once per pick for each group of queries
-and ``topk_gain_batch`` with a row stride of 0.  The machine-axis
-senders count each layout apart: ``compact_rows`` (the list of non-zero
-words) then ``greedy_pick_compact`` or ``lazy_greedy_compact``, or the
-dense sweep ``greedy_pick`` or ``lazy_greedy``.
+kernels: B queries over one shared row pool, which ``greedy_pick_batch``,
+``lazy_greedy_batch`` and ``topk_gain_batch`` read once per pick for
+each group of queries (``topk_gain_batch``: one pick a launch).  The
+machine-axis senders count each layout apart: ``compact_rows`` (the list
+of non-zero words) then ``greedy_pick_compact`` or
+``lazy_greedy_compact``, or the dense sweep ``greedy_pick`` or
+``lazy_greedy``.
 """
 from __future__ import annotations
 

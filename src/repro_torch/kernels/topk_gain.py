@@ -1,13 +1,14 @@
-"""One greedy pick per machine — the masked gain sweep fused with the
-argmax (``csrc/topk_gain.cu``) — and the plain PyTorch version.
+"""One greedy pick — the masked gain sweep fused with the argmax
+(``csrc/topk_gain.cu``) — and the plain PyTorch version.
 
 Replaces ``repro/kernels/topk_gain.py``: ``best_gain_index_pallas`` (TPU
 kernel #7), the per-pick engine of ``solver="fused"``, with a leading
-machine axis, or a query axis over one shared row pool (row stride 0;
-the reference vmaps the kernel over queries in
-``repro/core/maxcover.py:141``).  Picked rows score -1; ties go to the
-lowest row index, as ``jnp.argmax`` breaks them.  Bound on the H100: bytes (the rows,
-read once per pick).
+machine axis (``topk_gain``), and its vmap over queries in
+``repro/core/maxcover.py:141`` (``topk_gain_batch``: B queries over one
+shared row pool, read once a pick for each group of queries whose
+covers fit in a block's shared memory, :func:`greedy_pick.query_groups`).
+Picked rows score -1; ties go to the lowest row index, as ``jnp.argmax``
+breaks them.  Bound on the H100: bytes (the rows, read once per pick).
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import torch
 
 from repro_torch.kernels import coverage, ops
 
-_ARGS = [ops.PTR] * 6 + [ops.I64] * 4
+_ARGS = [ops.PTR] * 6 + [ops.I64] * 3
+_BATCH_ARGS = [ops.PTR] * 6 + [ops.I64] * 4
 
 
 def best_gain_index_plain(rows, covered, picked):
@@ -33,18 +35,17 @@ def best_of(gains, picked):
     return g.gather(1, best[:, None])[:, 0], best.to(torch.int32)
 
 
-def _launch(counter: str, rows, covered, picked, m: int, n: int, w: int,
-            rstride: int):
+def _launch(counter: str, fn: str, argtypes, rows, covered, picked, m: int,
+            *sizes: int):
     dev = rows.device
     keys = torch.zeros((m,), dtype=torch.int64, device=dev)
     best = torch.empty((m,), dtype=torch.int32, device=dev)
     index = torch.empty((m,), dtype=torch.int32, device=dev)
     if m == 0:
         return best, index
-    ops.launch(counter, "topk_gain", "best_gain_index", _ARGS,
-               rows.data_ptr(), covered.data_ptr(), picked.data_ptr(),
-               keys.data_ptr(), best.data_ptr(), index.data_ptr(), m, n, w,
-               rstride)
+    ops.launch(counter, "topk_gain", fn, argtypes, rows.data_ptr(),
+               covered.data_ptr(), picked.data_ptr(), keys.data_ptr(),
+               best.data_ptr(), index.data_ptr(), m, *sizes)
     return best, index
 
 
@@ -59,14 +60,20 @@ def best_gain_index(rows: torch.Tensor, covered: torch.Tensor,
     ops.check(rows, "rows", torch.int32, (m, n, w))
     ops.check(covered, "covered", torch.int32, (m, w))
     ops.check(picked, "picked", torch.bool, (m, n))
-    return _launch("topk_gain", rows, covered, picked, m, n, w, n * w)
+    return _launch("topk_gain", "best_gain_index", _ARGS, rows, covered,
+                   picked, m, n, w)
 
 
 def best_gain_index_batch(rows: torch.Tensor, covered: torch.Tensor,
                           picked: torch.Tensor):
     """One pick of each of B queries over one shared pool ``rows`` int32
     [n, W]: covered int32 [B, W], picked bool [B, n] -> (best gain,
-    best index), int32 [B] each.  The pool is read in place."""
+    best index), int32 [B] each.  The pool is read in place, once for
+    each group of queries; a W whose cover alone does not fit in a
+    block's shared memory raises."""
+    # greedy_pick imports this module for its plain pick
+    from repro_torch.kernels import greedy_pick
+
     n, w = rows.shape
     b = covered.shape[0]
     if n == 0:
@@ -77,4 +84,6 @@ def best_gain_index_batch(rows: torch.Tensor, covered: torch.Tensor,
     ops.check(rows, "rows", torch.int32, (n, w))
     ops.check(covered, "covered", torch.int32, (b, w))
     ops.check(picked, "picked", torch.bool, (b, n))
-    return _launch("topk_gain_batch", rows, covered, picked, b, n, w, 0)
+    g = greedy_pick.query_plan("topk_gain", b, w, rows.device)[0] if b else 1
+    return _launch("topk_gain_batch", "best_gain_index_batch", _BATCH_ARGS,
+                   rows, covered, picked, b, n, w, g)

@@ -54,13 +54,40 @@ def test_expand_layouts(dev, n, df, w):
            rrr_expand.expand_step_plain(f, vis, nbr, gm))
 
 
-def test_coin_plane(dev):
-    gen = torch.Generator().manual_seed(1)
-    keys = [prng.key(3).fold_in(c) for c in range(3)]
-    prob = (torch.rand((50, 6), generator=gen) * 0.7).to(dev)
-    f = _words(gen, 50, 4, dev=dev)
-    _equal([coins.coin_plane(keys, prob, f, 2)],
-           [coins.coin_plane_plain(keys, prob, f, 2)])
+@pytest.mark.parametrize("n,w,chunk,n_chunks,frontier", [
+    (50, 4, 2, 3, "random"),
+    (50, 1, 2, 3, "random"),          # one word a row: 4-byte path
+    (50, 3, 4, 2, "random"),          # W < 4
+    (70, 33, 3, 2, "random"),         # 8 chunks of four words and a tail
+    (40, 8, 2, 3, "full"),            # every bit set: every coin hashed
+    (40, 8, 4, 2, "empty"),           # nothing set: an all-zero plane
+    (50, 4, 2, 3, "unaligned"),       # a frontier 4 bytes off 16
+    (2**17, 80, 16, 1, "sparse"),     # draw indices past 2^32 (0.67 GB)
+])
+def test_coin_plane(dev, n, w, chunk, n_chunks, frontier):
+    """The coin plane equals its plain version word for word, zeros
+    included: every W path, several chunk keys, a fifth of the slots at
+    p = 0, and a shape whose high words draw indices above 2^32."""
+    gen = torch.Generator().manual_seed(n + w)
+    keys = [prng.key(3).fold_in(c) for c in range(n_chunks)]
+    prob = torch.rand((n, chunk * n_chunks), generator=gen) * 0.7
+    prob[torch.rand(prob.shape, generator=gen) < 0.2] = 0.0
+    prob = prob.to(dev)
+    words = _words(gen, n * w + 1, dev=dev)
+    if frontier == "full":
+        words[:] = -1
+    elif frontier == "empty":
+        words[:] = 0
+    elif frontier == "sparse":                 # a set bit in ~1% of words
+        words &= _words(gen, n * w + 1, dev=dev) & _words(
+            gen, n * w + 1, dev=dev)
+        words = torch.where(torch.rand(n * w + 1, generator=gen).to(dev)
+                            < 0.01, words, 0)
+    f = (words[1:] if frontier == "unaligned" else words[:-1]).view(n, w)
+    if frontier == "sparse":
+        assert 32 * 64 * n * chunk == 2**32 and bool((f[:, 64:] != 0).any())
+    _equal([coins.coin_plane(keys, prob, f, chunk)],
+           [coins.coin_plane_plain(keys, prob, f, chunk)])
 
 
 def _ic_graph(gen, n, df, d, w, chunk, dens, dev):
@@ -796,6 +823,43 @@ def test_query_axis_kernels(dev, n, w, k, b, case):
             one = maxcover.greedy_maxcover(rows, k, solver=solver,
                                            excluded=ex[q])
             _equal([f[q] for f in sol], one)
+
+
+@pytest.mark.parametrize("w", [3, 4, 5, 64])
+@pytest.mark.parametrize("b", [1, 3, 8, 9, 17])
+def test_topk_gain_batch(dev, b, w):
+    """One pick of B queries over a shared pool equals its plain version:
+    one group, several, and a ragged last one (B = 9, 17); the 4-byte
+    (W = 3, 5) and the 16-byte paths; two best rows in different blocks
+    tie (the lower wins unless its query picked it); a query with every
+    row picked gets gain -1 at row 0, as jnp.argmax."""
+    n = 3000
+    gen = torch.Generator().manual_seed(b * w)
+    rows = _words(gen, n, w, dev=dev) & _words(gen, n, w, dev=dev)
+    rows[[7, n - 5]] = -1
+    cov = _words(gen, b, w, dev=dev) & _words(gen, b, w, dev=dev)
+    picked = (torch.rand((b, n), generator=gen) < 0.3).to(dev)
+    if b > 1:
+        picked[b // 2] = True
+    ops.reset_launches()
+    got = topk_gain.best_gain_index_batch(rows, cov, picked)
+    _equal(got, topk_gain.best_gain_index_plain(rows[None].expand(b, n, w),
+                                                cov, picked))
+    assert ops.LAUNCHES["topk_gain_batch"] == 1
+    if b > 1:
+        assert (int(got[0][b // 2]), int(got[1][b // 2])) == (-1, 0)
+
+
+def test_topk_gain_batch_refuses_a_cover_wider_than_shared_memory(dev):
+    """A W whose one cover does not fit a block's shared memory is
+    refused with an error, never solved by the plain version."""
+    rows = torch.zeros((4, 70000), dtype=torch.int32, device=dev)
+    cov = torch.zeros((2, 70000), dtype=torch.int32, device=dev)
+    picked = torch.zeros((2, 4), dtype=torch.bool, device=dev)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="shared memory"):
+        topk_gain.best_gain_index_batch(rows, cov, picked)
+    assert ops.LAUNCHES["topk_gain_batch"] == 0
 
 
 def test_batched_solve_peak_memory_stays_near_the_pool(dev):

@@ -63,8 +63,11 @@ def test_streamed_matches_pallas(n, df, w):
         np.testing.assert_array_equal(u32(a), u32(b))
 
 
-@pytest.mark.parametrize("n,batch,chunk,n_chunks", [(13, 64, 3, 2),
-                                                     (5, 40, 4, 1)])
+@pytest.mark.parametrize("n,batch,chunk,n_chunks", [
+    (13, 64, 3, 2), (5, 40, 4, 1),
+    (7, 96, 2, 3),          # W = 3: no 16-byte chunk, three chunk keys
+    (6, 165, 3, 2),         # W = 6: a four-word chunk and a tail of two
+])
 def test_coin_plane_matches_reference_draw(n, batch, chunk, n_chunks):
     """plane = (the reference's packed per-chunk coins) & frontier."""
     rng = np.random.default_rng(n)

@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
-"""Time the IC sampler inside the three full-size paths on one NVIDIA GPU.
+"""Time the IC sampler inside the full-size paths on one NVIDIA GPU.
 
     python3 tools/time_sampler.py [--src DIR] [--label NAME]
 
 Runs ``chip_smoke.py``'s full-size commands through the entry points a
-user calls: the IMM command (FULL), the fixed-theta round (ROUND, lazy
-sender) and the serving replay (SERVE, lazy sender).  For each it
+user calls: the IMM command (FULL), the same on the sampler's streamed
+layout (FULL with ``--gather streamed``, whose steps draw the coin plane
+and expand through the gathered mask: the device seconds of each kernel
+wrapper over the run are printed apart), the fixed-theta round (ROUND,
+lazy sender) and the serving replay (SERVE, lazy sender).  For each it
 prints the stage seconds, the peak device memory, the kernel launches
-and a digest of the result (seeds, or every answer).  The serving
+and a digest of the result (seeds, or every answer).  It also times the
+coin plane's kernel alone (``coins.coin_plane``) at FULL's first BFS
+step, CUDA-event median of 10 launches, with a digest of the plane.  The serving
 replay's refreshes are split into the slab fills' sampler kernels (CUDA
 events around every call of the sampler's kernel wrappers), the host
 tables (``padded_adjacency``, ``padded_forward_adjacency`` and the
@@ -60,14 +65,15 @@ class SamplerClock:
 
     def __init__(self, modules: dict):
         self.modules = modules
-        self.events = []
+        self.events = []            # (wrapper name, start, stop)
         self.tables_s = 0.0
         self._saved = []
 
     def __enter__(self):
         for mod, name in KERNEL_FNS:
             if hasattr(self.modules[mod], name):
-                self._wrap(self.modules[mod], name, self._on_card)
+                self._wrap(self.modules[mod], name,
+                           lambda fn, name=name: self._on_card(fn, name))
         for name in ("padded_adjacency", "padded_forward_adjacency"):
             self._wrap(self.modules["service"], name, self._on_host)
         self._wrap(self.modules["rrr"], "_Tables", self._on_host)
@@ -83,14 +89,14 @@ class SamplerClock:
         self._saved.append((module, name, fn))
         setattr(module, name, how(fn))
 
-    def _on_card(self, fn):
+    def _on_card(self, fn, name: str):
         def timed(*args, **kwargs):
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
             out = fn(*args, **kwargs)
             stop.record()
-            self.events.append((start, stop))
+            self.events.append((name, start, stop))
             return out
         return timed
 
@@ -104,9 +110,11 @@ class SamplerClock:
             return out
         return timed
 
-    def kernel_s(self) -> float:
+    def kernel_s(self, name: str | None = None) -> float:
+        """Device seconds of the wrapper calls (of ``name`` alone)."""
         torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in self.events) / 1e3
+        return sum(a.elapsed_time(b) for fn, a, b in self.events
+                   if name in (None, fn)) / 1e3
 
 
 def smoke_commands() -> dict:
@@ -141,7 +149,51 @@ def main(argv=None) -> int:
     cmd = smoke_commands()
     for rep in (0, 1):
         run_paths(dict(label=args.label, src=args.src, rep=rep), cmd, dev)
+    coin_step(dict(label=args.label, src=args.src), cmd, dev)
     return 0
+
+
+def coin_step(common: dict, cmd: dict, dev, reps: int = 10):
+    """coin_pack at the first BFS step of FULL's draw (its 32,768 roots,
+    the chunk keys as the sampler derives them): the plane [n, d_pad, W]
+    of that step, one JSON line."""
+    import numpy as np
+    from repro_torch.core import prng, rrr
+    from repro_torch.graphs import csr, generators
+    from repro_torch.kernels import coins
+    from repro_torch.launch import im_driver
+
+    args = im_driver.parser().parse_args(cmd["FULL"])
+    g = generators.erdos_renyi(args.n, args.avg_deg, args.seed, device=dev)
+    nbr, prob, wt = csr.padded_adjacency(g)
+    t = rrr._Tables(nbr, prob, wt, *csr.padded_forward_adjacency(g),
+                    model="IC", coin_chunk=args.coin_chunk)
+    kr, kb = prng.key(args.seed).fold_in(1).split()
+    frontier = rrr.packed_roots(
+        kr.randint((args.max_theta,), 0, t.n, device=dev), t.n)
+    keys = [kb.split()[1].fold_in(c) for c in range(t.n_chunks)]
+
+    def plane():
+        return coins.coin_plane(keys, t.prob_p, frontier, t.chunk)
+
+    out = plane()
+    slots = torch.arange(out.shape[1], device=dev, dtype=torch.int64)
+    check = [int(out.ne(0).sum()), int(out.sum(dtype=torch.int64)),
+             int((out.sum(2, dtype=torch.int64) * slots).sum())]
+    del out
+    times = []
+    for _ in range(reps + 1):                   # the first is a warm-up
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        plane()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    print(json.dumps(dict(
+        common, path="coin_pack first step", shape=[t.n, t.d_pad,
+                                                    frontier.shape[1]],
+        ms=float(np.median(times[1:])), plane=digest(check))), flush=True)
 
 
 def run_paths(common: dict, cmd: dict, dev):
@@ -151,16 +203,25 @@ def run_paths(common: dict, cmd: dict, dev):
     from repro_torch.kernels import coins, ops, rrr_expand
     from repro_torch.launch import im_driver, serve
 
-    for path, argv_ in (("imm", cmd["FULL"]), ("round", cmd["ROUND"])):
+    modules = dict(rrr=rrr, rrr_expand=rrr_expand, coins=coins,
+                   service=service)
+    for path, argv_ in (("imm", cmd["FULL"]),
+                        ("imm streamed", cmd["FULL"] + ["--gather",
+                                                        "streamed"]),
+                        ("round", cmd["ROUND"])):
         ops.reset_launches()
-        out = im_driver.run(argv_)
-        torch.cuda.synchronize()
+        with SamplerClock(modules) as clock:
+            out = im_driver.run(argv_)
+            torch.cuda.synchronize()
+            wrappers_s = {fn: clock.kernel_s(fn)
+                          for fn in dict.fromkeys(e[0] for e in clock.events)}
         rnd = out["round"]
         print(json.dumps(dict(
             common, path=path, sample_s=out["sample_s"],
             select_s=out["select_s"],
             round_seconds=rnd["seconds"] if rnd else None,
             bfs_steps=out["bfs_steps"], peak_bytes=out["peak_bytes"],
+            wrapper_device_s=wrappers_s,
             launches={k: v for k, v in ops.LAUNCHES.items() if v},
             seeds=digest(out["seeds"].tolist()))), flush=True)
         del out
@@ -168,8 +229,7 @@ def run_paths(common: dict, cmd: dict, dev):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
-    with SamplerClock(dict(rrr=rrr, rrr_expand=rrr_expand, coins=coins,
-                           service=service)) as clock:
+    with SamplerClock(modules) as clock:
         out = serve.run(cmd["SERVE"] + ["--solver", "lazy"])
         kernel_s = clock.kernel_s()
     st = out["stats"]

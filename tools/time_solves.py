@@ -4,15 +4,18 @@
     python3 tools/time_solves.py [--axis query|machine|sweep] [--src DIR]
                                  [--label NAME] [--shapes NAME ...]
 
-``--axis query`` (the default): the serving batch's two sender kernels.
+``--axis query`` (the default): the serving batch's sender kernels.
 Builds a pool of the serve phase's final size (``chip_smoke.py``'s SERVE
 command: ER n = 262,144, avg degree 4, IC, 131,072 samples per half, so
 W = 4,096 words) with ``service.make_pool``, then times
-``greedy_maxcover_resident_batch`` and ``greedy_maxcover_lazy_batch`` on
-three inputs: the trace's last 8 queries (k = 96), a batch whose
-exclusions make the 8 queries' picks diverge, and a dense random pool (n
-= 32,768, about a sixteenth of the bits set) where few 16-byte chunks
-are zero.
+``greedy_maxcover_resident_batch``, ``greedy_maxcover_lazy_batch``, the
+fused solver's one pick (``topk_gain.best_gain_index_batch``, zero
+covers, the exclusions picked) and its whole solve
+(``maxcover.greedy_maxcover_batch(..., solver="fused")``, one pick a
+launch) on three inputs: the trace's last 8 queries (k = 96), a batch
+whose exclusions make the 8 queries' picks diverge, and a dense random
+pool (n = 32,768, about a sixteenth of the bits set) where few 16-byte
+chunks are zero.
 
 ``--axis machine``: the machine-axis solves (``greedy_maxcover_resident``,
 ``greedy_maxcover_lazy``) as the wrappers run them, on the rows that
@@ -93,16 +96,17 @@ def emit(**fields):
 
 
 def query_axis(args, dev):
-    from repro_torch.core import prng, service
+    from repro_torch.core import maxcover, prng, service
     from repro_torch.graphs import generators
-    from repro_torch.kernels import build, greedy_pick, lazy_greedy
+    from repro_torch.kernels import build, greedy_pick, lazy_greedy, topk_gain
     from repro_torch.launch import serve
 
     gain_core = os.path.join(os.path.dirname(build.__file__), "csrc",
                              "gain_core.cuh")
     with open(gain_core, "rb") as f:
         version = hashlib.sha256(f.read()).hexdigest()[:12]
-    build.build(("coin_pack", "rrr_expand", "greedy_pick", "lazy_greedy"))
+    build.build(("coin_pack", "rrr_expand", "greedy_pick", "lazy_greedy",
+                 "topk_gain"))
 
     n, theta, bq = 262_144, 131_072, 8
     g = generators.erdos_renyi(n, 4, args.seed, device=dev)
@@ -131,19 +135,36 @@ def query_axis(args, dev):
                                 ("dense", dense, ex, 32)):
         res = greedy_pick.greedy_maxcover_resident_batch(rows, kk, exc)
         *lazy, swept = lazy_greedy.greedy_maxcover_lazy_batch(rows, kk, exc)
-        if any(not torch.equal(a, b) for a, b in zip(res, lazy)):
-            raise AssertionError(f"{name}: resident and lazy solves differ")
-        for solver, fn in (
+        fused = maxcover.greedy_maxcover_batch(rows, exc, kk, solver="fused")
+        fused = (fused.seeds, fused.rows, fused.covered, fused.gains)
+        if any(not torch.equal(a, b) for a, b in zip(res, lazy)) or any(
+                not torch.equal(a, b) for a, b in zip(res, fused)):
+            raise AssertionError(f"{name}: resident, lazy and fused solves "
+                                 "differ")
+        cov0 = torch.zeros((bq, rows.shape[1]), dtype=torch.int32,
+                           device=dev)
+        picked = torch.zeros((bq, rows.shape[0]), dtype=torch.bool,
+                             device=dev)
+        listed = (exc >= 0) & (exc < rows.shape[0])     # ids past n pick none
+        picked[torch.arange(bq, device=dev)[:, None].expand_as(exc)[listed],
+               exc[listed].long()] = True
+        pick = topk_gain.best_gain_index_batch(rows, cov0, picked)
+        for solver, fn, outs in (
                 ("greedy_pick_batch", lambda: greedy_pick.
-                 greedy_maxcover_resident_batch(rows, kk, exc)),
+                 greedy_maxcover_resident_batch(rows, kk, exc), res),
                 ("lazy_greedy_batch", lambda: lazy_greedy.
-                 greedy_maxcover_lazy_batch(rows, kk, exc))):
+                 greedy_maxcover_lazy_batch(rows, kk, exc), res),
+                ("topk_gain_batch", lambda: topk_gain.best_gain_index_batch(
+                    rows, cov0, picked), pick),
+                ("fused solve", lambda: maxcover.greedy_maxcover_batch(
+                    rows, exc, kk, solver="fused"), res)):
             emit(label=args.label, gain_core=version, input=name,
-                 kernel=solver, B=bq, n=rows.shape[0], W=rows.shape[1], k=kk,
-                 ms=median_ms(fn, args.reps), outputs=digest(res),
+                 kernel=solver, B=bq, n=rows.shape[0], W=rows.shape[1],
+                 k=1 if solver == "topk_gain_batch" else kk,
+                 ms=median_ms(fn, args.reps), outputs=digest(outs),
                  tiles_swept=swept.tolist() if solver.startswith("lazy")
                  else None)
-        del res, lazy
+        del res, lazy, fused, pick
 
 
 def machine_rows(seed: int, dev):
