@@ -121,6 +121,9 @@ FULL_CHECKED = FULL + ["--eval-spread"]
 # Every gather gives the same bits, so its results must be FULL's.
 STREAMED = FULL + ["--gather", "streamed"]
 STREAMED_RUN = ("coin_pack", "rrr_expand_streamed")
+# Its sampling seconds and peak bytes as predicted before the plane
+# step's redesign (PERF.md, PR 23): recorded beside the run's, not gated.
+STREAMED_PREDICTED = dict(sample_s=(0.10, 0.16), peak_bytes=35.6e9)
 # ... the weighted cascade (p(u -> v) = the normalized LT weight, ~1/d_in)
 # on FULL's graph and the FULL run's seeds, over every route of the
 # spread: (engine, gather) ...
@@ -183,19 +186,16 @@ PR16_MS = {"greedy_pick": 34.708736419677734, "lazy_greedy": 22.682687759399414}
 SERVE_RUN = {"greedy_pick_batch": "serve resident",
              "lazy_greedy_batch": "serve lazy",
              "topk_gain_batch": "serve fused"}
-# Kernels that no full-size run launches, with the run of phase `paths`
-# (n = 3000) that does: the resident expansion of the cascade's resident
-# gather.
-SMALL_RUN = {
-    "rrr_expand_resident": ("IC kernel-gpu",
-                            "IMM at n = 3000, the spread over the cascade's "
-                            "--gather resident (phase paths)")}
+# The plane kernel that only the WC spread's plane route launches at full
+# size (phase `wc`, --gather resident, a launch a step).
+PLANE_RUN = {"rrr_expand_resident": "wc resident"}
 # The full-size runs, and the shape of rrr_expand_ic's timing each takes
 # its time from (phase `order`).
 FULL_RUNS = {"imm": "imm", "imm streamed": "imm", "lt": "lt",
              "round lazy": "round", "round fused": "round",
              "ripples": "round", "serve resident": "serve",
              "serve fused": "serve", "serve lazy": "serve", "wc": "wc",
+             "wc resident": "wc", "wc streamed": "wc",
              "faulted lazy": "round"}
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak bandwidth
@@ -373,6 +373,26 @@ def parity_small(dev) -> dict:
         rrr_expand.rrr_expand_step(frontier, visited, nbr, gmask),
         rrr_expand.expand_step_plain(frontier, visited, nbr, gmask),
         n=n, df=df, W=w)
+    # with the optional inputs: valid-first rows (other words past each
+    # count), the frontier's summary; the emitted summary and count
+    cnt = torch.randint(0, df + 1, (n,), generator=gen,
+                        dtype=torch.int32).to(dev)
+    lines = rrr_expand.line_summary(frontier)
+    for name, step, plain, args in (
+            ("rrr_expand_resident", rrr_expand.rrr_expand_step_resident,
+             rrr_expand.expand_step_resident_plain,
+             (frontier, visited, nbr, gidx, plane)),
+            ("rrr_expand_streamed", rrr_expand.rrr_expand_step,
+             rrr_expand.expand_step_plain,
+             (frontier, visited, nbr, rand_words(gen, n, df, w, dev=dev)))):
+        outs = []
+        for fn in (step, plain):
+            nl = torch.empty_like(lines)
+            count = torch.empty(1, dtype=torch.int32, device=dev)
+            outs.append((*fn(*args, slots=cnt, lines=lines, next_lines=nl,
+                             count=count), nl, count))
+        errs[name] = max(errs[name], require_equal(
+            f"{name} with slots and lines", *outs, n=n, df=df, W=w))
 
     key = prng.key(7).fold_in(3)
     err = 0
@@ -1128,15 +1148,15 @@ def parity_slice3(gen, dev) -> dict:
 
 # ---------------------------------------------------------------- phase 4
 
-def paths_agree(dev) -> dict:
+def paths_agree(dev) -> None:
     """Kernel paths against plain paths, and the card against the CPU:
     identical seeds, theta, coverage and spread.  The kernel paths sample
     on the resident layout (IC: the fused rrr_expand_ic) and on the
     streamed one (IC: coin_pack's plane), and estimate the spread over
     every gather of the cascade (IC auto: cascade_ic; resident and
     streamed: the live-edge plane), which must agree with each other
-    and with the CPU.  Returns each card kernel run's launch counts (set
-    to 0 just before it), by "model name"."""
+    and with the CPU; the IC and LT kernel runs' launch counts (set to 0
+    just before each) must show their kernels."""
     launches = {}
     for model in ("IC", "LT"):
         results = {}
@@ -1183,7 +1203,6 @@ def paths_agree(dev) -> dict:
     if not (lt["rrr_expand_lt"] and lt["cascade_lt"]):
         raise AssertionError(f"LT resident sampling and the spreads "
                              f"launched {lt}")
-    return launches
 
 
 # round phase of `paths`: (arguments that change the result, kernel-path
@@ -1261,24 +1280,19 @@ SMALL_SERVE = ["--n", "3000", "--avg-deg", "4", "--queries", "16",
                "--check"]
 
 
-def serve_paths_agree(dev) -> dict:
+def serve_paths_agree(dev) -> None:
     """The serving replay at n = 3000 (IC and LT) on the card for every
     solver, against one plain run on the CPU: identical answers (seeds,
     coverages, sigma bounds, certified), and --check OK everywhere; then
-    ``im_driver --use-opim`` on the card against the CPU.  Returns each
-    card run's launch counts (set to 0 just before it)."""
-    launches = {}
+    ``im_driver --use-opim`` on the card against the CPU."""
     for model in ("IC", "LT"):
         flags = SMALL_SERVE + ["--model", model]
         want = serve.run(flags + ["--device", "cpu", "--sampler", "packed",
                                   "--solver", "scan"])
         results = {}
         for solver in maxcover.SOLVERS:
-            ops.reset_launches()
             got = serve.run(flags + ["--solver", solver])
             torch.cuda.synchronize()
-            if model == "IC":
-                launches[f"serve {solver}"] = dict(ops.LAUNCHES)
             same = len(got["answers"]) == len(want["answers"]) and all(
                 serve.answers_equal(a, b)
                 for a, b in zip(got["answers"], want["answers"]))
@@ -1305,7 +1319,6 @@ def serve_paths_agree(dev) -> dict:
     emit(phase="paths", path="opim", **res)
     if len({json.dumps(r) for r in res.values()}) != 1:
         raise AssertionError("opim: card != CPU")
-    return launches
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1400,12 +1413,17 @@ def streamed_run(full: dict) -> dict:
         out = im_driver.run(STREAMED)
         torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
+    lo, hi = STREAMED_PREDICTED["sample_s"]
     emit(phase="streamed", theta=out["theta"], rounds=out["rounds"],
          coverage_fraction=out["coverage_fraction"], spread=out["spread"],
          seconds=dict(graph=out["graph_s"], sample=out["sample_s"],
                       select=out["select_s"], spread=out["spread_s"]),
          bfs_steps=out["bfs_steps"], peak_bytes=out["peak_bytes"],
-         live_planes=planes.count, launches=launches)
+         live_planes=planes.count, launches=launches,
+         predicted=STREAMED_PREDICTED,
+         sample_s_in_prediction=lo <= out["sample_s"] <= hi,
+         peak_over_prediction=out["peak_bytes"]
+         / STREAMED_PREDICTED["peak_bytes"])
     differ = {key: (out[key], full[key]) for key in (
         "theta", "rounds", "coverage_fraction", "spread", "bfs_steps")
         if out[key] != full[key]}
@@ -1510,7 +1528,8 @@ def wc_spread(dev, seeds) -> dict:
     its 64 simulations and key, over every route (WC_ROUTES), each
     route's launch counts set to 0 just before it and read just after.
     Emits each route's spread, steps, seconds, peak bytes and launches;
-    returns the kernel route's launches."""
+    returns the kernel routes' launches: ``wc`` (auto), ``wc resident``
+    and ``wc streamed``."""
     args = im_driver.parser().parse_args(FULL)
     g = im_driver.make_graph(args.graph, args.n, args.avg_deg, args.seed, dev)
     key = prng.key(args.seed).fold_in(99)
@@ -1544,7 +1563,9 @@ def wc_spread(dev, seeds) -> dict:
     check_routes("wc", "WC", routes, launches)
     del g
     torch.cuda.empty_cache()
-    return launches["kernel auto"]
+    return {"wc": launches["kernel auto"],
+            "wc resident": launches["kernel resident"],
+            "wc streamed": launches["kernel streamed"]}
 
 
 def faulted_round(dev) -> dict:
@@ -2711,10 +2732,12 @@ def main_path_timings(dev, final_seeds) -> dict:
     """Every kernel at the shapes the full run gives it: the first BFS
     step of a 32768-sample draw (rrr_expand_ic also at other steps and
     shapes, :func:`ic_timings`; coin_pack and rrr_expand_streamed as the
-    streamed layout's run takes that step), the local solves and the
-    receiver of the selector over that incidence, and the first cascade
-    step (cascade_ic, then the plane route's rrr_expand_streamed that
-    the cascade's --gather streamed takes)."""
+    streamed layout's run takes that step, rrr_expand_resident over the
+    same plane, both also on a dense step over the same tables), the
+    local solves and the receiver of the selector over that incidence,
+    and the first cascade step (cascade_ic, then the plane routes'
+    rrr_expand_resident and rrr_expand_streamed that the cascade's
+    --gather resident and streamed take, under IC and WC)."""
     args = im_driver.parser().parse_args(FULL)
     n, theta, k, m = args.n, args.max_theta, args.k, args.machines
     g = generators.erdos_renyi(n, args.avg_deg, args.seed, device=dev)
@@ -2737,30 +2760,44 @@ def main_path_timings(dev, final_seeds) -> dict:
 
     plane = coins.coin_plane(keys, t.prob_p, frontier, t.chunk
                              ).reshape(n * t.d_pad, W)
-    in_deg = (nbr >= 0).sum(1)
-    plane_words = int(((frontier != 0).sum(1) * in_deg).sum())
-    rows_out["rrr_expand_resident"] = timed(
-        "rrr_expand_resident",
-        lambda: rrr_expand.rrr_expand_step_resident(
-            frontier, visited, t.nbr_c, t.gidx, plane),
-        lambda: rrr_expand.expand_step_resident_plain(
-            frontier, visited, t.nbr_c, t.gidx, plane),
-        10, 3, bytes_=4 * fb + 8 * t.nbr_c.numel() + 4 * plane_words)
+    lines = rrr_expand.line_summary(frontier)       # the roots' summary
+    res_args = (frontier, visited, t.nbr_c, t.gidx, plane)
+    rows_out["rrr_expand_resident"] = time_plane_step(
+        "rrr_expand_resident", "imm", res_args, t.slots, lines, res_args)
     # the streamed layout's step: the plane gathered into [n, df, W] as
-    # rrr._expand gathers it (zero at invalid slots), then expanded; the
-    # kernel loads a mask word only behind a non-zero frontier word
-    gm = plane.view(n, t.d_pad, W)[t.nbr_c.long(), t.rslot]
-    gm.masked_fill_(~t.valid[:, :, None], 0)
-    gm_words = sum(int((frontier[t.nbr_c[:, s].long()] != 0).sum())
-                   for s in range(t.nbr_c.shape[1]))
-    rows_out["rrr_expand_streamed"] = timed(
-        "rrr_expand_streamed",
-        lambda: rrr_expand.rrr_expand_step(frontier, visited, t.nbr_c, gm),
-        lambda: rrr_expand.expand_step_plain(frontier, visited, t.nbr_c, gm),
-        10, 3, bytes_=4 * (4 * frontier.numel() + t.nbr_c.numel()
-                           + gm_words))
-    rows_out["rrr_expand_streamed"]["gmask_shape"] = list(gm.shape)
-    del gm
+    # rrr._planes gathers it (one pass through t.take) and as it was
+    # gathered before (an advanced index, then torch.where's zeroed copy)
+    def gather():
+        return plane.index_select(0, t.take).view(n, -1, W)
+
+    def old_gather():
+        return torch.where(t.valid[:, :, None], plane.view(n, t.d_pad, W)[
+            t.nbr_c.long(), t.rslot], 0)
+    old_gather_ms = median_ms(old_gather, 3)
+    gm_old = old_gather()
+    gather_ms = median_ms(gather, 3)
+    gm = gather()
+    row = time_plane_step(
+        "rrr_expand_streamed", "imm", (frontier, visited, t.nbr_c, gm),
+        t.slots, lines, (frontier, visited, t.nbr_c, gm_old))
+    row.update(gmask_shape=list(gm.shape), gather_ms=gather_ms,
+               old_gather_ms=old_gather_ms)
+    emit(phase="timing", name="rrr_expand_streamed", shape="imm gather",
+         gather_ms=gather_ms, old_gather_ms=old_gather_ms)
+    rows_out["rrr_expand_streamed"] = row
+    # a dense step on the same tables: every frontier word non-zero, every
+    # line live
+    dense = frontier | 1
+    every = torch.ones_like(lines)
+    label = "imm, every line live"
+    rows_out["rrr_expand_resident"]["shapes"] = {label: time_plane_step(
+        "rrr_expand_resident", label, (dense, visited, t.nbr_c, t.gidx,
+                                       plane), t.slots, every,
+        (dense, visited, t.nbr_c, t.gidx, plane), plain_reps=0)}
+    row["shapes"] = {label: time_plane_step(
+        "rrr_expand_streamed", label, (dense, visited, t.nbr_c, gm), t.slots,
+        every, (dense, visited, t.nbr_c, gm_old), plain_reps=0)}
+    del gm, gm_old, dense
     torch.cuda.empty_cache()
     rows_out["rrr_expand_ic"] = time_ic_step(t, frontier, visited, keys,
                                              "imm", plane=plane)
@@ -2776,21 +2813,108 @@ def main_path_timings(dev, final_seeds) -> dict:
     chunk, n_chunks, d_pad = rrr._coin_chunks(nbr.shape[1], args.coin_chunk)
     tbl = torch.nn.functional.pad(torch.where(nbr >= 0, nbr, 0),
                                   (0, d_pad - nbr.shape[1])).contiguous()
-    live = cascade._live_mask(nbr, prob, wt, prng.key(args.seed).fold_in(99),
-                              model="IC", num_sims=sims, chunk=chunk,
-                              n_chunks=n_chunks, d_pad=d_pad)
+    gidx = (torch.arange(n, dtype=torch.int32, device=dev)[:, None] * d_pad
+            + torch.arange(d_pad, dtype=torch.int32, device=dev)[None, :])
+    slots = (nbr >= 0).sum(1, dtype=torch.int32)
     smask = cascade.seeds_to_mask(n, final_seeds, device=dev)
     act = torch.where(smask[:, None],
                       bitset.lane_words(sims, dev)[None], 0
                       ).to(torch.int32)
-    gm_words = int(sum(int((act[tbl[:, s].long()] != 0).sum())
-                       for s in range(d_pad)))
-    rows_out["rrr_expand_streamed"]["shapes"] = {"cascade": timed(
-        "rrr_expand_streamed",
-        lambda: rrr_expand.rrr_expand_step(act, act, tbl, live),
-        lambda: rrr_expand.expand_step_plain(act, act, tbl, live), 10, 3,
-        bytes_=4 * (4 * act.numel() + tbl.numel() + gm_words))}
+    lines = rrr_expand.line_summary(act)            # the seed rows
+    for label, model in (("cascade", "IC"), ("wc", "WC")):
+        # the plane routes' first step: the live-edge plane, gathered
+        # (streamed) or read through the identity index (resident)
+        live = cascade._live_mask(
+            nbr, cascade._edge_prob(nbr, prob, wt, model), wt,
+            prng.key(args.seed).fold_in(99), model=model, num_sims=sims,
+            chunk=chunk, n_chunks=n_chunks, d_pad=d_pad)
+        for name, step_args in (
+                ("rrr_expand_resident",
+                 (act, act, tbl, gidx, live.reshape(n * d_pad, -1))),
+                ("rrr_expand_streamed", (act, act, tbl, live))):
+            rows_out[name].setdefault("shapes", {})[label] = time_plane_step(
+                name, label, step_args, slots, lines, step_args)
+        del live
     return rows_out
+
+
+PLANE_STEPS = {
+    "rrr_expand_resident": (rrr_expand.rrr_expand_step_resident,
+                            rrr_expand.expand_step_resident_plain),
+    "rrr_expand_streamed": (rrr_expand.rrr_expand_step,
+                            rrr_expand.expand_step_plain)}
+
+
+def plane_work(f, fwd_nbr, slots, resident: bool) -> dict:
+    """What one plane step (row 1 or 2) with its per-row count and the
+    frontier's line summary needs: the count (4 B a row) and each valid
+    slot's index (4 B, and its gidx entry on the resident layout); the
+    summary read and the next one written (a byte a line each); the
+    frontier lines with a set bit behind a valid slot (4 B a word of
+    them, as row 2c counts only the non-zero frontier words it gathers,
+    and never more than the whole plane, which one read covers); a mask
+    word behind each non-zero frontier word of those lines (4 B); visited
+    read once and both outputs written once (12 B a word)."""
+    n, w = f.shape
+    live = rrr_expand.line_summary(f).bool()
+    per_line = torch.full((live.shape[1],), rrr_expand.LINE_WORDS,
+                          dtype=torch.int64, device=f.device)
+    per_line[-1] = w - rrr_expand.LINE_WORDS * (live.shape[1] - 1)
+    line_words = mask_words = 0
+    for s in range(fwd_nbr.shape[1]):
+        ok = s < slots
+        v = fwd_nbr[:, s].long()
+        line_words += int((live[v][ok].long() * per_line).sum())
+        mask_words += int((f[v][ok] != 0).sum())
+    valid = int(slots.sum(dtype=torch.int64))
+    work = dict(valid_slots=valid, frontier_words=min(line_words, n * w),
+                mask_words=mask_words, lines=live.numel())
+    work["bytes"] = (4 * n + 4 * valid * (2 if resident else 1)
+                     + 2 * live.numel() + 4 * work["frontier_words"]
+                     + 4 * mask_words + 12 * n * w)
+    return work
+
+
+def time_plane_step(name, label, args, slots, lines, old_args, reps=10,
+                    plain_reps=3) -> dict:
+    """Row 1 (``rrr_expand_resident``) or 2 (``rrr_expand_streamed``) at
+    one step: the kernel given the per-row count ``slots`` and the line
+    summary ``lines`` (writing the next summary and the count) against
+    its plain version on the same inputs (equal words; the summary and
+    count equal to the new frontier's lines), device times with the
+    host's queueing hidden, the bound of :func:`plane_work`, and
+    ``old_ms``: the kernel as its callers ran it before either input
+    (every slot, every line) on ``old_args``, the same step in the
+    reference's form, which must give the same words."""
+    step, plain = PLANE_STEPS[name]
+    f = args[0]
+    n, w = f.shape
+    nl = torch.empty((n, rrr_expand.num_lines(w)), dtype=torch.uint8,
+                     device=f.device)
+    count = torch.empty(1, dtype=torch.int32, device=f.device)
+    opts = dict(slots=slots, lines=lines, next_lines=nl, count=count)
+    got = step(*args, **opts)
+    want = rrr_expand.line_summary(got[0])
+    if not torch.equal(nl, want) or int(count) != int(want.sum()):
+        raise AssertionError(f"{name}: the summary or count is not the new "
+                             f"frontier's ({label})")
+    if max_err(got, step(*old_args)):
+        raise AssertionError(f"{name}: != the step every slot and line read "
+                             f"({label})")
+    new_lines = int(count)
+    del got, want
+    work = plane_work(f, args[2], slots, name == "rrr_expand_resident")
+    row = timed(name, lambda: step(*args, **opts),
+                lambda: plain(*args, **opts), reps, plain_reps,
+                bytes_=work["bytes"], hide_host=True)
+    row.update(shape=label, n=n, df=args[2].shape[1], W=w,
+               old_ms=median_ms(lambda: step(*old_args), reps,
+                                hide_host=True),
+               new_lines=new_lines, **work)
+    emit(phase="timing", name=name, shape=label, ms=row["ms"],
+         old_ms=row["old_ms"], bound_ms=row["bound_ms"],
+         new_lines=new_lines, **work)
+    return row
 
 
 def round_timings(dev) -> dict:
@@ -3051,9 +3175,9 @@ def main(argv=None) -> int:
     errs = parity_small(dev)
     if args.stop_after == "parity":
         return 0
-    small = paths_agree(dev)
+    paths_agree(dev)
     round_paths_agree(dev)
-    small.update(serve_paths_agree(dev))
+    serve_paths_agree(dev)
     engines_agree(dev)
     lap("paths")
     if args.stop_after == "paths":
@@ -3065,7 +3189,7 @@ def main(argv=None) -> int:
     full["imm streamed"] = streamed_run(full_out)
     del full_out
     lap("streamed")
-    full["wc"] = wc_spread(dev, seeds)
+    full.update(wc_spread(dev, seeds))
     lap("wc")
     full["lt"], lt_seeds = lt_run()
     lap("lt")
@@ -3143,9 +3267,9 @@ def main(argv=None) -> int:
             row["launches"] = full[SERVE_RUN[name]][name]
         elif name in STREAMED_RUN:
             row["launches"] = full["imm streamed"][name]
-        elif name in SMALL_RUN:
-            run, row["launches_from"] = SMALL_RUN[name]
-            row["launches"] = small[run][name]
+        elif name in PLANE_RUN:
+            row["launches_from"] = PLANE_RUN[name]
+            row["launches"] = full[PLANE_RUN[name]][name]
         elif name in DENSE_RUN:
             row["launches"] = full[DENSE_RUN[name]][name]
             row["launches_from"] = DENSE_RUN[name]

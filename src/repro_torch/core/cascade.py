@@ -20,8 +20,12 @@ sim)``).
   W]`` is drawn in plain PyTorch (``_live_mask``) and read by the
   sampler's expansion kernel, in gather order (``streamed``,
   ``rrr_expand_streamed``) or through the identity index ``v * d_pad +
-  slot`` (``resident``, ``rrr_expand_resident``).
-- ``engine="packed"``: the plane and the plain PyTorch step.
+  slot`` (``resident``, ``rrr_expand_resident``), each row's valid
+  slots alone (their count per row, built once) and only the frontier
+  lines its line summary marks live (from the seed rows, then written
+  by each step); the loop stops on the kernel's count of non-zero lines.
+- ``engine="packed"``: the plane and the plain PyTorch step, with the
+  same inputs and stop.
 - ``engine="map"``: the per-simulation oracle in plain PyTorch, one
   bool ``[n]`` state per simulation.  IC/WC fire the out-edges of each
   active vertex over the forward table, each forward slot's coin
@@ -171,25 +175,30 @@ def simulate_cascades(g: CSRGraph, seeds, key: Key, *, model: str = "IC",
                                        device=dev)[None, :]).contiguous()
         plane = live.reshape(n * d_pad, -1)
 
-        def expand(frontier, act):
+        def expand(frontier, act, **carry):
             return rrr_expand.rrr_expand_step_resident(frontier, act, tbl,
-                                                       gidx, plane)
+                                                       gidx, plane, **carry)
     elif engine == "kernel":
-        def expand(frontier, act):
-            return rrr_expand.rrr_expand_step(frontier, act, tbl, live)
+        def expand(frontier, act, **carry):
+            return rrr_expand.rrr_expand_step(frontier, act, tbl, live,
+                                              **carry)
     else:
-        def expand(frontier, act):
-            return rrr_expand.expand_step_plain(frontier, act, tbl, live)
+        def expand(frontier, act, **carry):
+            return rrr_expand.expand_step_plain(frontier, act, tbl, live,
+                                                **carry)
+    # valid slots first in each row of the reverse table; the first line
+    # summary marks every line of the seed rows
+    slots = (nbr >= 0).sum(1, dtype=torch.int32)
+    lines = [smask.to(torch.uint8)[:, None].repeat(
+        1, rrr_expand.num_lines(lane.numel()))]
+    lines.append(torch.empty_like(lines[0]))
 
-    frontier = active
-    for _ in range(max_steps):
-        with _span("sync"):
-            go = bool(frontier.any())
-        if not go:
-            break
-        with _span("step"):
-            frontier, active = expand(frontier, active)
-    return active
+    def step(frontier, act, count):
+        out = expand(frontier, act, slots=slots, lines=lines[0],
+                     next_lines=lines[1], count=count)
+        lines.reverse()
+        return out
+    return _count_loop(step, active, max_steps)
 
 
 def _simulate_map(g: CSRGraph, nbr, prob, wt, smask, key: Key, *,
@@ -276,8 +285,9 @@ def _simulate_lt(nbr, wt, key: Key, active, *, num_sims: int,
 
 
 def _count_loop(step, active, max_steps: int):
-    """Runs ``step(frontier, active, count)`` until its count of new
-    words is 0 or ``max_steps`` steps; returns the active words."""
+    """Runs ``step(frontier, active, count)`` until its count (of new
+    words, or of the plane routes' non-zero lines) is 0 or ``max_steps``
+    steps; returns the active words."""
     count = torch.zeros(1, dtype=torch.int32, device=active.device)
     frontier = active
     for _ in range(max_steps):

@@ -29,15 +29,18 @@ mask[v, rev_slot]`` for every forward pair ``(v, rev_slot)`` of ``u``:
     word to the next list once (see ``_push``).  With
     ``gather="streamed"``, IC draws the coin plane (``kernels.coins``)
     and LT builds its selection plane with tensor ops (``_lt_mask``),
-    each gathered into the streamed mask of ``rrr_expand_streamed``.
+    each gathered in one pass into the streamed mask of
+    ``rrr_expand_streamed``, which reads only each row's valid slots
+    and the frontier's live lines (see ``_planes``).
 
 The per-step mask is the reference's coin / selection mask restricted
 to the frontier's live words (the expansion ANDs it with the frontier,
 so nothing else is ever read).  That keeps the per-step work
 proportional to the frontier instead of to batch * n * d.  The BFS
 ``while_loop`` becomes a host loop that synchronizes once per step: on
-the next list's count (4 bytes) for the push, on ``frontier.any()``
-for the other paths.
+the next list's count (4 bytes) for the push, on the kernel's count of
+the new frontier's non-zero lines (4 bytes) for the streamed kernel
+path, and on ``frontier.any()`` for the plain path.
 """
 from __future__ import annotations
 
@@ -117,6 +120,18 @@ def root_words(roots: torch.Tensor, w: int) -> torch.Tensor:
                         ).to(torch.int32)
 
 
+def root_lines(roots: torch.Tensor, n: int, w: int) -> torch.Tensor:
+    """The line summary of :func:`packed_roots` (``rrr_expand
+    .line_summary``): byte ``(roots[i], i // 1024)`` set, uint8 [n,
+    ceil(w / 32)]."""
+    lines = rrr_expand.num_lines(w)
+    out = torch.zeros(n * lines, dtype=torch.uint8, device=roots.device)
+    i = torch.arange(roots.shape[0], device=roots.device)
+    out[roots.long() * lines
+        + i // (bitset.WORD_BITS * rrr_expand.LINE_WORDS)] = 1
+    return out.reshape(n, lines)
+
+
 def _live_bits(frontier: torch.Tensor):
     """(sample, vertex, word) of every set frontier bit."""
     v, w = torch.nonzero(frontier, as_tuple=True)
@@ -142,6 +157,11 @@ class _Tables:
                 n * self.d_pad).to(torch.int32).contiguous()
             self.rslot = fwd_rslot.clamp(min=0).long()
             self.valid = valid
+            # the kernel's per-row count of valid slots (valid slots come
+            # first), and the streamed gather's plane rows: gidx at valid
+            # slots, row 0 past them (never read by the kernel)
+            self.slots = valid.sum(1, dtype=torch.int32)
+            self.take = torch.where(valid, self.gidx, 0).reshape(-1)
         if model == "IC":
             self.prob_p = torch.nn.functional.pad(
                 prob, (0, self.d_pad - d)).contiguous()
@@ -180,23 +200,46 @@ def _lt_mask(t: _Tables, sub: Key, frontier):
     return plane.reshape(n, d_pad, w_total)
 
 
-def _step(t: _Tables, sub: Key, frontier, visited, model: str,
-          kernel: bool, gather: str):
-    mask = (_ic_mask(t, sub, frontier, kernel) if model == "IC"
+def _step(t: _Tables, sub: Key, frontier, visited, model: str):
+    """One step of the plain path: the model's plane, gathered with its
+    invalid slots zeroed, and the plain expansion."""
+    mask = (_ic_mask(t, sub, frontier, False) if model == "IC"
             else _lt_mask(t, sub, frontier))
-    return _expand(t, frontier, visited, mask, kernel, gather)
-
-
-def _expand(t: _Tables, frontier, visited, mask, kernel: bool, gather: str):
-    if kernel and gather != "streamed":
-        plane = mask.reshape(t.n * t.d_pad, -1)
-        return rrr_expand.rrr_expand_step_resident(
-            frontier, visited, t.nbr_c, t.gidx, plane)
     gmask = torch.where(t.valid[:, :, None], mask[t.nbr_c.long(), t.rslot], 0)
-    if kernel:
-        return rrr_expand.rrr_expand_step(frontier, visited, t.nbr_c,
-                                          gmask.contiguous())
     return rrr_expand.expand_step_plain(frontier, visited, t.nbr_c, gmask)
+
+
+def _planes(t: _Tables, roots, key: Key, visited, max_steps: int,
+            model: str):
+    """The BFS on the streamed layout's kernels; returns (steps, visited).
+    Each step draws the model's plane, gathers it into ``[n, df, W]`` in
+    one pass (rows ``t.take`` of the plane: no copy zeroes the invalid
+    slots, which the kernel, given ``t.slots``, never reads) and expands
+    it with ``rrr_expand_streamed``, which reads only the frontier lines
+    the summary marks live and writes the next summary and the count of
+    the new frontier's non-zero lines.  The first summary comes from the
+    roots; the loop stops when the count is 0."""
+    n, w = visited.shape
+    frontier = visited
+    lines = root_lines(roots, n, w)
+    spare = torch.empty_like(lines)
+    count = torch.zeros(1, dtype=torch.int32, device=visited.device)
+    step = 0
+    go = roots.numel() > 0
+    while go and step < max_steps:
+        key, sub = key.split()
+        mask = (_ic_mask(t, sub, frontier, True) if model == "IC"
+                else _lt_mask(t, sub, frontier))
+        gmask = mask.view(n * t.d_pad, w).index_select(0, t.take)
+        del mask
+        frontier, visited = rrr_expand.rrr_expand_step(
+            frontier, visited, t.nbr_c, gmask.view(n, -1, w), slots=t.slots,
+            lines=lines, next_lines=spare, count=count)
+        del gmask
+        lines, spare = spare, lines
+        step += 1
+        go = bool(int(count))
+    return step, visited
 
 
 def _push_ic(t: _Tables, sub: Key, *planes) -> None:
@@ -263,13 +306,14 @@ def rrr_batch_packed(nbr, prob, wt, fwd_nbr, fwd_rslot, roots, key: Key, *,
                 coin_chunk=coin_chunk, forward=not push)
     if push:
         step = _push(t, roots, key, visited, max_steps, model)
+    elif kernel:
+        step, visited = _planes(t, roots, key, visited, max_steps, model)
     else:
         frontier = visited
         step = 0
         while step < max_steps and bool(frontier.any()):
             key, sub = key.split()
-            frontier, visited = _step(t, sub, frontier, visited, model,
-                                      kernel, gather)
+            frontier, visited = _step(t, sub, frontier, visited, model)
             step += 1
     if stats is not None:
         stats["bfs_steps"] = stats.get("bfs_steps", 0) + step

@@ -3,108 +3,322 @@
 //   new = hit & ~visited;  visited_out = visited | new
 // Replaces repro/kernels/rrr_expand.py: rrr_expand_step_resident_pallas
 // (mask = plane[gidx[u, s], w], gidx == rows reading zero) and
-// rrr_expand_step_pallas (mask = gmask[u, s, w], pre-gathered).
+// rrr_expand_step_pallas (mask = gmask[u, s, w], pre-gathered).  Invalid
+// slots follow the reference's contract: fwd_nbr is pre-clipped to 0 and
+// the mask word is zero (gmask) or gidx names row `rows` (resident).
 //
-// Bound on the H100: bytes.  Each output word costs df frontier loads
-// and a handful of integer ops.  One thread per output word (u, w),
-// threads along w, so the frontier-row and mask-row gathers of a warp
-// coalesce; blocks run over the flattened (u, w) index, so a small W
-// (down to one word) still fills every lane.  The mask word is loaded
-// only where the gathered frontier word is non-zero: late BFS steps
-// have sparse frontiers, and the plane load is most of the traffic.
-// There is no on-chip tiling of the forward-slot axis: each thread
-// loops over all df slots and ORs into a register, so hub rows cost
-// time, not scratch.  Invalid slots follow the reference's contract:
-// fwd_nbr is pre-clipped to 0 and the mask word is zero (gmask) or
-// gidx names row `rows`, read as zero (resident).  The IC sampler's
-// step is rrr_expand_ic below: a push over the live frontier words that
-// draws each coin in the kernel instead of reading a coin plane from
-// HBM; cascade_ic does the same for the IC cascade, and rrr_expand_lt
-// and cascade_lt at the end of this file for LT's one live in-edge.
+// Bound on the H100: bytes.  The outputs are two whole planes and visited
+// is read once, but the frontier is sparse on the sampler's and the
+// cascade's steps (about 1 word in 8,000 live at the IMM's first step), so
+// a gather of every slot's frontier word reads ~4x the plane for nothing.
+// Two optional inputs let the step read only what can set a bit:
+//   - slots, int32 [n]: row u's valid slots come first and number
+//     slots[u] (the forward table, csr.padded_forward_adjacency, and the
+//     cascade's reverse table, csr.padded_adjacency, are built so); the
+//     rest of the row is never read.  Without it every slot is read and a
+//     gidx == rows sentinel may stand anywhere in a row.
+//   - lines, uint8 [n, L], L = ceil(W / 32): the frontier's line summary,
+//     non-zero where the 32-word line (v, l) may hold a set bit.  A slot's
+//     frontier line is loaded only where its byte is set.  Without it every
+//     line is live (every valid slot's words are read).  Extra set bytes
+//     cost loads and never change a word; only this kernel and the
+//     first-step builders (rrr.root_lines, the cascade's seed rows) write
+//     a summary, so no live line lacks its byte.
+// The step writes its new frontier's summary (next_lines, if given; the
+// loops pass it to the next step) and adds the number of non-zero lines to
+// count (if given; zeroed first, one atomic a warp over its whole share of
+// the grid), so a loop stops on a 4-byte read, not on frontier.any().
+//
+// Mapping.  W >= 17 (lines_kernel): a warp owns four 32-word lines of a
+// row, (u, l0) to (u, l0 + 3), a word a lane, and walks the grid's groups
+// of lines with a stride.  The row's slot indices (fwd_nbr, and gidx for
+// the resident layout) are loaded by the lanes, one slot a lane, in
+// coalesced chunks of 32 (hub rows take several); each lane probes its
+// slot's four summary bytes and a ballot a line leaves the live slots;
+// their frontier lines are loaded four slots at a time (up to 16 128-byte
+// lines in flight), and a mask word only behind a non-zero frontier word.
+// On the H100 one line a warp took 2.4-2.7 ms at the IMM's first step
+// (W = 1,024) against a 0.97 ms bound: each warp waited on one dependent
+// chain (count, slot index, summary byte) and one visited load at a time.
+// W <= 16 (rows_kernel): a group of G = the next power of two >= W lanes
+// owns a row (L = 1), a word a lane, adjacent words of a row in adjacent
+// lanes as cascade_ic's threads are, so W = 1 and W = 2 still fill the
+// warp; each lane walks its row's slots four at a time (index, summary
+// byte, frontier word, mask word).  In both, a row's first slot indices
+// load beside its count, which they do not depend on.  Both write the two
+// planes with streaming stores (the step never reads them again) and run
+// a grid of the blocks the card holds at once.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "threefry.cuh"
 
-struct PlaneMask {  // resident layout
+static constexpr int kThreads = 256;
+static constexpr unsigned kFull = 0xffffffffu;
+
+struct PlaneMask {  // resident layout: plane[gidx[u, s], w]
   const uint32_t* plane;
   const int32_t* gidx;
   int64_t rows;
-  __device__ __forceinline__ uint32_t operator()(int64_t u, int s, int df,
-                                                 int64_t w,
-                                                 int64_t W) const {
-    const int64_t g = gidx[u * df + s];
-    return g < rows ? plane[g * W + w] : 0u;
+  __device__ __forceinline__ int32_t index(int64_t slot) const {
+    return gidx[slot];
+  }
+  __device__ __forceinline__ bool valid(int32_t g) const { return g < rows; }
+  __device__ __forceinline__ uint32_t word(int32_t g, int64_t, int64_t w,
+                                           int64_t W) const {
+    return plane[(int64_t)g * W + w];
   }
 };
 
-struct GatheredMask {  // streamed layout
+struct GatheredMask {  // streamed layout: gmask[u, s, w]
   const uint32_t* gmask;
-  __device__ __forceinline__ uint32_t operator()(int64_t u, int s, int df,
-                                                 int64_t w,
-                                                 int64_t W) const {
-    return gmask[(u * df + s) * W + w];
+  __device__ __forceinline__ int32_t index(int64_t) const { return 0; }
+  __device__ __forceinline__ bool valid(int32_t) const { return true; }
+  __device__ __forceinline__ uint32_t word(int32_t, int64_t slot, int64_t w,
+                                           int64_t W) const {
+    return gmask[slot * W + w];
   }
 };
+
+struct Step {
+  const uint32_t* frontier;
+  const uint32_t* visited;
+  const int32_t* fwd_nbr;
+  const int32_t* slots;     // or null: every slot
+  const uint8_t* lines;     // or null: every line live
+  uint32_t* new_frontier;
+  uint32_t* visited_out;
+  uint8_t* next_lines;      // or null
+  uint32_t* count;          // or null
+  int64_t n, W, L;
+  int df;
+};
+
+// Lines a warp takes at once in lines_kernel: four 128-byte lines of one
+// row, so four dependent chains (count, slot indices, summary bytes) and
+// their visited loads are in flight a warp, not one.
+static constexpr int kLines = 4;
 
 template <class Mask>
-__global__ void expand_kernel(const uint32_t* __restrict__ frontier,
-                              const uint32_t* __restrict__ visited,
-                              const int32_t* __restrict__ fwd_nbr,
-                              Mask mask, int64_t n, int df, int64_t W,
-                              uint32_t* __restrict__ new_frontier,
-                              uint32_t* __restrict__ visited_out) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n * W) return;
-  const int64_t u = t / W;
-  const int64_t w = t - u * W;
-  uint32_t hit = 0;
-  for (int s = 0; s < df; ++s) {
-    const int64_t v = fwd_nbr[u * df + s];
-    const uint32_t f = frontier[v * W + w];
-    if (f) hit |= f & mask(u, s, df, w, W);
+__global__ void __launch_bounds__(kThreads)
+    lines_kernel(const Step p, const Mask mask) {
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  const int64_t groups = (p.L + kLines - 1) / kLines;   // a row's groups
+  const int64_t total = p.n * groups;
+  uint32_t live_lines = 0;
+  for (int64_t grp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+       grp < total; grp += stride) {
+    const int64_t u = grp / groups;
+    const int64_t l0 = (grp - u * groups) * kLines;
+    bool word[kLines];
+    uint32_t vis[kLines], hit[kLines];
+#pragma unroll
+    for (int k = 0; k < kLines; ++k) {
+      const int64_t w = 32 * (l0 + k) + lane;
+      word[k] = l0 + k < p.L && w < p.W;
+      vis[k] = word[k] ? p.visited[u * p.W + w] : 0u;
+      hit[k] = 0;
+    }
+    const int c = p.slots ? min(p.slots[u], p.df) : p.df;
+    const int64_t row = u * p.df;
+    int s0 = 0;
+    do {
+      const int s = s0 + lane;
+      int32_t v = 0, g = 0;
+      if (s < p.df) {
+        v = p.fwd_nbr[row + s];
+        g = mask.index(row + s);
+      }
+      const bool valid = s < c && mask.valid(g);
+      // the slots whose frontier line k is live, and their union
+      unsigned live[kLines], todo = 0;
+#pragma unroll
+      for (int k = 0; k < kLines; ++k) {
+        bool on = valid && l0 + k < p.L;
+        if (on && p.lines) on = p.lines[(int64_t)v * p.L + l0 + k] != 0;
+        live[k] = __ballot_sync(kFull, on);
+        todo |= live[k];
+      }
+      while (todo) {            // four slots, each on its live lines
+        int src[4];
+        int32_t vs[4], gs[4];
+        uint32_t f[4][kLines];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          src[i] = todo ? __ffs(todo) - 1 : -1;
+          todo &= todo - 1;
+          vs[i] = __shfl_sync(kFull, v, src[i] & 31);
+          gs[i] = __shfl_sync(kFull, g, src[i] & 31);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int k = 0; k < kLines; ++k)
+            f[i][k] = src[i] >= 0 && word[k] && (live[k] >> src[i] & 1u)
+                          ? p.frontier[(int64_t)vs[i] * p.W + 32 * (l0 + k)
+                                       + lane]
+                          : 0u;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int k = 0; k < kLines; ++k)
+            if (f[i][k])
+              hit[k] |= f[i][k] & mask.word(gs[i], row + s0 + src[i],
+                                            32 * (l0 + k) + lane, p.W);
+      }
+      s0 += 32;
+    } while (s0 < c);
+#pragma unroll
+    for (int k = 0; k < kLines; ++k) {
+      const uint32_t nw = hit[k] & ~vis[k];
+      if (word[k]) {
+        const int64_t t = u * p.W + 32 * (l0 + k) + lane;
+        __stcs(p.new_frontier + t, nw);
+        __stcs(p.visited_out + t, vis[k] | nw);
+      }
+      const bool any = __any_sync(kFull, nw != 0);
+      if (lane == 0 && l0 + k < p.L) {
+        if (p.next_lines) p.next_lines[u * p.L + l0 + k] = any;
+        live_lines += any;
+      }
+    }
   }
-  const uint32_t vis = visited[t];
-  const uint32_t nw = hit & ~vis;
-  new_frontier[t] = nw;
-  visited_out[t] = vis | nw;
+  if (p.count && lane == 0 && live_lines) atomicAdd(p.count, live_lines);
 }
 
-static constexpr int kThreads = 256;
+template <class Mask>
+__global__ void __launch_bounds__(kThreads)
+    rows_kernel(const Step p, const Mask mask, const int lg) {
+  const int group = 1 << lg;
+  const int lane = threadIdx.x & 31;
+  const int j = lane & (group - 1);
+  const unsigned team = (kFull >> (32 - group)) << (lane & ~(group - 1));
+  const int64_t stride = ((int64_t)gridDim.x * blockDim.x) >> lg;
+  uint32_t live_rows = 0;
+  // `base` is the warp's first row, the same for its lanes, so every lane
+  // reaches the ballots below
+  for (int64_t base = ((int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31))
+                      >> lg;
+       base < p.n; base += stride) {
+    const int64_t u = base + (lane >> lg);
+    const bool word = u < p.n && j < p.W;
+    const int64_t t = u * p.W + j;
+    uint32_t vis = 0, hit = 0;
+    if (word) {
+      vis = p.visited[t];
+      const int c = p.slots ? min(p.slots[u], p.df) : p.df;
+      const int64_t row = u * p.df;
+      int r0 = 0;
+      do {
+        int32_t v[4], g[4];
+        bool ok[4];
+        uint32_t f[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool in = r0 + i < p.df;
+          v[i] = in ? p.fwd_nbr[row + r0 + i] : 0;
+          g[i] = in ? mask.index(row + r0 + i) : 0;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          ok[i] = r0 + i < c && mask.valid(g[i]) &&
+                  (!p.lines || p.lines[v[i]]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          f[i] = ok[i] ? p.frontier[(int64_t)v[i] * p.W + j] : 0u;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (f[i]) hit |= f[i] & mask.word(g[i], row + r0 + i, j, p.W);
+        r0 += 4;
+      } while (r0 < c);
+    }
+    const uint32_t nw = hit & ~vis;
+    if (word) {
+      __stcs(p.new_frontier + t, nw);
+      __stcs(p.visited_out + t, vis | nw);
+    }
+    const bool any = (__ballot_sync(kFull, nw != 0) & team) != 0;
+    const bool lead = u < p.n && j == 0;
+    if (lead && p.next_lines) p.next_lines[u] = any;
+    const unsigned leads = __ballot_sync(kFull, lead && any);
+    if (lane == 0) live_rows += __popc(leads);
+  }
+  if (p.count && lane == 0 && live_rows) atomicAdd(p.count, live_rows);
+}
+
+// A grid of the blocks the card holds at once (at most one block a
+// kThreads threads of work): the kernels stride over their lines or rows.
+template <class Kernel>
+static unsigned resident_blocks(Kernel kernel, int64_t threads) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  const int64_t want = (threads + kThreads - 1) / kThreads;
+  const int64_t held =
+      (int64_t)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  return (unsigned)(want < held ? want : held);
+}
 
 template <class Mask>
-static int launch(const void* frontier, const void* visited,
-                  const void* fwd_nbr, Mask mask, int64_t n, int64_t df,
-                  int64_t W, void* new_frontier, void* visited_out,
-                  void* stream) {
-  const int64_t total = n * W;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  expand_kernel<Mask><<<(unsigned)blocks, kThreads, 0,
-                        (cudaStream_t)stream>>>(
-      (const uint32_t*)frontier, (const uint32_t*)visited,
-      (const int32_t*)fwd_nbr, mask, n, (int)df, W,
-      (uint32_t*)new_frontier, (uint32_t*)visited_out);
+static int launch(Step p, Mask mask, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (p.n < 1 || p.W < 1 || p.df < 0) return (int)cudaErrorInvalidValue;
+  if (p.count) {
+    cudaError_t err = cudaMemsetAsync(p.count, 0, sizeof(uint32_t), s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  p.L = (p.W + 31) / 32;
+  int lg = 0;
+  while ((int64_t(1) << lg) < p.W && lg < 5) ++lg;
+  if (lg == 5) {
+    const unsigned blocks = resident_blocks(
+        lines_kernel<Mask>, p.n * ((p.L + kLines - 1) / kLines) * 32);
+    lines_kernel<Mask><<<blocks, kThreads, 0, s>>>(p, mask);
+  } else {
+    const unsigned blocks = resident_blocks(rows_kernel<Mask>, p.n << lg);
+    rows_kernel<Mask><<<blocks, kThreads, 0, s>>>(p, mask, lg);
+  }
   return (int)cudaGetLastError();
+}
+
+static Step step_args(const void* frontier, const void* visited,
+                      const void* fwd_nbr, const void* slots,
+                      const void* lines, void* new_frontier,
+                      void* visited_out, void* next_lines, void* count,
+                      int64_t n, int64_t df, int64_t W) {
+  return Step{(const uint32_t*)frontier, (const uint32_t*)visited,
+              (const int32_t*)fwd_nbr,   (const int32_t*)slots,
+              (const uint8_t*)lines,     (uint32_t*)new_frontier,
+              (uint32_t*)visited_out,    (uint8_t*)next_lines,
+              (uint32_t*)count,          n, W, 0, (int)df};
 }
 
 extern "C" int rrr_expand_resident(const void* frontier, const void* visited,
                                    const void* fwd_nbr, const void* gidx,
-                                   const void* plane, void* new_frontier,
-                                   void* visited_out, int64_t n, int64_t df,
+                                   const void* plane, const void* slots,
+                                   const void* lines, void* new_frontier,
+                                   void* visited_out, void* next_lines,
+                                   void* count, int64_t n, int64_t df,
                                    int64_t W, int64_t rows, void* stream) {
-  PlaneMask m{(const uint32_t*)plane, (const int32_t*)gidx, rows};
-  return launch(frontier, visited, fwd_nbr, m, n, df, W, new_frontier,
-                visited_out, stream);
+  return launch(step_args(frontier, visited, fwd_nbr, slots, lines,
+                          new_frontier, visited_out, next_lines, count, n,
+                          df, W),
+                PlaneMask{(const uint32_t*)plane, (const int32_t*)gidx, rows},
+                stream);
 }
 
 extern "C" int rrr_expand_streamed(const void* frontier, const void* visited,
                                    const void* fwd_nbr, const void* gmask,
+                                   const void* slots, const void* lines,
                                    void* new_frontier, void* visited_out,
-                                   int64_t n, int64_t df, int64_t W,
-                                   void* stream) {
-  GatheredMask m{(const uint32_t*)gmask};
-  return launch(frontier, visited, fwd_nbr, m, n, df, W, new_frontier,
-                visited_out, stream);
+                                   void* next_lines, void* count, int64_t n,
+                                   int64_t df, int64_t W, void* stream) {
+  return launch(step_args(frontier, visited, fwd_nbr, slots, lines,
+                          new_frontier, visited_out, next_lines, count, n,
+                          df, W),
+                GatheredMask{(const uint32_t*)gmask}, stream);
 }
 
 // IC sampling step as a push over the live frontier words, with the

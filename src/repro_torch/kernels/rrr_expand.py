@@ -10,10 +10,21 @@ Replaces ``repro/kernels/rrr_expand.py``: ``rrr_expand_step_resident_pallas``
 where the mask word is ``plane[gidx[u, s]]`` (resident layout; ``gidx``
 equal to ``plane.shape[0]`` reads a zero row — the sentinel of invalid
 slots) or ``gmask[u, s]`` (streamed layout, pre-gathered).  ``fwd_nbr``
-is pre-clipped to 0 at invalid slots.  Bound on the H100: bytes (the
-frontier-row gathers and the mask words); see the CUDA source for the
-design.  The kernel is direction-agnostic, so the cascade's forward
-diffusion uses it too.
+is pre-clipped to 0 at invalid slots.  The kernel is direction-agnostic,
+so the cascade's forward diffusion uses it too.  Bound on the H100:
+bytes; see the CUDA source for the design.  Both wrappers take four
+optional tensors, which their callers' loops carry from step to step:
+
+  * ``slots`` int32 [n]: row ``u``'s valid slots come first and number
+    ``slots[u]``; the rest of the row is never read (without it every
+    slot is read, and the sentinel may stand anywhere in a row);
+  * ``lines`` uint8 [n, ceil(W / 32)]: the frontier's line summary
+    (:func:`line_summary`), non-zero where a 32-word line may hold a set
+    bit; a line whose byte is zero is never read (without it every line
+    is read).  Extra set bytes cost loads and never change a word;
+  * ``next_lines`` (same shape) receives the new frontier's summary, and
+    ``count`` int32 [1] the number of its non-zero lines, so a loop stops
+    on 4 bytes instead of ``frontier.any()``.
 
 The IC sampler's step is ``rrr_expand_push_ic`` (kernel
 ``rrr_expand_ic``), a push over a list of the frontier's live words:
@@ -66,80 +77,162 @@ from repro_torch.core import bitset, prng
 from repro_torch.core.prng import Key
 from repro_torch.kernels import coins, ops
 
-_RESIDENT_ARGS = [ops.PTR] * 7 + [ops.I64] * 4
-_STREAMED_ARGS = [ops.PTR] * 6 + [ops.I64] * 3
+_RESIDENT_ARGS = [ops.PTR] * 11 + [ops.I64] * 4
+_STREAMED_ARGS = [ops.PTR] * 10 + [ops.I64] * 3
 _IC_ARGS = [ops.PTR, ops.I64] + [ops.PTR] * 8 + [ops.I64] * 5
 _CASCADE_ARGS = [ops.PTR] * 8 + [ops.I64] * 7
 _LT_ARGS = ([ops.PTR, ops.I64] + [ops.PTR] * 5 + [ops.I64] * 2
             + [ops.PTR] * 3 + [ops.I64] * 3)
 _CASCADE_LT_ARGS = [ops.PTR] * 9 + [ops.I64] * 5
 
+LINE_WORDS = 32     # words a line of the line summary
 
-def _finish(hit, visited):
+
+def num_lines(w: int) -> int:
+    """Lines of the line summary of a W-word row."""
+    return -(-w // LINE_WORDS)
+
+
+def line_summary(frontier: torch.Tensor) -> torch.Tensor:
+    """uint8 [n, ceil(W / 32)]: 1 where line ``l`` of row ``v``, words
+    ``32 l`` to ``32 l + 31``, holds a set bit, else 0."""
+    n, w = frontier.shape
+    lines = num_lines(w)
+    padded = torch.nn.functional.pad(frontier, (0, lines * LINE_WORDS - w))
+    return (padded.view(n, lines, LINE_WORDS) != 0).any(2).to(torch.uint8)
+
+
+def _finish(hit, visited, next_lines=None, count=None):
     new = hit & ~visited
+    if next_lines is not None or count is not None:
+        summary = line_summary(new)
+        if next_lines is not None:
+            next_lines.copy_(summary)
+        if count is not None:
+            count.fill_(int(summary.sum()))
     return new, visited | new
 
 
-def expand_step_resident_plain(frontier, visited, fwd_nbr, gidx, plane):
+def _read_frontier(frontier, lines):
+    """The frontier as the step reads it: lines whose summary byte is 0
+    read as zero."""
+    if lines is None:
+        return frontier
+    keep = lines.bool().repeat_interleave(LINE_WORDS, 1)[:, :frontier.shape[1]]
+    return torch.where(keep, frontier, 0)
+
+
+def _slot(fwd_nbr, slots, s):
+    """(source rows of slot ``s``, rows where it is read or None)."""
+    if slots is None:
+        return fwd_nbr[:, s].long(), None
+    ok = s < slots
+    return torch.where(ok, fwd_nbr[:, s], 0).long(), ok
+
+
+def expand_step_resident_plain(frontier, visited, fwd_nbr, gidx, plane,
+                               slots=None, lines=None, next_lines=None,
+                               count=None):
     rows = plane.shape[0]
+    f = _read_frontier(frontier, lines)
     hit = torch.zeros_like(frontier)
-    for s in range(fwd_nbr.shape[1]):
+    for s in range(fwd_nbr.shape[1] if rows else 0):
+        v, ok = _slot(fwd_nbr, slots, s)
         g = gidx[:, s].long()
-        if rows:
-            m = plane[g.clamp(max=rows - 1)] & torch.where(
-                g < rows, -1, 0).to(plane.dtype)[:, None]
-            hit |= frontier[fwd_nbr[:, s].long()] & m
-    return _finish(hit, visited)
+        ok = g < rows if ok is None else ok & (g < rows)
+        m = plane[g.clamp(0, rows - 1)] & torch.where(
+            ok, -1, 0).to(plane.dtype)[:, None]
+        hit |= f[v] & m
+    return _finish(hit, visited, next_lines, count)
 
 
-def expand_step_plain(frontier, visited, fwd_nbr, gmask):
+def expand_step_plain(frontier, visited, fwd_nbr, gmask, slots=None,
+                      lines=None, next_lines=None, count=None):
+    f = _read_frontier(frontier, lines)
     hit = torch.zeros_like(frontier)
     for s in range(fwd_nbr.shape[1]):
-        hit |= frontier[fwd_nbr[:, s].long()] & gmask[:, s]
-    return _finish(hit, visited)
+        v, ok = _slot(fwd_nbr, slots, s)
+        h = f[v] & gmask[:, s]
+        hit |= h if ok is None else torch.where(ok[:, None], h, 0)
+    return _finish(hit, visited, next_lines, count)
 
 
-def rrr_expand_step_resident(frontier, visited, fwd_nbr, gidx, plane):
+def _options(n, w, slots, lines, next_lines, count) -> list:
+    """Check the optional inputs and outputs; returns those given."""
+    if slots is not None:
+        ops.check(slots, "slots", torch.int32, (n,))
+    for name, t in (("lines", lines), ("next_lines", next_lines)):
+        if t is not None:
+            ops.check(t, name, torch.uint8, (n, num_lines(w)))
+    if count is not None:
+        ops.check(count, "count", torch.int32, (1,))
+    return [t for t in (slots, lines, next_lines, count) if t is not None]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _empty(frontier, visited, count):
+    """The outputs of a step over no words."""
+    if count is not None:
+        count.zero_()
+    return torch.empty_like(frontier), torch.empty_like(visited)
+
+
+def rrr_expand_step_resident(frontier, visited, fwd_nbr, gidx, plane, *,
+                             slots=None, lines=None, next_lines=None,
+                             count=None):
     """Resident layout: frontier/visited int32 [n, W], fwd_nbr/gidx int32
-    [n, df] (gidx in [0, rows]), plane int32 [rows, W]
-    -> (new_frontier, new_visited)."""
-    if not ops.on_card(frontier, visited, fwd_nbr, gidx, plane):
-        return expand_step_resident_plain(frontier, visited, fwd_nbr, gidx,
-                                          plane)
+    [n, df] (gidx in [0, rows]), plane int32 [rows, W], the optional
+    ``slots``, ``lines``, ``next_lines`` and ``count`` of the module's
+    docstring -> (new_frontier, new_visited)."""
     n, w = frontier.shape
+    opts = _options(n, w, slots, lines, next_lines, count)
+    if not ops.on_card(frontier, visited, fwd_nbr, gidx, plane, *opts):
+        return expand_step_resident_plain(frontier, visited, fwd_nbr, gidx,
+                                          plane, slots, lines, next_lines,
+                                          count)
     df = fwd_nbr.shape[1]
     ops.check(frontier, "frontier", torch.int32, (n, w))
     ops.check(visited, "visited", torch.int32, (n, w))
     ops.check(fwd_nbr, "fwd_nbr", torch.int32, (n, df))
     ops.check(gidx, "gidx", torch.int32, (n, df))
     ops.check(plane, "plane", torch.int32, (None, w))
-    newf, viso = torch.empty_like(frontier), torch.empty_like(visited)
     if n * w == 0:
-        return newf, viso
+        return _empty(frontier, visited, count)
+    newf, viso = torch.empty_like(frontier), torch.empty_like(visited)
     ops.launch("rrr_expand_resident", "rrr_expand", "rrr_expand_resident",
                _RESIDENT_ARGS, frontier.data_ptr(), visited.data_ptr(),
                fwd_nbr.data_ptr(), gidx.data_ptr(), plane.data_ptr(),
-               newf.data_ptr(), viso.data_ptr(), n, df, w, plane.shape[0])
+               _ptr(slots), _ptr(lines), newf.data_ptr(), viso.data_ptr(),
+               _ptr(next_lines), _ptr(count), n, df, w, plane.shape[0])
     return newf, viso
 
 
-def rrr_expand_step(frontier, visited, fwd_nbr, gmask):
-    """Streamed layout: gmask int32 [n, df, W], zero at invalid slots."""
-    if not ops.on_card(frontier, visited, fwd_nbr, gmask):
-        return expand_step_plain(frontier, visited, fwd_nbr, gmask)
+def rrr_expand_step(frontier, visited, fwd_nbr, gmask, *, slots=None,
+                    lines=None, next_lines=None, count=None):
+    """Streamed layout: gmask int32 [n, df, W], zero at invalid slots (or,
+    with ``slots``, anything past each row's valid slots, which is never
+    read); the other inputs as :func:`rrr_expand_step_resident`."""
     n, w = frontier.shape
+    opts = _options(n, w, slots, lines, next_lines, count)
+    if not ops.on_card(frontier, visited, fwd_nbr, gmask, *opts):
+        return expand_step_plain(frontier, visited, fwd_nbr, gmask, slots,
+                                 lines, next_lines, count)
     df = fwd_nbr.shape[1]
     ops.check(frontier, "frontier", torch.int32, (n, w))
     ops.check(visited, "visited", torch.int32, (n, w))
     ops.check(fwd_nbr, "fwd_nbr", torch.int32, (n, df))
     ops.check(gmask, "gmask", torch.int32, (n, df, w))
-    newf, viso = torch.empty_like(frontier), torch.empty_like(visited)
     if n * w == 0:
-        return newf, viso
+        return _empty(frontier, visited, count)
+    newf, viso = torch.empty_like(frontier), torch.empty_like(visited)
     ops.launch("rrr_expand_streamed", "rrr_expand", "rrr_expand_streamed",
                _STREAMED_ARGS, frontier.data_ptr(), visited.data_ptr(),
-               fwd_nbr.data_ptr(), gmask.data_ptr(), newf.data_ptr(),
-               viso.data_ptr(), n, df, w)
+               fwd_nbr.data_ptr(), gmask.data_ptr(), _ptr(slots),
+               _ptr(lines), newf.data_ptr(), viso.data_ptr(),
+               _ptr(next_lines), _ptr(count), n, df, w)
     return newf, viso
 
 

@@ -54,6 +54,142 @@ def test_expand_layouts(dev, n, df, w):
            rrr_expand.expand_step_plain(f, vis, nbr, gm))
 
 
+def _expand_both(dev, step, plain, args, n, w, **opts):
+    """Kernel and plain version of one plane step with the optional
+    inputs ``opts`` (``slots``, ``lines``) and fresh ``next_lines`` and
+    ``count``: the words, the emitted summary and count must be equal,
+    and the summary and count those of the plain new frontier's lines.
+    Returns the kernel's new frontier and visited."""
+    out = []
+    for fn in (step, plain):
+        nl = torch.full((n, rrr_expand.num_lines(w)), 7, dtype=torch.uint8,
+                        device=dev)
+        cnt = torch.full((1,), -1, dtype=torch.int32, device=dev)
+        out.append((*fn(*args, **opts, next_lines=nl, count=cnt), nl, cnt))
+    _equal(out[0], out[1])
+    want = rrr_expand.line_summary(out[1][0])
+    assert torch.equal(out[0][2], want)
+    assert int(out[0][3]) == int(want.sum())
+    return out[0][:2]
+
+
+def _plane_inputs(gen, n, df, w, kind, dev):
+    """A plane step at width ``w``: a frontier (``sparse``: 1 line in 10
+    live, bits thin; ``empty``; ``every line``: every word non-zero),
+    visited, a plane and its random gidx, a gathered mask; valid slots
+    first (``cnt`` of them) with other rows, gidx and mask words past
+    them (``port``), and the same step with a random valid set, so
+    sentinels stand mid-row, in the reference's form (``ref``)."""
+    lines = rrr_expand.num_lines(w)
+    f = _words(gen, n, w, dev=dev) & _words(gen, n, w, dev=dev)
+    if kind == "sparse":
+        f &= _words(gen, n, w, dev=dev)
+        on = (torch.rand((n, lines), generator=gen) < 0.1).to(dev)
+        f = torch.where(on.repeat_interleave(32, 1)[:, :w], f, 0)
+    elif kind == "empty":
+        f.zero_()
+    else:
+        f |= 1
+    vis = _words(gen, n, w, dev=dev) & _words(gen, n, w, dev=dev)
+    rows = 2 * n
+    plane = _words(gen, rows, w, dev=dev)
+    nbr = torch.randint(0, n, (n, df), generator=gen, dtype=torch.int32)
+    gidx = torch.randint(0, rows, (n, df), generator=gen, dtype=torch.int32)
+    gm = _words(gen, n, df, w, dev=dev)
+    cnt = torch.randint(0, df + 1, (n,), generator=gen, dtype=torch.int32)
+    valid = (torch.rand((n, df), generator=gen) < 0.6).to(dev)
+    nbr, gidx = nbr.to(dev), gidx.to(dev)
+    ref = (torch.where(valid, nbr, 0), torch.where(valid, gidx, rows),
+           torch.where(valid[:, :, None], gm, 0))
+    return f, vis, plane, (nbr, gidx, gm), ref, cnt.to(dev)
+
+
+@pytest.mark.parametrize("w", [1, 2, 31, 32, 33, 1024])
+@pytest.mark.parametrize("kind", ["sparse", "empty", "every line"])
+def test_expand_options(dev, w, kind):
+    """Both plane kernels with the optional inputs against their plain
+    versions at every thread mapping (W = 1, 2: groups of lanes a row;
+    31, 32, 33, 1024: a warp a line): a per-row count of valid-first
+    slots (words past it never read), a summary with extra set bytes,
+    no count with sentinels mid-row, no summary; the emitted summary and
+    count against the plain new frontier's lines; an all-zero frontier
+    and one with every line live."""
+    gen = torch.Generator().manual_seed(w)
+    n, df = (1500 if w < 1024 else 200), 6
+    f, vis, plane, port, ref, cnt = _plane_inputs(gen, n, df, w, kind, dev)
+    extra = (torch.rand((n, rrr_expand.num_lines(w)), generator=gen)
+             < 0.2).to(dev)
+    lines = rrr_expand.line_summary(f) | extra.to(torch.uint8)
+    layouts = ((rrr_expand.rrr_expand_step_resident,
+                rrr_expand.expand_step_resident_plain,
+                lambda a: (a[0], a[1], plane)),
+               (rrr_expand.rrr_expand_step, rrr_expand.expand_step_plain,
+                lambda a: (a[0], a[2])))
+    for step, plain, mask in layouts:
+        want = plain(f, vis, *mask(ref))
+        got = _expand_both(dev, step, plain, (f, vis, *mask(port)), n, w,
+                           slots=cnt, lines=lines)
+        assert kind != "sparse" or int((got[0] != 0).sum()) > 0
+        # valid-first rows, read through the count: the step over the
+        # same slots in the reference's form (every slot read)
+        first = torch.arange(df, device=dev)[None] < cnt[:, None]
+        clean = (torch.where(first, port[0], 0),
+                 torch.where(first, port[1], 2 * n),
+                 torch.where(first[:, :, None], port[2], 0))
+        _equal(got, plain(f, vis, *mask(clean)))
+        # no count: sentinels mid-row; with and without a summary
+        _equal(_expand_both(dev, step, plain, (f, vis, *mask(ref)), n, w,
+                            lines=rrr_expand.line_summary(f)), want)
+        _equal(_expand_both(dev, step, plain, (f, vis, *mask(ref)), n, w),
+               want)
+
+
+@pytest.mark.parametrize("w", [2, 33, 64])
+def test_expand_options_hub_rows(dev, w):
+    """The plane kernels on an rmat graph's forward table (hub rows of
+    more than 32 slots, read in chunks of 32) as the sampler's streamed
+    layout feeds them: the count ``t.slots``, the roots' summary, the
+    plane gathered through ``t.take`` (row 0 past each row's valid
+    slots), against the plain step over the zeroed gather."""
+    gen = torch.Generator().manual_seed(11)
+    g = generators.rmat(12, 1 << 15, seed=3, device=dev)
+    nbr, prob, wt = csr.padded_adjacency(g)
+    t = rrr._Tables(nbr, prob, wt, *csr.padded_forward_adjacency(g),
+                    model="IC", coin_chunk=32)
+    n = t.n
+    assert t.nbr_c.shape[1] > 32
+    roots = torch.randint(0, n, (32 * w,), generator=gen).to(dev)
+    f = rrr.packed_roots(roots, n)
+    vis = f | (_words(gen, n, w, dev=dev) & _words(gen, n, w, dev=dev))
+    plane = _words(gen, n * t.d_pad, w, dev=dev)
+    gm = plane.index_select(0, t.take).view(n, -1, w)
+    zeroed = torch.where(t.valid[:, :, None], gm, 0)
+    want = rrr_expand.expand_step_plain(f, vis, t.nbr_c, zeroed)
+    lines = rrr.root_lines(roots, n, w)
+    got = _expand_both(dev, rrr_expand.rrr_expand_step,
+                       rrr_expand.expand_step_plain, (f, vis, t.nbr_c, gm),
+                       n, w, slots=t.slots, lines=lines)
+    _equal(got, want)
+    assert int((got[0] != 0).sum()) > 0
+    got = _expand_both(dev, rrr_expand.rrr_expand_step_resident,
+                       rrr_expand.expand_step_resident_plain,
+                       (f, vis, t.nbr_c, t.gidx, plane), n, w,
+                       slots=t.slots, lines=lines)
+    _equal(got, want)
+
+
+def test_expand_options_refused_on_another_device(dev):
+    f = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    nbr = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+    for opts in (dict(slots=torch.zeros(4, dtype=torch.int32)),
+                 dict(lines=torch.zeros((4, 1), dtype=torch.uint8)),
+                 dict(count=torch.zeros(1, dtype=torch.int32))):
+        with pytest.raises(ValueError, match="several devices"):
+            rrr_expand.rrr_expand_step(f, f, nbr, f[:, None], **opts)
+        with pytest.raises(ValueError, match="several devices"):
+            rrr_expand.rrr_expand_step_resident(f, f, nbr, nbr, f, **opts)
+
+
 @pytest.mark.parametrize("n,w,chunk,n_chunks,frontier", [
     (50, 4, 2, 3, "random"),
     (50, 1, 2, 3, "random"),          # one word a row: 4-byte path

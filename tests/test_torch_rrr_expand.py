@@ -63,6 +63,132 @@ def test_streamed_matches_pallas(n, df, w):
         np.testing.assert_array_equal(u32(a), u32(b))
 
 
+def _option_step(n, df, w, case, seed):
+    """A plane step's inputs for the optional ``slots`` and ``lines``:
+    rows whose valid slots come first (``slots`` of them) or, for
+    ``sentinels``, invalid slots anywhere in a row; a frontier whose
+    rows and 32-word lines are often all zero; the reference's inputs
+    (fwd_nbr clipped to 0, the sentinel row / a zero mask word at each
+    invalid slot) and the port's (for ``slots``, other rows, plane rows
+    and mask words past each row's valid slots, which are never read)."""
+    rng = np.random.default_rng(seed)
+    cnt = rng.integers(0, df + 1, n).astype(np.int32)
+    if case == "sentinels":
+        valid = rng.random((n, df)) < 0.6
+    else:
+        valid = np.arange(df)[None] < cnt[:, None]
+    lines = -(-w // 32)
+    frontier = words(rng, (n, w), density=0.2)
+    line_on = rng.random((n, lines)) < 0.4
+    frontier &= np.where(np.repeat(line_on, 32, 1)[:, :w], 0xFFFFFFFF,
+                         0).astype(np.uint32)
+    frontier[rng.random(n) < 0.3] = 0
+    visited = frontier | words(rng, (n, w), density=0.2)
+    nbr = rng.integers(0, n, (n, df)).astype(np.int32)
+    rows = 2 * n + 1
+    plane = words(rng, (rows, w))
+    gidx = rng.integers(0, rows, (n, df)).astype(np.int32)
+    gmask = words(rng, (n, df, w))
+    ref = (np.where(valid, nbr, 0).astype(np.int32),
+           np.where(valid, gidx, rows).astype(np.int32),
+           np.where(valid[:, :, None], gmask, 0).astype(np.uint32))
+    port = ref if case == "sentinels" else (nbr, gidx, gmask)
+    return frontier, visited, plane, ref, port, cnt
+
+
+def _summary(frontier, extra=None):
+    """The line summary of a uint32 [n, W] plane, reduced in numpy:
+    pad each row to whole 32-word lines, 1 where a line holds a bit."""
+    n, w = frontier.shape
+    lines = -(-w // 32)
+    padded = np.zeros((n, lines * 32), np.uint32)
+    padded[:, :w] = frontier
+    out = (padded.reshape(n, lines, 32) != 0).any(2).astype(np.uint8)
+    return out if extra is None else out | extra
+
+
+@pytest.mark.parametrize("layout", ["resident", "streamed"])
+@pytest.mark.parametrize("w", [1, 2, 31, 33])
+@pytest.mark.parametrize("case", ["slots", "sentinels", "extra lines",
+                                  "no lines"])
+def test_step_options_match_pallas(layout, w, case):
+    """Both wrappers with the optional inputs against the Pallas kernels
+    in interpret mode, exactly: a per-row count with valid-first rows
+    (and other words past each count, never read), no count with
+    sentinels mid-row, a summary with extra set bytes, no summary; the
+    emitted summary and count against a reduction of the new frontier's
+    32-word lines."""
+    n, df = 41, 5
+    frontier, visited, plane, ref, port, cnt = _option_step(
+        n, df, w, case, 7 * w + len(case))
+    rng = np.random.default_rng(w)
+    extra = (rng.random((n, -(-w // 32))) < 0.3).astype(np.uint8)
+    lines = (None if case == "no lines" else
+             _summary(frontier, extra if case == "extra lines" else None))
+    opts = dict(
+        slots=None if case == "sentinels" else torch.from_numpy(cnt),
+        lines=None if lines is None else torch.from_numpy(lines),
+        next_lines=torch.full((n, -(-w // 32)), 7, dtype=torch.uint8),
+        count=torch.full((1,), -1, dtype=torch.int32))
+    f, vis = jnp.asarray(frontier), jnp.asarray(visited)
+    if layout == "resident":
+        want = rrr_expand_step_resident_pallas(
+            f, vis, jnp.asarray(ref[0]), jnp.asarray(ref[1]),
+            jnp.asarray(plane), interpret=True)
+        got = rrr_expand.rrr_expand_step_resident(
+            to_port(frontier), to_port(visited), torch.from_numpy(port[0]),
+            torch.from_numpy(port[1]), to_port(plane), **opts)
+    else:
+        want = rrr_expand_step_pallas(
+            f, vis, jnp.asarray(ref[0]), jnp.asarray(ref[2]), interpret=True)
+        got = rrr_expand.rrr_expand_step(
+            to_port(frontier), to_port(visited), torch.from_numpy(port[0]),
+            to_port(port[2]), **opts)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(u32(a), u32(b))
+    new_lines = _summary(u32(want[0]))
+    np.testing.assert_array_equal(opts["next_lines"].numpy(), new_lines)
+    assert int(opts["count"]) == int(new_lines.sum())
+
+
+def test_line_summary_and_root_lines():
+    """line_summary against the numpy reduction at W = 1, 31, 32, 33 and
+    1,025; root_lines equals the summary of packed_roots."""
+    rng = np.random.default_rng(3)
+    for w in (1, 31, 32, 33, 1025):
+        f = words(rng, (9, w), density=0.2)
+        f[:, rng.random(w) < 0.9] = 0
+        np.testing.assert_array_equal(
+            rrr_expand.line_summary(to_port(f)).numpy(), _summary(f))
+    from repro_torch.core import rrr
+    for batch, n in ((32, 5), (2080, 7), (96, 1)):
+        roots = torch.from_numpy(rng.integers(0, n, batch))
+        w = -(-batch // 32)
+        assert torch.equal(rrr.root_lines(roots, n, w),
+                           rrr_expand.line_summary(rrr.packed_roots(roots,
+                                                                    n)))
+
+
+def test_step_options_are_checked():
+    """The optional inputs' dtype and shape are checked, on the CPU as on
+    the card."""
+    n, w, df = 6, 33, 2
+    f = torch.zeros((n, w), dtype=torch.int32)
+    nbr = torch.zeros((n, df), dtype=torch.int32)
+    gm = torch.zeros((n, df, w), dtype=torch.int32)
+    bad = [dict(slots=torch.zeros(n, dtype=torch.int64)),
+           dict(slots=torch.zeros(n + 1, dtype=torch.int32)),
+           dict(lines=torch.zeros((n, 2), dtype=torch.int32)),
+           dict(lines=torch.zeros((n, 1), dtype=torch.uint8)),
+           dict(next_lines=torch.zeros((n, 3), dtype=torch.uint8)),
+           dict(count=torch.zeros(2, dtype=torch.int32))]
+    for opts in bad:
+        with pytest.raises((TypeError, ValueError)):
+            rrr_expand.rrr_expand_step(f, f, nbr, gm, **opts)
+        with pytest.raises((TypeError, ValueError)):
+            rrr_expand.rrr_expand_step_resident(f, f, nbr, nbr, f, **opts)
+
+
 @pytest.mark.parametrize("n,batch,chunk,n_chunks", [
     (13, 64, 3, 2), (5, 40, 4, 1),
     (7, 96, 2, 3),          # W = 3: no 16-byte chunk, three chunk keys

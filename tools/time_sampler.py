@@ -12,7 +12,12 @@ lazy sender) and the serving replay (SERVE, lazy sender).  For each it
 prints the stage seconds, the peak device memory, the kernel launches
 and a digest of the result (seeds, or every answer).  It also times the
 coin plane's kernel alone (``coins.coin_plane``) at FULL's first BFS
-step, CUDA-event median of 10 launches, with a digest of the plane.  The serving
+step, CUDA-event median of 10 launches, with a digest of the plane, and
+the two plane expansions over that plane (``rrr_expand_step`` on its
+gathered mask, zero at invalid slots, and ``rrr_expand_step_resident``
+on the plane itself; a version whose wrappers take a per-row count of
+valid slots and a line summary is given ``t.slots`` and the roots'
+summary), with a digest of each one's words.  The serving
 replay's refreshes are split into the slab fills' sampler kernels (CUDA
 events around every call of the sampler's kernel wrappers), the host
 tables (``padded_adjacency``, ``padded_forward_adjacency`` and the
@@ -149,18 +154,34 @@ def main(argv=None) -> int:
     cmd = smoke_commands()
     for rep in (0, 1):
         run_paths(dict(label=args.label, src=args.src, rep=rep), cmd, dev)
-    coin_step(dict(label=args.label, src=args.src), cmd, dev)
+    first_step(dict(label=args.label, src=args.src), cmd, dev)
     return 0
 
 
-def coin_step(common: dict, cmd: dict, dev, reps: int = 10):
+def event_ms(fn, reps: int) -> float:
+    """Median CUDA-event ms of ``fn`` over ``reps`` calls after one."""
+    import numpy as np
+    times = []
+    for _ in range(reps + 1):                   # the first is a warm-up
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times[1:]))
+
+
+def first_step(common: dict, cmd: dict, dev, reps: int = 10):
     """coin_pack at the first BFS step of FULL's draw (its 32,768 roots,
     the chunk keys as the sampler derives them): the plane [n, d_pad, W]
-    of that step, one JSON line."""
-    import numpy as np
+    of that step; then the two plane expansions over it.  One JSON line
+    each."""
+    import inspect
     from repro_torch.core import prng, rrr
     from repro_torch.graphs import csr, generators
-    from repro_torch.kernels import coins
+    from repro_torch.kernels import coins, rrr_expand
     from repro_torch.launch import im_driver
 
     args = im_driver.parser().parse_args(cmd["FULL"])
@@ -181,19 +202,32 @@ def coin_step(common: dict, cmd: dict, dev, reps: int = 10):
     check = [int(out.ne(0).sum()), int(out.sum(dtype=torch.int64)),
              int((out.sum(2, dtype=torch.int64) * slots).sum())]
     del out
-    times = []
-    for _ in range(reps + 1):                   # the first is a warm-up
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        plane()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
     print(json.dumps(dict(
         common, path="coin_pack first step", shape=[t.n, t.d_pad,
                                                     frontier.shape[1]],
-        ms=float(np.median(times[1:])), plane=digest(check))), flush=True)
+        ms=event_ms(plane, reps), plane=digest(check))), flush=True)
+
+    w = frontier.shape[1]
+    coin = plane()
+    gm = torch.where(t.valid[:, :, None], coin[t.nbr_c.long(), t.rslot], 0)
+    coin = coin.reshape(t.n * t.d_pad, w)
+    opts = {}
+    if "slots" in inspect.signature(rrr_expand.rrr_expand_step).parameters:
+        opts = dict(slots=t.slots, lines=rrr_expand.line_summary(frontier))
+    for name, fn in (
+            ("rrr_expand_streamed", lambda: rrr_expand.rrr_expand_step(
+                frontier, frontier, t.nbr_c, gm, **opts)),
+            ("rrr_expand_resident",
+             lambda: rrr_expand.rrr_expand_step_resident(
+                 frontier, frontier, t.nbr_c, t.gidx, coin, **opts))):
+        new, vis = fn()
+        words = [int(new.ne(0).sum()), int(new.sum(dtype=torch.int64)),
+                 int(vis.sum(dtype=torch.int64))]
+        del new, vis
+        print(json.dumps(dict(
+            common, path=f"{name} first step", shape=list(gm.shape),
+            inputs=sorted(opts), ms=event_ms(fn, reps),
+            words=digest(words))), flush=True)
 
 
 def run_paths(common: dict, cmd: dict, dev):

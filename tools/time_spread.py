@@ -2,13 +2,15 @@
 """Split the spread estimate into its parts on one NVIDIA GPU.
 
     python3 tools/time_spread.py [--reps N] [--gathers auto,streamed]
+        [--model IC|LT|WC] [--commands imm,supercritical] [--src DIR]
+        [--label NAME]
 
 Runs ``chip_smoke.py``'s IMM command (FULL) and its supercritical IMM
 command (DENSE_FULL) through ``im_driver.run``, for their seeds and the
 spread's end-to-end seconds there, then estimates the spread again on
 the same graph, seeds and key with each ``--gather`` of the cascade
-(the kernel engine, IC, 64 simulations), ``--reps`` times after one
-warm-up, under a :class:`SpanClock` set as the cascade module's
+(the kernel engine, ``--model``, 64 simulations), ``--reps`` times after
+one warm-up, under a :class:`SpanClock` set as the cascade module's
 measurement hook (``cascade._clock``).  The clock spans each part that
 ``cascade.simulate_cascades`` names — the host build of the padded
 adjacency, the key table or the gather table and live-edge plane, each
@@ -17,8 +19,12 @@ words, or on the frontier) — and the final
 popcount, with CUDA events (device ms: from the span's start to its
 end on the stream, idle time included) and the host clock (host ms).
 Prints the card line, then one JSON line per command and gather with
-the medians over the reps; equal spreads across gathers are checked.
-Exits non-zero without a CUDA device.
+the medians over the reps; equal spreads across gathers (and, under the
+command's own model, the driver's) are checked.  ``--src`` names the
+``src`` directory whose ``repro_torch`` runs (default: this checkout's),
+so two versions can be compared in one machine session, run alternately
+(A, B, B, A) with ``--label``; equal spreads mean equal results.  Exits
+non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -113,10 +119,18 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--gathers", default="auto,streamed")
+    ap.add_argument("--model", default="IC", choices=("IC", "LT", "WC"))
+    ap.add_argument("--commands", default="imm,supercritical")
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"))
+    ap.add_argument("--label", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_spread: no CUDA device", file=sys.stderr)
         return 2
+    # the package of --src first: chip_smoke then finds it imported and
+    # takes its modules from there, not from this checkout's src
+    sys.path.insert(0, os.path.abspath(args.src))
+    import repro_torch  # noqa: F401
     sys.path.insert(0, ROOT)
     import chip_smoke
     from repro_torch.core import prng
@@ -124,8 +138,10 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     print(chip_smoke.card_line(), flush=True)
-    for label, argv_ in (("imm", chip_smoke.FULL),
-                         ("supercritical", chip_smoke.DENSE_FULL)):
+    commands = {"imm": chip_smoke.FULL,
+                "supercritical": chip_smoke.DENSE_FULL}
+    for label in args.commands.split(","):
+        argv_ = commands[label]
         out = im_driver.run(argv_)
         torch.cuda.synchronize()
         a = im_driver.parser().parse_args(argv_)
@@ -135,13 +151,16 @@ def main(argv=None) -> int:
         values = set()
         for gather in args.gathers.split(","):
             row = split_spread(g, seeds, key, gather=gather, reps=args.reps,
-                               num_sims=a.eval_sims)
+                               model=args.model, num_sims=a.eval_sims)
             values.add(row["spread"])
-            print(json.dumps(dict(command=label, n=a.n, edges=g.num_edges,
+            print(json.dumps(dict(label=args.label, src=args.src,
+                                  command=label, model=args.model, n=a.n,
+                                  edges=g.num_edges,
                                   driver_spread=out["spread"],
                                   driver_spread_s=out["spread_s"], **row)),
                   flush=True)
-        if values != {out["spread"]}:
+        if len(values) != 1 or (args.model == a.model
+                                and values != {out["spread"]}):
             raise AssertionError(f"{label}: spreads {values} against the "
                                  f"driver's {out['spread']}")
         del g, out
