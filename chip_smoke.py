@@ -160,6 +160,16 @@ def at_scale(argv, **flags):
 # each at k = 100.
 DENSE_FULL = at_scale(FULL, n=32768, avg_deg=76.3)
 DENSE_ROUND = at_scale(ROUND, n=32768, avg_deg=76.3, theta=32768)
+# Their results as recorded on the card before the dense sweeps stopped
+# at exhausted gains and handed over (PERF.md §5): every later solve
+# must give them bit for bit (seeds by the sha256 of their JSON list).
+DENSE_RECORDED = {
+    "imm supercritical": dict(coverage_fraction=0.979522705078125,
+                              spread=31978.5625,
+                              seeds_sha256="0d14bf751ffa3a95"),
+    "round supercritical": dict(coverage_fraction=0.97833251953125,
+                                spread=31978.984375,
+                                seeds_sha256="2c0963a132c27e05")}
 # The kernels of each full-size path and the run that must launch them.
 # Every full-size run samples IC on the resident layout: the fused
 # rrr_expand_ic, and no coin plane (coin_pack) at all; its machine-axis
@@ -179,10 +189,6 @@ DENSE_RUN = {"greedy_pick": "imm supercritical",
 # at the supercritical shape (phase `order`).
 RECEIVER_RUN = {"bucket_insert": "imm supercritical",
                 "bucket_insert_stream": "round supercritical"}
-# Rows 3 and 6 of the kernel table before the compact layout, the dense
-# kernels' last timing at the full-size shapes (NVIDIA H100 80GB HBM3,
-# 700.00 W; PERF.md, the kernel table).
-PR16_MS = {"greedy_pick": 34.708736419677734, "lazy_greedy": 22.682687759399414}
 SERVE_RUN = {"greedy_pick_batch": "serve resident",
              "lazy_greedy_batch": "serve lazy",
              "topk_gain_batch": "serve fused"}
@@ -433,9 +439,11 @@ def parity_small(dev) -> dict:
             rows_g &= rand_words(gen, m, n_g, w_g, dev=dev)
         rows_g[:, 7 % n_g] = rows_g[:, 2 % n_g]           # ties
         exc = torch.tensor(ex, dtype=torch.int32, device=dev)
-        err = max(err, require_equal(
-            "greedy_pick", greedy_pick.greedy_dense(rows_g, k, exc),
-            greedy_pick.greedy_plain(rows_g, k, exc), m=m, n=n_g, W=w_g, k=k))
+        want = greedy_pick.greedy_plain(rows_g, k, exc)
+        for cap in (0, None):       # the full sweep, then with its handover
+            err = max(err, require_equal(
+                "greedy_pick", greedy_pick.greedy_dense(rows_g, k, exc, cap),
+                want, m=m, n=n_g, W=w_g, k=k, cap=cap))
     errs["greedy_pick"] = err
 
     b, c, w_b, k = 63, 301, 7, 4
@@ -486,7 +494,11 @@ def parity_layouts(gen, dev) -> dict:
     alone; dense rows about 25% bits set; sparser rows (3% of the words)
     whose list passes the compact layout's capacity at m = 1, so that the
     wrapper's one compaction counts past its allocation and the dense
-    sweep runs."""
+    sweep runs.  On the dense layout the wrapper's launches are the dense
+    kernel and, where ``stats`` reports a handover, one more compaction
+    and the compact picks; each dense kernel is also held to the plain
+    solve as a full sweep (cap 0) and with its handover forced after
+    pick 2 (cap the residual it counted there)."""
     errs = dict.fromkeys(("compact_rows", "greedy_pick", "greedy_pick_compact",
                           "lazy_greedy", "lazy_greedy_compact"), 0)
     for m, n, w, k, share, case in ((3, 1001, 5, 60, 0.01, "sparse"),
@@ -529,18 +541,31 @@ def parity_layouts(gen, dev) -> dict:
             got = wrapper(rows, k, ex, stats=stats)
             ran = {k_: v for k_, v in ops.LAUNCHES.items() if v}
             kernel = name if layout == "dense" else name + "_compact"
-            if stats["layout"] != layout or ran != {
-                    "compact_rows": 1, kernel: 1}:
+            handed = int(stats.get("handover_pick") is not None)
+            want_ran = {"compact_rows": 1 + handed, kernel: 1}
+            if handed:
+                want_ran[name + "_compact"] = 1
+            if stats["layout"] != layout or ran != want_ran or (
+                    ops.HANDOVERS[name] != handed):
                 raise AssertionError(f"{name} {case}: layout "
-                                     f"{stats['layout']}, launches {ran}")
+                                     f"{stats['layout']}, launches {ran}, "
+                                     f"handovers {ops.HANDOVERS}")
             err = require_equal(kernel, got[:4], ref, via="wrapper", **shape)
+            full = {}
+            got_f = dense(rows, k, ex, cap=0, stats=full)
+            cap = full["residual"][min(2, len(full["residual"]) - 1)]
+            got_h = dense(rows, k, ex, cap=cap)
             got_d = dense(rows, k, ex)
             got_c = compact(rows, k, ex, lists)
             if name == "lazy_greedy":
-                for g in (got, got_d, got_c):
+                for g in (got, got_f, got_h, got_d, got_c):
                     check_swept(name, g[4], n, k)
             errs[name] = max(errs[name], err * (layout == "dense"),
-                             require_equal(name, got_d[:4], ref, **shape))
+                             require_equal(name, got_d[:4], ref, **shape),
+                             require_equal(name, got_f[:4], ref, cap=0,
+                                           **shape),
+                             require_equal(name, got_h[:4], ref, cap=cap,
+                                           **shape))
             errs[name + "_compact"] = max(
                 errs[name + "_compact"], err * (layout == "compact"),
                 require_equal(name + "_compact", got_c[:4], ref, **shape),
@@ -1005,12 +1030,14 @@ def parity_slice2(gen, dev) -> dict:
                 gen, m, n_g, w_g, dev=dev), rows_g & 0x00010001)
         rows_g[:, 40 % n_g] = rows_g[:, 7 % n_g]    # a tie across tiles
         exc = torch.tensor(ex, dtype=torch.int32, device=dev)
-        *got, swept = lazy_greedy.lazy_dense(rows_g, k, exc)
-        check_swept("lazy_greedy", swept, n_g, k)
-        errs["lazy_greedy"] = max(errs["lazy_greedy"], require_equal(
-            "lazy_greedy", got, lazy_greedy.lazy_plain(rows_g, k, exc)[:4],
-            m=m, n=n_g, W=w_g, k=k, tiles_swept=swept.tolist(),
-            num_tiles=lazy_greedy.num_row_tiles(n_g)))
+        want = lazy_greedy.lazy_plain(rows_g, k, exc)[:4]
+        for cap in (0, None):       # the full sweep, then with its handover
+            *got, swept = lazy_greedy.lazy_dense(rows_g, k, exc, cap)
+            check_swept("lazy_greedy", swept, n_g, k)
+            errs["lazy_greedy"] = max(errs["lazy_greedy"], require_equal(
+                "lazy_greedy", got, want, m=m, n=n_g, W=w_g, k=k, cap=cap,
+                tiles_swept=swept.tolist(),
+                num_tiles=lazy_greedy.num_row_tiles(n_g)))
     b, k = 63, 4
     # the last two chunks exceed what one buffer stages at W = 4096
     for r, c, w_b in ((1, 301, 7), (3, 100, 8), (57, 14, 36), (5, 8, 4096),
@@ -1688,25 +1715,41 @@ def lt_run():
     return launches, seeds
 
 
-def check_layout(run: str, launches: dict, layout: str = "compact"):
+def check_layout(run: str, launches: dict, layout: str = "compact",
+                 handovers: dict | None = None):
     """A full-size run solved its machine axis, if it has one, on
-    ``layout`` alone: never the other layout's picks, and for the dense
-    layout its picks after the compaction that counted the words."""
+    ``layout``: the compact cells never launch a dense sweep; the dense
+    (supercritical) ones launch each dense sweep after the compaction that
+    counted the words, and the compact picks only after the handovers the
+    wrappers reported (``handovers``, ``ops.HANDOVERS`` after the run):
+    one more compaction (the residual's) and one compact launch each."""
+    handovers = handovers or {}
     dense = {k: launches[k] for k in DENSE_RUN if launches[k]}
     compact = {k: launches[k + "_compact"] for k in DENSE_RUN
                if launches[k + "_compact"]}
-    took, other = (compact, dense) if layout == "compact" else (dense, compact)
-    if other or (layout == "dense" and not (took and launches["compact_rows"])):
+    if layout == "compact":
+        ok = not dense and not any(handovers.values())
+    else:
+        ok = bool(dense) and all(
+            launches[k + "_compact"] == handovers.get(k, 0)
+            for k in DENSE_RUN) and launches["compact_rows"] == (
+                sum(dense.values()) + sum(handovers.values()))
+    if not ok:
         raise AssertionError(f"{run}: the machine-axis solve took the dense "
-                             f"layout {dense} and the compact one {compact}")
+                             f"layout {dense} and the compact one {compact}, "
+                             f"{launches['compact_rows']} compactions, "
+                             f"handovers {handovers}")
 
 
 def supercritical_runs():
     """IMM and the lazy round on the supercritical configuration through
     ``im_driver.run``: both must solve their machine axis on the dense
-    layout.
-    Each run's launch counts are set to 0 just before it and read just
-    after.  Cascades reach most of the graph, so the cover fills within
+    layout (and may hand over to the compact picks, as the wrappers
+    report) and give the results in ``DENSE_RECORDED``.
+    Each run's launch counts and handovers are set to 0 just before it
+    and read just after; where its solves handed over, the pick, the
+    residual and each machine's exhausted pick are
+    :func:`time_dense_solve`'s, on the rows this configuration gives.  Cascades reach most of the graph, so the cover fills within
     k picks and the later picks gain 0 (seed -1).  Returns the launches
     and the IMM run's seeds."""
     launches = {}
@@ -1717,6 +1760,7 @@ def supercritical_runs():
             out = im_driver.run(argv)
             torch.cuda.synchronize()
         launches[run] = counts = dict(ops.LAUNCHES)
+        handovers = dict(ops.HANDOVERS)
         seeds = out["seeds"]
         real = seeds[seeds >= 0]
         rnd = out.get("round")
@@ -1730,15 +1774,21 @@ def supercritical_runs():
                                                  select=out["select_s"])),
                  spread=out["spread_s"]),
              peak_bytes=out["peak_bytes"], live_planes=planes.count,
-             launches=counts)
+             launches=counts, handovers=handovers,
+             seeds_sha256=seeds_sha256(seeds))
         if not (0 < len(real) <= 100 and len(set(real.tolist())) == len(real)
                 and real.max() < out["n"] and np.isfinite(out["spread"])
                 and out["spread"] >= len(real)):
             raise AssertionError(f"{run}: bad seeds {seeds} or spread "
                                  f"{out['spread']}")
+        got = dict(coverage_fraction=out.get("coverage_fraction"),
+                   spread=out["spread"], seeds_sha256=seeds_sha256(seeds))
+        if got != DENSE_RECORDED[run]:
+            raise AssertionError(f"{run}: {got} != the recorded "
+                                 f"{DENSE_RECORDED[run]}")
         check_ic_sampling(run, counts)
         check_ic_spread(run, counts, planes.count)
-        check_layout(run, counts, "dense")
+        check_layout(run, counts, "dense", handovers)
         missing = [k for k, r in RECEIVER_RUN.items()
                    if r == run and not counts[k]]
         if missing:
@@ -1959,10 +2009,11 @@ def time_machine_solve(name, rows, k, ex) -> dict:
     """Row 3 (``greedy_pick``, the resident solve) or row 6
     (``lazy_greedy``) of the kernel table at one machine-axis shape: the
     solve as the wrapper runs it (the list, one 8-byte read of its
-    count, the picks of the layout it chose) beside the time before the
-    compact layout (``PR16_MS``), and each of its kernels against its
+    count, the picks of the layout it chose), and each of its kernels
+    against its
     plain version — the compaction (the lists as sets per row), the
-    compact picks on that list and the dense sweep forced.  Bounds: the
+    compact picks on that list and the dense sweep forced to the end (cap
+    0: no handover).  Bounds: the
     solve's, restated (the rows read once and the outputs written once;
     an and-not for each list entry and a popcount and an add for each
     non-zero gain word that an exact lazy schedule needs), with the
@@ -2003,7 +2054,7 @@ def time_machine_solve(name, rows, k, ex) -> dict:
     want_c, picks_plain_ms = once(lambda: compact_plain(rows, k, ex, lists))
     errs["picks"] = max(max_err(got_c[:4], want), max_err(got_c[:4],
                                                           want_c[:4]))
-    got_d = dense(rows, k, ex)
+    got_d = dense(rows, k, ex, cap=0)
     errs["dense"] = max_err(got_d[:4], want)
     swept = {}
     if lazy:
@@ -2020,7 +2071,7 @@ def time_machine_solve(name, rows, k, ex) -> dict:
     picks_ms = median_ms(lambda: compact(rows, k, ex, lists), 10,
                          hide_host=True)
     solve_ms = median_ms(lambda: wrapper(rows, k, ex), 10)
-    dense_ms = median_ms(lambda: dense(rows, k, ex), 5)
+    dense_ms = median_ms(lambda: dense(rows, k, ex, cap=0), 5)
 
     listed_rows = int(lists.listed.sum())
     tiles = lazy_greedy.num_row_tiles(n)
@@ -2040,13 +2091,11 @@ def time_machine_solve(name, rows, k, ex) -> dict:
                                  nonzero=need["nonzero_words_needed"])
     shape = dict(rows_shape=[m, n, w], k=k, nonzero_words=lists.nonzero_words,
                  listed_rows=listed_rows)
-    solve = dict(solve_ms=solve_ms, pr16_ms=PR16_MS[name],
-                 layout=stats["layout"], compact_ms=compact_ms,
+    solve = dict(solve_ms=solve_ms, layout=stats["layout"], compact_ms=compact_ms,
                  picks_ms=picks_ms, dense_ms=dense_ms,
                  solve_bound_ms=solve_bound, solve_bound_by=solve_by,
                  solve_int_ops=solve_ops, old_bound_ms=old_bound,
                  old_bound_by=old_by, share=solve_bound / solve_ms,
-                 pr16_share=solve_bound / PR16_MS[name],
                  tiles_needed=need["tiles_needed"].tolist(), num_tiles=tiles,
                  entries_needed=need["entries_needed"],
                  nonzero_words_needed=need["nonzero_words_needed"])
@@ -2068,26 +2117,51 @@ def time_machine_solve(name, rows, k, ex) -> dict:
                                picks_bound, picks_by, errs["picks"],
                                per_pick_us=picks_ms / k * 1e3, **solve),
         name: row(name, dense_ms, dense_plain_ms, solve_bound, solve_by,
-                  errs["dense"], old_bound_ms=old_bound, pr16_ms=PR16_MS[name],
+                  errs["dense"], old_bound_ms=old_bound,
                   sweep_bytes=4 * k * rows.numel() if not lazy else None,
-                  via="forced: the dense sweep on the same rows")}
+                  via="forced: the dense sweep on the same rows, cap 0")}
 
 
-def time_dense_solve(name, rows, k, ex) -> dict:
+def residual_by_pick(rows, ex, out, picks: int = 6) -> list:
+    """Each machine's residual words (``greedy_pick.residual_words``)
+    before each of the first ``picks`` picks of the solve ``out``: [pick]
+    [machine]."""
+    m, n, _ = rows.shape
+    taken = greedy_pick.start(rows, 1, ex).taken
+    cov = torch.zeros_like(out[2])
+    counts = []
+    for p in range(min(picks, out[0].shape[1])):
+        counts.append(greedy_pick.residual_words(rows, cov, taken).tolist())
+        cov |= out[1][:, p]
+        seed = out[0][:, p].long()
+        taken[torch.arange(m, device=rows.device), seed.clamp(min=0)] |= (
+            seed >= 0)
+    return counts
+
+
+def time_dense_solve(name, rows, k, ex, run: str) -> tuple:
     """Row 3 (``greedy_pick``) or row 6 (``lazy_greedy``) of the kernel
-    table on the rows a supercritical run gives it, which must take the
-    dense layout: the dense sweep alone (the row's time), the solve as
-    the wrapper runs it (the count, its 8-byte read, the dense sweep) and
-    the compact layout forced (one compaction at the list's size, its
-    count read, the picks), each held against the plain solve.  Bound:
-    :func:`time_machine_solve`'s restated one."""
+    table on the rows the supercritical ``run`` gives it, which must take
+    the dense layout: the dense solve as it runs (the row's time: the
+    dense kernel until its handover, the 8-byte tally read, the
+    residual's compaction and count read, the compact picks), the dense
+    launch alone with its tally read (``dense_ms``), the dense sweep
+    forced to the end (cap 0: no handover, it still stops where the gains
+    run out), the wrapper's whole solve (the count that chose the layout
+    first, ``solve_ms``) and the compact layout forced from pick 0, each
+    held against the plain solve.  Records the handover, the residual
+    counted at each swept pick (the forced sweep's), each machine's
+    residual before picks 0-5 and its pick at which the gains ran out.
+    Bound: :func:`time_machine_solve`'s restated one.  Returns the row
+    and the handover's parts (:func:`time_handover`) as ``shapes``
+    entries of ``compact_rows`` and NAME_compact."""
     lazy = name == "lazy_greedy"
     m, n, w = rows.shape
-    wrapper, dense, compact = (
+    wrapper, dense, compact, picks = (
         (lazy_greedy.greedy_maxcover_lazy, lazy_greedy.lazy_dense,
-         lazy_greedy.lazy_compact) if lazy
+         lazy_greedy.lazy_compact, lazy_greedy.lazy_dense_picks) if lazy
         else (greedy_pick.greedy_maxcover_resident, greedy_pick.greedy_dense,
-              greedy_pick.greedy_compact))
+              greedy_pick.greedy_compact, greedy_pick.dense_picks))
     need = {}
     want, plain_ms = once(lambda: lazy_greedy.lazy_plain(
         rows, k, ex, stats=need)[:4])
@@ -2102,32 +2176,49 @@ def time_dense_solve(name, rows, k, ex) -> dict:
         raise AssertionError(f"{name}: the supercritical rows took the "
                              f"{stats['layout']} layout")
     count = stats["nonzero_words"]
-    got_d = dense(rows, k, ex)
+    swept_stats, full_stats = {}, {}
+    got_d = dense(rows, k, ex, stats=swept_stats)
+    got_f = dense(rows, k, ex, cap=0, stats=full_stats)
     got_c = compact(rows, k, ex, full_list(rows, count))
     errs.update(solve=max_err(got[:4], want), dense=max_err(got_d[:4], want),
+                full_sweep=max_err(got_f[:4], want),
                 compact=max_err(got_c[:4], want))
     swept = {}
     if lazy:
         for label, g in (("wrapper", got), ("dense", got_d),
-                         ("compact", got_c)):
+                         ("full sweep", got_f), ("compact", got_c)):
             check_swept(name, g[4], n, k)
             swept[label] = g[4].tolist()
     real = int((got[0] >= 0).sum())
-    del got, got_d, got_c
+    exhausted = (got[3] > 0).sum(1).tolist()
+    by_pick = residual_by_pick(rows, ex, got)
+    del got, got_d, got_f, got_c
     if any(errs.values()):
         raise AssertionError(f"{name}: kernel != plain at the supercritical "
                              f"shape {errs}")
+    if swept_stats["handover_pick"] is None:
+        raise AssertionError(f"{name}: the supercritical solve never handed "
+                             f"over {swept_stats}")
+    cap = greedy_pick.list_room(m, n, w)
     out_bytes = 4 * (m * k * w + m * w + 2 * m * k + (m if lazy else 0))
     bound_ms, bound_by, int_ops = bound(
         4 * rows.numel() + out_bytes, words=need["entries_needed"],
         nonzero=need["nonzero_words_needed"])
+    ms = median_ms(lambda: dense(rows, k, ex), 5)
+    full_ms = median_ms(lambda: dense(rows, k, ex, cap=0), 5)
     r = dict(name=name, route="cuda", source=SOURCES[name][0],
              replaces=SOURCES[name][1], max_abs_err=max(errs.values()),
-             ms=median_ms(lambda: dense(rows, k, ex), 5), plain_ms=plain_ms,
-             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-             rows_shape=[m, n, w], k=k, seeds_per_machine=real / m,
-             layout=stats["layout"], nonzero_words=count,
-             listed_rows=stats["listed_rows"], int_ops=int_ops,
+             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+             library_ms=None, rows_shape=[m, n, w], k=k,
+             seeds_per_machine=real / m, layout=stats["layout"],
+             nonzero_words=count, listed_rows=stats["listed_rows"],
+             int_ops=int_ops, full_sweep_ms=full_ms,
+             dense_ms=median_ms(lambda: picks(rows, k, ex, cap), 5),
+             handover_pick=swept_stats["handover_pick"],
+             handover_residual=swept_stats["residual"][-1],
+             handover_cap=cap, residual=full_stats["residual"],
+             spent_pick=full_stats["spent_pick"],
+             exhausted_pick=exhausted, residual_by_pick=by_pick,
              solve_ms=median_ms(lambda: wrapper(rows, k, ex), 5),
              compact_forced_ms=median_ms(lambda: compact(
                  rows, k, ex, full_list(rows, count)), 3),
@@ -2135,8 +2226,91 @@ def time_dense_solve(name, rows, k, ex) -> dict:
              nonzero_words_needed=need["nonzero_words_needed"],
              **({"tiles_swept": swept} if lazy else {}))
     r["share"] = bound_ms / r["ms"]
-    emit(phase="timing", input="supercritical", **r)
-    return r
+    r["full_sweep_share"] = bound_ms / full_ms
+    emit(phase="timing", input="supercritical", run=run, **r)
+    return r, time_handover(name, rows, k, ex, cap, run)
+
+
+def time_handover(name, rows, k, ex, cap: int, run: str) -> dict:
+    """The parts of a dense solve after its handover, on the state the
+    dense kernel (``name``) leaves at room ``cap``: the residual's masked
+    compaction (``compact_rows`` with the cover and the taken rows, its
+    device span) and the compact picks from the handover state (their
+    device span, the state restored before each call), each against its
+    plain version from the same state (the list as sets per row; the
+    picks' outputs).  Bounds: the compaction reads the rows, the cover
+    and the taken flags once and writes the list once; the picks read the
+    list and the state once and write the outputs once, with an and-not,
+    a popcount and an add for each entry (one sweep of the list).
+    Returns ``{"compact_rows": row, NAME_compact: row}``, each to go under
+    ``f"{run} handover"`` in its kernel's ``shapes``."""
+    lazy = name == "lazy_greedy"
+    m, n, w = rows.shape
+    tiles = lazy_greedy.num_row_tiles(n)
+    handed = (lazy_greedy.lazy_dense_picks if lazy
+              else greedy_pick.dense_picks)(rows, k, ex, cap)
+    state = handed[0] if lazy else handed
+    cov, taken = state.out[2], state.taken
+    lists = greedy_pick.residual_lists(rows, state, cap)
+    plain_lists, compact_plain_ms = once(
+        lambda: greedy_pick.compact_rows_plain(rows, cov, taken))
+    errs = {"compact_rows": max_err(
+        greedy_pick.canonical_lists(lists),
+        greedy_pick.canonical_lists(plain_lists))}
+    del plain_lists
+
+    def fresh():
+        copy = state._replace(out=tuple(o.clone() for o in state.out),
+                              taken=state.taken.clone())
+        return (copy, handed[1].clone(), handed[2].clone()) if lazy else (
+            copy,)
+    compact, compact_plain = (
+        (lazy_greedy.lazy_compact, lazy_greedy.lazy_compact_plain) if lazy
+        else (greedy_pick.greedy_compact, greedy_pick.greedy_compact_plain))
+    got = compact(rows, k, ex, lists, *fresh())
+    want, picks_plain_ms = once(lambda: compact_plain(rows, k, ex, lists,
+                                                      *fresh()))
+    errs["picks"] = max_err(got[:4], want[:4])
+    if lazy:
+        check_swept(name + "_compact", got[4], n, k)
+    del got, want
+    if any(errs.values()):
+        raise AssertionError(f"{name}: the handover's kernels != their "
+                             f"plain versions {errs}")
+    arg = {}
+    compact_ms = median_ms(lambda: greedy_pick.compact_rows_launch(
+        rows, cap, cov, taken), 10, hide_host=True)
+    picks_ms = median_ms(lambda: compact(rows, k, ex, lists, *arg["state"]),
+                         10, setup=lambda: arg.update(state=fresh()),
+                         hide_host=True)
+    listed_rows = int(lists.listed.sum())
+    entries = lists.nonzero_words
+    list_bytes = 8 * entries + 16 * listed_rows + 8 * m * tiles + 4 * m
+    state_bytes = 4 * (m * k * w + m * w + 2 * m * k) + m * n + (
+        4 * m * tiles + 4 * m if lazy else 0)
+    compact_bound, compact_by, _ = bound(
+        4 * rows.numel() + 4 * m * w + m * n + list_bytes)
+    picks_bound, picks_by, picks_ops = bound(
+        list_bytes + 2 * state_bytes, words=entries, nonzero=entries)
+    shape = dict(rows_shape=[m, n, w], k=k, handover_pick=state.p0,
+                 residual=state.residual[-1], cap=cap,
+                 nonzero_words=entries, listed_rows=listed_rows)
+
+    def row(kernel, ms, plain_ms, bound_ms, bound_by, err, **extra):
+        r = dict(name=kernel, route="cuda", source=SOURCES[kernel][0],
+                 replaces=SOURCES[kernel][1], max_abs_err=err, ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=None, **shape, **extra)
+        emit(phase="timing", input=f"{run} handover", **r)
+        return r
+    return {
+        "compact_rows": row("compact_rows", compact_ms, compact_plain_ms,
+                            compact_bound, compact_by, errs["compact_rows"],
+                            solve=name, masked=True, list_bytes=list_bytes),
+        name + "_compact": row(
+            name + "_compact", picks_ms, picks_plain_ms, picks_bound,
+            picks_by, errs["picks"], from_pick=state.p0, int_ops=picks_ops,
+            per_pick_us=picks_ms / (k - state.p0) * 1e3)}
 
 
 def time_receiver(name, ids, rows, st, label) -> dict:
@@ -2184,7 +2358,9 @@ def supercritical_timings(dev) -> dict:
     :func:`main_path_timings`) for ``greedy_pick`` and, from its local
     solves, the chunk for ``bucket_insert``; the round's shuffled rows
     for ``lazy_greedy`` and, from its lazy senders, the stream for
-    ``bucket_insert_stream``."""
+    ``bucket_insert_stream``.  Returns those rows, and under
+    ``"handover"`` the handovers' parts (:func:`time_handover`) as
+    ``{kernel: {f"{run} handover": row}}``."""
     args = im_driver.parser().parse_args(DENSE_FULL)
     n, m, k = args.n, args.machines, args.k
     g = generators.erdos_renyi(n, args.avg_deg, args.seed, device=dev)
@@ -2199,7 +2375,15 @@ def supercritical_timings(dev) -> dict:
     local_rows = incidence[assign].contiguous()
     del incidence
     ex = greedy_pick.excluded_ids(None, m, dev)
-    out = {"greedy_pick": time_dense_solve("greedy_pick", local_rows, k, ex),
+    handover = {}
+
+    def dense_row(name, rows):
+        run = DENSE_RUN[name]
+        row, parts = time_dense_solve(name, rows, k, ex, run)
+        for kernel, part in parts.items():
+            handover.setdefault(kernel, {})[f"{run} handover"] = part
+        return row
+    out = {"greedy_pick": dense_row("greedy_pick", local_rows),
            "bucket_insert": time_receiver(
                "bucket_insert", *imm_chunk(local_rows, assign, dev),
                "imm supercritical")}
@@ -2209,10 +2393,11 @@ def supercritical_timings(dev) -> dict:
         m=rargs.machines, n=n, theta=rargs.theta, k=k, max_degree=0,
         model=rargs.model, sampler="kernel", fwd=fwd)
     x_s, perm = fn.sample_shuffle(nbr, prob, wt, prng.key(rargs.seed))
-    out["lazy_greedy"] = time_dense_solve("lazy_greedy", x_s, k, ex)
+    out["lazy_greedy"] = dense_row("lazy_greedy", x_s)
     out["bucket_insert_stream"] = time_receiver(
         "bucket_insert_stream", *round_stream(x_s, perm, dev),
         "round supercritical")
+    out["handover"] = handover
     return out
 
 
@@ -3224,7 +3409,10 @@ def main(argv=None) -> int:
     rows["compact_rows"]["shapes"] = {"round": rows.pop("compact_rows round")}
     # the dense sweeps at the shapes their runs give them; the same
     # sweeps forced on the subcritical runs' rows kept beside
-    for name, row in supercritical_timings(dev).items():
+    dense_rows = supercritical_timings(dev)
+    for name, parts in dense_rows.pop("handover").items():
+        rows[name].setdefault("shapes", {}).update(parts)
+    for name, row in dense_rows.items():
         if name in RECEIVER_RUN:   # the receivers keep their full-size row
             rows[name].setdefault("shapes", {})["supercritical"] = row
             continue
@@ -3287,18 +3475,27 @@ def main(argv=None) -> int:
         # runs, sum over runs of launches x (ms - bound_ms) at the run's
         # shape where the kernel was timed at several.
         # A supercritical run counts for the kernels timed at its shape:
-        # its dense sweep and its receiver.
+        # its dense launch (to its handover, ``dense_ms``), the handover's
+        # compaction and compact picks (one each a handover; the
+        # compaction that chose the layout is not charged), and its
+        # receiver.
         per_run = {run: full[run][name] for run in FULL_RUNS
                    if full[run][name]}
         if name in DENSE_RUN:
             per_run[DENSE_RUN[name]] = full[DENSE_RUN[name]][name]
         if name in RECEIVER_RUN and full[RECEIVER_RUN[name]][name]:
             per_run[RECEIVER_RUN[name]] = full[RECEIVER_RUN[name]][name]
+        for dense_name, run in DENSE_RUN.items():
+            handed = full[run][dense_name + "_compact"]
+            if handed and f"{run} handover" in row.get("shapes", {}):
+                per_run[f"{run} handover"] = handed
         lost = 0.0
         for run, count in per_run.items():
-            at = (row if run == DENSE_RUN.get(name) else
+            at = (dict(ms=row["dense_ms"], bound_ms=row["bound_ms"])
+                  if run == DENSE_RUN.get(name) else
                   row["shapes"]["supercritical"]
                   if run == RECEIVER_RUN.get(name) else
+                  row["shapes"][run] if run.endswith(" handover") else
                   row.get("shapes", {}).get(FULL_RUNS[run], row))
             lost += count * (at["ms"] - at["bound_ms"])
         order.append(dict(name=name, lost_ms=lost, launches=per_run,

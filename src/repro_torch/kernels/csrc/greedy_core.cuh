@@ -52,16 +52,93 @@ __device__ __forceinline__ int64_t key_row(unsigned long long key) {
   return (int64_t)(0xFFFFFFFFu - (uint32_t)key);
 }
 
+// The largest key any row of a tile could hold: its bound ``ub`` (a gain,
+// or INT32_MAX before the first sweep) at its first row ``r0``.  The lazy
+// machine-axis solves skip a tile whose tile_key is below the best key
+// read so far (always <= the pick's final one): none of its rows can win,
+// nor tie it at a lower index, so tied tiles after the best row skip too.
+__device__ __forceinline__ unsigned long long tile_key(int ub, int64_t r0) {
+  return ((unsigned long long)((uint32_t)ub + 1u) << 32) |
+         (unsigned long long)(0xFFFFFFFFu - (uint32_t)r0);
+}
+
+__device__ __forceinline__ long long warp_sum64(long long v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// The gain and the residual words (non-zero words of row & ~cov) of one
+// 16-byte chunk, added into ``g`` and ``z``.
+__device__ __forceinline__ void chunk_gain_residual(uint4 a, uint4 c, int& g,
+                                                   int& z) {
+  const uint32_t d[4] = {a.x & ~c.x, a.y & ~c.y, a.z & ~c.z, a.w & ~c.w};
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    g += __popc(d[x]);
+    z += d[x] != 0;
+  }
+}
+
+// warp_row_gain that also counts, into ``*nz`` (this lane's part, not
+// summed over the warp), the row's residual words: the non-zero words of
+// row & ~cov, which a compaction against this cover would list.  The
+// and-not is taken once for both.  With ``vec`` each lane keeps
+// kRowChunks 16-byte loads of the row in flight: the lazy kernel's tile
+// sweeps run on few warps, where a load at a time leaves them waiting.
+constexpr int kRowChunks = 8;
+__device__ __forceinline__ int warp_row_gain_residual(const uint32_t* row,
+                                                      const uint32_t* cov,
+                                                      int64_t W, bool vec,
+                                                      int lane, int* nz) {
+  int g = 0, z = 0;
+  if (vec) {
+    const uint4* r4 = reinterpret_cast<const uint4*>(row);
+    const uint4* c4 = reinterpret_cast<const uint4*>(cov);
+    const int64_t W4 = W >> 2;
+    int64_t base = 0;
+    for (; base + 32 * kRowChunks <= W4; base += 32 * kRowChunks) {
+      uint4 a[kRowChunks];
+#pragma unroll
+      for (int u = 0; u < kRowChunks; ++u)
+        a[u] = __ldg(r4 + base + lane + 32 * u);
+#pragma unroll
+      for (int u = 0; u < kRowChunks; ++u)
+        chunk_gain_residual(a[u], c4[base + lane + 32 * u], g, z);
+    }
+    for (int64_t i = base + lane; i < W4; i += 32)
+      chunk_gain_residual(__ldg(r4 + i), c4[i], g, z);
+  } else {
+    for (int64_t w = lane; w < W; w += 32) {
+      const uint32_t d = row[w] & ~cov[w];
+      g += __popc(d);
+      z += d != 0;
+    }
+  }
+  *nz = z;
+  return warp_sum(g);
+}
+
 // Best key of the rows first, first + stride, ... < end, one warp per
 // row (the tile sweep + argmax of sweep_tile_argmax).  ``taken`` marks
-// picked and excluded rows.
+// picked and excluded rows.  With ``resid``, the residual words of the
+// rows not taken (warp_row_gain_residual) are added into ``*resid``,
+// this lane's part: the count the dense machine-axis kernels hand over
+// on (greedy_pick.cu).
 __device__ __forceinline__ unsigned long long warp_sweep_argmax(
     const uint32_t* R, const uint8_t* taken, const uint32_t* cov, int64_t W,
-    bool vec, int64_t first, int64_t end, int64_t stride, int lane) {
+    bool vec, int64_t first, int64_t end, int64_t stride, int lane,
+    long long* resid = nullptr) {
   unsigned long long best = 0;
   for (int64_t r = first; r < end; r += stride) {
-    int g = warp_row_gain(R + r * W, cov, W, vec, lane);
-    if (taken[r]) g = -1;
+    int nz = 0;
+    int g = resid ? warp_row_gain_residual(R + r * W, cov, W, vec, lane, &nz)
+                  : warp_row_gain(R + r * W, cov, W, vec, lane);
+    if (taken[r])
+      g = -1;
+    else if (resid)
+      *resid += nz;
     const unsigned long long key = pick_key(g, r);
     best = key > best ? key : best;
   }
@@ -80,6 +157,43 @@ __device__ __forceinline__ unsigned long long block_max_key(
   if (warp == 0) b = warp_max(lane < wpb ? scratch[lane] : 0ull);
   __syncthreads();
   return b;
+}
+
+// block_max_key (``v`` the same in every lane of a warp) that also sums
+// every lane's count ``c`` into ``*sum``, valid in warp 0.  ``cscratch``
+// holds 32 counts of shared memory; every thread must call.
+__device__ __forceinline__ unsigned long long block_max_key_count(
+    unsigned long long v, long long c, unsigned long long* scratch,
+    long long* cscratch, long long* sum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wpb = blockDim.x >> 5;
+  c = warp_sum64(c);
+  if (lane == 0) {
+    scratch[warp] = v;
+    cscratch[warp] = c;
+  }
+  __syncthreads();
+  unsigned long long b = 0;
+  long long s = 0;
+  if (warp == 0) {
+    b = warp_max(lane < wpb ? scratch[lane] : 0ull);
+    s = warp_sum64(lane < wpb ? cscratch[lane] : 0ll);
+  }
+  __syncthreads();
+  *sum = s;
+  return b;
+}
+
+// After the grid-wide sync of pick p of m machine solves (machine j's
+// key slot at keys[j * k + p], zeroed by the caller, so a machine that
+// posted nothing reads gain -1): whether some machine's best gain is
+// positive.  The same answer in every block; every thread must call.
+__device__ __forceinline__ bool any_gain(const unsigned long long* keys,
+                                         int64_t m, int64_t k, int64_t p) {
+  int pos = 0;
+  for (int64_t j = threadIdx.x; j < m; j += blockDim.x)
+    pos |= key_gain(__ldcg(keys + j * k + p)) > 0;
+  return __syncthreads_or(pos) != 0;
 }
 
 // The G query keys of row r from gains ``g`` (every lane holds all G):
@@ -214,7 +328,8 @@ __device__ __forceinline__ void commit_group(
 // non-zero at the full-size runs), and a row's gain is the sum over its
 // non-zero words alone.  So the machine-axis kernels (greedy_pick.cu,
 // lazy_greedy.cu) read the dense rows once, in compact_rows_kernel
-// (greedy_pick.cu), into a list, and sweep only the list in every pick:
+// (greedy_pick.cu, 1-8 warps a 32-row tile), into a list, and sweep only
+// the list in every pick:
 //   - per machine, slots 0 .. listed - 1, one for each row that holds a
 //     non-zero word: its row id, its entry count and its first entry;
 //     the slots of one 32-row tile are contiguous (tiles[t] = first slot,
@@ -238,26 +353,44 @@ __device__ __forceinline__ unsigned lanes_below(int lane) {
 // kChunkGroup x 32 chunks of the row.
 constexpr int kChunkGroup = 8;
 
-// Non-zero words of one row, one warp per row; every lane returns the
-// count.  With ``vec`` each lane keeps kChunkGroup 16-byte loads in
-// flight, and ``groups`` gets bit g set when group g holds a non-zero word
-// (groups past the 32nd are not marked; warp_list_row reads them all).
+// 16-byte chunk i of a row, less the cover's chunk i when ``kMasked``;
+// zeros past the row's W4 chunks.
+template <bool kMasked>
+__device__ __forceinline__ uint4 masked_chunk(const uint4* r4,
+                                              const uint4* cov4, int64_t i,
+                                              int64_t W4) {
+  if (i >= W4) return make_uint4(0, 0, 0, 0);
+  uint4 a = __ldg(r4 + i);
+  if (kMasked) {
+    const uint4 c = __ldg(cov4 + i);
+    a = make_uint4(a.x & ~c.x, a.y & ~c.y, a.z & ~c.z, a.w & ~c.w);
+  }
+  return a;
+}
+
+// Non-zero words of one row (with ``kMasked``, of row & ~cov: the
+// residual of a solve part-way), one warp per row; every lane returns the
+// count.  With ``vec`` (row and cover aligned) each lane keeps
+// kChunkGroup 16-byte loads in flight, and ``groups`` gets bit g set when
+// group g holds a non-zero word (groups past the 32nd are not marked;
+// warp_list_row reads them all).
+template <bool kMasked>
 __device__ __forceinline__ int warp_row_nonzero(const uint32_t* row,
+                                                const uint32_t* cov,
                                                 int64_t W, bool vec,
                                                 int lane, unsigned* groups) {
   int c = 0;
   unsigned gm = 0;
   if (vec) {
     const uint4* r4 = reinterpret_cast<const uint4*>(row);
+    const uint4* c4 = reinterpret_cast<const uint4*>(cov);
     const int64_t W4 = W >> 2;
     int g = 0;
     for (int64_t base = 0; base < W4; base += 32 * kChunkGroup, ++g) {
       uint4 a[kChunkGroup];
 #pragma unroll
-      for (int u = 0; u < kChunkGroup; ++u) {
-        const int64_t i = base + lane + 32 * u;
-        a[u] = i < W4 ? __ldg(r4 + i) : make_uint4(0, 0, 0, 0);
-      }
+      for (int u = 0; u < kChunkGroup; ++u)
+        a[u] = masked_chunk<kMasked>(r4, c4, base + lane + 32 * u, W4);
       int cg = 0;
 #pragma unroll
       for (int u = 0; u < kChunkGroup; ++u)
@@ -266,19 +399,22 @@ __device__ __forceinline__ int warp_row_nonzero(const uint32_t* row,
       c += cg;
     }
   } else {
-    for (int64_t w = lane; w < W; w += 32) c += __ldg(row + w) != 0;
+    for (int64_t w = lane; w < W; w += 32)
+      c += (__ldg(row + w) & ~(kMasked ? __ldg(cov + w) : 0u)) != 0;
   }
   *groups = gm;
   return warp_sum(c);
 }
 
 // Write the ``c`` entries of a row at ent + start, in word order: the
-// warp reads the row again (it has just counted it: from L1 or L2) and
-// places each non-zero word by a prefix count over the lanes.  With
-// ``vec`` it reads only the groups ``groups`` marks (and any past the
-// 32nd), kChunkGroup chunks a lane at once; it stops once all ``c`` are
-// written.
-__device__ __forceinline__ void warp_list_row(const uint32_t* row, int64_t W,
+// warp reads the row (and ``cov``, as warp_row_nonzero) again (it has
+// just counted it: from L1 or L2) and places each non-zero word by a
+// prefix count over the lanes.  With ``vec`` it reads only the groups
+// ``groups`` marks (and any past the 32nd), kChunkGroup chunks a lane at
+// once; it stops once all ``c`` are written.
+template <bool kMasked>
+__device__ __forceinline__ void warp_list_row(const uint32_t* row,
+                                              const uint32_t* cov, int64_t W,
                                               bool vec, unsigned groups,
                                               int2* ent, int64_t start, int c,
                                               int lane) {
@@ -286,6 +422,7 @@ __device__ __forceinline__ void warp_list_row(const uint32_t* row, int64_t W,
   int64_t pos = start;  // warp-uniform
   if (vec) {
     const uint4* r4 = reinterpret_cast<const uint4*>(row);
+    const uint4* c4 = reinterpret_cast<const uint4*>(cov);
     const int64_t W4 = W >> 2;
     int g = 0;
     for (int64_t base = 0; base < W4 && pos < end;
@@ -293,10 +430,8 @@ __device__ __forceinline__ void warp_list_row(const uint32_t* row, int64_t W,
       if (g < 32 && !(groups >> g & 1u)) continue;
       uint4 a[kChunkGroup];
 #pragma unroll
-      for (int u = 0; u < kChunkGroup; ++u) {
-        const int64_t i = base + lane + 32 * u;
-        a[u] = i < W4 ? __ldg(r4 + i) : make_uint4(0, 0, 0, 0);
-      }
+      for (int u = 0; u < kChunkGroup; ++u)
+        a[u] = masked_chunk<kMasked>(r4, c4, base + lane + 32 * u, W4);
 #pragma unroll
       for (int u = 0; u < kChunkGroup; ++u) {
         const uint32_t v[4] = {a[u].x, a[u].y, a[u].z, a[u].w};
@@ -319,7 +454,8 @@ __device__ __forceinline__ void warp_list_row(const uint32_t* row, int64_t W,
   } else {
     for (int64_t w0 = 0; w0 < W && pos < end; w0 += 32) {
       const int64_t w = w0 + lane;
-      const uint32_t x = w < W ? __ldg(row + w) : 0u;
+      const uint32_t x =
+          w < W ? __ldg(row + w) & ~(kMasked ? __ldg(cov + w) : 0u) : 0u;
       const unsigned b = __ballot_sync(0xffffffffu, x != 0);
       if (x) ent[pos + __popc(b & lanes_below(lane))] = make_int2((int)w, (int)x);
       pos += __popc(b);
@@ -327,46 +463,75 @@ __device__ __forceinline__ void warp_list_row(const uint32_t* row, int64_t W,
   }
 }
 
-// List tile t of one machine (rows ``R``, its slot arrays and tile table):
-// one warp, the tile's rows one after another.  A row with c non-zero
-// words reserves c entries with one atomicAdd on ``total`` (which counts
-// every entry, also past ``cap``) and writes them while they fit; the
-// tile's listed rows then reserve their slots with one atomicAdd on the
-// machine's ``listed``.
+// Wait for the ``g`` warps of tile group ``group`` of this block (one
+// warp: __syncwarp; more: named barrier group + 1), ordering their
+// shared-memory accesses.
+__device__ __forceinline__ void group_sync(int group, int g) {
+  if (g == 1)
+    __syncwarp();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(group + 1), "r"(g * 32) : "memory");
+}
+
+// List tile t of one machine (rows ``R``, its slot arrays and tile table)
+// with a group of ``g`` warps of one block (``wg`` this warp's rank in
+// it): the warps take the tile's rows in turn (row i to warp i mod g), so
+// where tiles are few each warp reads a few rows, not all 32.  A row with
+// c non-zero words reserves c entries with one atomicAdd on ``total``
+// (which counts every entry, also past ``cap``) and writes them while
+// they fit; after the group's barrier its first warp reserves the slots
+// of the tile's listed rows with one atomicAdd on the machine's
+// ``listed``.  With ``kMasked``, the cover ``cov`` and taken flags
+// ``taken`` of a dense solve at its handover, it lists the residual: each
+// untaken row's non-zero words of row & ~cov.  ``s_count`` and
+// ``s_start`` hold the group's kTileRows counts and starts of shared
+// memory; every thread of the group must call.
+template <bool kMasked>
 __device__ __forceinline__ void compact_tile(
-    const uint32_t* R, int64_t n, int64_t W, bool vec, int64_t t,
-    int64_t cap, unsigned long long* total, int32_t* listed,
-    int32_t* row_ids, int32_t* counts, int64_t* starts, int2* tiles,
-    int2* ent, int lane) {
+    const uint32_t* R, const uint32_t* cov, const uint8_t* taken, int64_t n,
+    int64_t W, bool vec, int64_t t, int64_t cap, unsigned long long* total,
+    int32_t* listed, int32_t* row_ids, int32_t* counts, int64_t* starts,
+    int2* tiles, int2* ent, int g, int wg, int group, int* s_count,
+    int64_t* s_start) {
+  const int lane = threadIdx.x & 31;
   const int64_t r0 = t * kTileRows;
-  int my_count = 0;
-  int64_t my_start = 0;
-  for (int i = 0; i < kTileRows && r0 + i < n; ++i) {
-    const uint32_t* row = R + (r0 + i) * W;
-    unsigned groups = 0;
-    const int c = warp_row_nonzero(row, W, vec, lane, &groups);
-    if (c == 0) continue;
+  for (int i = wg; i < kTileRows; i += g) {
+    const int64_t r = r0 + i;
+    int c = 0;
     unsigned long long s = 0;
-    if (lane == 0) s = atomicAdd(total, (unsigned long long)c);
-    s = __shfl_sync(0xffffffffu, s, 0);
-    if (s + c <= (unsigned long long)cap)
-      warp_list_row(row, W, vec, groups, ent, (int64_t)s, c, lane);
-    if (lane == i) {
-      my_count = c;
-      my_start = (int64_t)s;
+    if (r < n && !(kMasked && taken[r])) {
+      const uint32_t* row = R + r * W;
+      unsigned groups = 0;
+      c = warp_row_nonzero<kMasked>(row, cov, W, vec, lane, &groups);
+      if (c) {
+        if (lane == 0) s = atomicAdd(total, (unsigned long long)c);
+        s = __shfl_sync(0xffffffffu, s, 0);
+        if (s + c <= (unsigned long long)cap)
+          warp_list_row<kMasked>(row, cov, W, vec, groups, ent, (int64_t)s, c,
+                                 lane);
+      }
+    }
+    if (lane == 0) {
+      s_count[i] = c;
+      s_start[i] = (int64_t)s;
     }
   }
-  const unsigned b = __ballot_sync(0xffffffffu, my_count > 0);
-  int first = 0;
-  if (lane == 0 && b) first = atomicAdd(listed, __popc(b));
-  first = __shfl_sync(0xffffffffu, first, 0);
-  if (my_count) {
-    const int slot = first + __popc(b & lanes_below(lane));
-    row_ids[slot] = (int32_t)(r0 + lane);
-    counts[slot] = my_count;
-    starts[slot] = my_start;
+  group_sync(group, g);
+  if (wg == 0) {
+    const int my_count = s_count[lane];
+    const unsigned b = __ballot_sync(0xffffffffu, my_count > 0);
+    int first = 0;
+    if (lane == 0 && b) first = atomicAdd(listed, __popc(b));
+    first = __shfl_sync(0xffffffffu, first, 0);
+    if (my_count) {
+      const int slot = first + __popc(b & lanes_below(lane));
+      row_ids[slot] = (int32_t)(r0 + lane);
+      counts[slot] = my_count;
+      starts[slot] = s_start[lane];
+    }
+    if (lane == 0) tiles[t] = make_int2(first, __popc(b));
   }
-  if (lane == 0) tiles[t] = make_int2(first, __popc(b));
+  group_sync(group, g);  // the group's next tile reuses s_count, s_start
 }
 
 // One machine's list, as the pick kernels read it.

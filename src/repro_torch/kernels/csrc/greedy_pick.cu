@@ -8,10 +8,11 @@
 //
 // compact_rows_kernel + greedy_pick_compact_kernel — the compact layout
 // (greedy_core.cuh), taken while the list is short enough for one block
-// a machine (greedy_pick.py: compact_pays, a rule measured on the H100).
-// compact_rows_kernel reads the dense rows once, one warp per
-// 32-row tile over the whole grid, and lists each machine's rows that
-// hold a non-zero word.  greedy_pick_compact_kernel gives each machine
+// a machine (greedy_pick.py: compact_pays, a rule measured on the H100),
+// and after a dense solve's handover over the list of its residual.
+// compact_rows_kernel reads the dense rows once, 1-8 warps per 32-row
+// tile over the whole grid, and lists each machine's rows that hold a
+// non-zero word.  greedy_pick_compact_kernel gives each machine
 // one block of 1024 threads (the cover in shared memory, no grid-wide
 // sync: __syncthreads is the pick's only barrier); per pick the block
 // sweeps its machine's list, a lane per listed row and kSlotsPerLane
@@ -30,8 +31,25 @@
 // memory), folds its best key into the machine's key slot with a 64-bit
 // atomicMax, and after one grid-wide sync commits the winner
 // (greedy_core.cuh).  Each pick owns its key slot, zeroed by the caller,
-// so nothing is reset between picks.  Bound: bytes — each pick re-reads
-// the machine's rows, k passes at HBM rate.
+// so nothing is reset between picks.  A sweep re-reads every row at HBM
+// rate, so the kernel sweeps only while that pays:
+//   - after each sync every block reads all m machines' keys: a machine
+//     whose best gain is <= 0 sweeps and commits no more (its later picks
+//     keep the pre-filled outputs, as the reference writes them), and the
+//     launch ends once every machine's gains have run out;
+//   - each sweep also counts, in the registers it already holds, the
+//     residual of the untaken rows (their non-zero words of row & ~cover)
+//     into one counter a pick (``tally``, zeroed by the caller) — after
+//     the cover of the first pick a supercritical solve's residual is a
+//     few thousand words of 33.5M;
+//   - after the first pick whose residual is at most ``cap`` (the compact
+//     layout's room, greedy_pick.py: list_room) the launch ends; the
+//     wrapper lists the residual (compact_rows_kernel with the cover and
+//     the taken flags) and greedy_pick_compact_kernel goes on from the
+//     next pick.  The decisions are read after a grid sync, so every
+//     block takes them alike and none waits at a sync the others skip.
+// Bound: bytes — the rows read once; the sweeps before the handover read
+// them once each.
 //
 // greedy_pick_batch_kernel — B queries over one shared [n, W] pool (the
 // serving batch; the pool is never copied).  Blocks own rows, not
@@ -59,15 +77,16 @@ namespace cg = cooperative_groups;
 
 __global__ void greedy_pick_kernel(const uint32_t* __restrict__ rows,
                                    const int32_t* __restrict__ excluded,
-                                   int64_t E, int64_t n, int64_t W, int64_t k,
-                                   int bpm, bool vec,
+                                   int64_t E, int64_t m, int64_t n, int64_t W,
+                                   int64_t k, int64_t cap, int bpm, bool vec,
                                    unsigned long long* keys, uint8_t* taken,
-                                   int32_t* seeds,
+                                   unsigned long long* tally, int32_t* seeds,
                                    uint32_t* rows_out, uint32_t* covered,
                                    int32_t* gains) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) uint32_t cov[];
   __shared__ unsigned long long scratch[32];
+  __shared__ long long cscratch[32];
   const int mach = blockIdx.x / bpm;
   const int lb = blockIdx.x % bpm;  // block rank within the machine
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -81,38 +100,75 @@ __global__ void greedy_pick_kernel(const uint32_t* __restrict__ rows,
     mark_excluded(excluded + (int64_t)mach * E, E, n, 1, bpm, lb, T);
   __syncthreads();
 
-  for (int64_t p = 0; p < k; ++p) {
-    const unsigned long long best = block_max_key(
-        warp_sweep_argmax(R, T, cov, W, vec, lb + (int64_t)warp * bpm, n,
-                          (int64_t)wpb * bpm, lane),
-        scratch);
-    if (threadIdx.x == 0 && best) atomicMax(K + p, best);
+  bool spent = false;      // this machine's gains ran out: it sweeps no more
+  bool all_spent = false;  // every machine's did: the launch ends
+  int64_t p = 0;
+  for (; p < k; ++p) {
+    if (!spent) {
+      long long mine = 0, resid = 0;
+      const unsigned long long best = block_max_key_count(
+          warp_sweep_argmax(R, T, cov, W, vec, lb + (int64_t)warp * bpm, n,
+                            (int64_t)wpb * bpm, lane, &mine),
+          mine, scratch, cscratch, &resid);
+      if (threadIdx.x == 0) {
+        if (best) atomicMax(K + p, best);
+        if (resid) atomicAdd(tally + p, (unsigned long long)resid);
+      }
+    }
     grid.sync();
-    const int64_t out = (int64_t)mach * k + p;
-    commit_pick(__ldcg(K + p), R, W, 1, bpm, lb, cov, T, seeds + out,
-                gains + out, rows_out + out * W);
+    // Read after the sync, the same in every block: whether any machine
+    // goes on, and the residual of all of them before this pick's commit.
+    if (!any_gain(keys, m, k, p)) {
+      all_spent = true;
+      break;
+    }
+    const unsigned long long win = __ldcg(K + p);
+    spent = key_gain(win) <= 0;  // picks p .. k - 1 keep their pre-fill
+    if (!spent) {
+      const int64_t out = (int64_t)mach * k + p;
+      commit_pick(win, R, W, 1, bpm, lb, cov, T, seeds + out, gains + out,
+                  rows_out + out * W);
+    }
+    if (cap > 0 && __ldcg(tally + p) <= (unsigned long long)cap) {
+      ++p;  // hand over: the compact picks go on from pick p + 1
+      break;
+    }
   }
   if (lb == 0)
     for (int64_t w = threadIdx.x; w < W; w += blockDim.x)
       covered[(int64_t)mach * W + w] = cov[w];
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    tally[k] = (unsigned long long)p;
+    tally[k + 1] = all_spent;
+  }
 }
 
-// The compact layout's list of m machines' rows [m, n, W]: one warp per
-// 32-row tile, tiles of all machines dealt over the grid
-// (greedy_core.cuh: compact_tile).
-__global__ void __launch_bounds__(256) compact_rows_kernel(
-    const uint32_t* __restrict__ rows, int64_t m, int64_t n, int64_t W,
-    int64_t num_tiles, bool vec, int64_t cap, unsigned long long* total,
-    int32_t* listed, int32_t* row_ids, int32_t* counts, int64_t* starts,
-    int2* tiles, int2* ent) {
-  const int lane = threadIdx.x & 31;
-  const int64_t gw = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int64_t nw = ((int64_t)gridDim.x * blockDim.x) >> 5;
-  for (int64_t i = gw; i < m * num_tiles; i += nw) {
+// The compact layout's list of m machines' rows [m, n, W]: a group of g
+// warps per 32-row tile (g = 1, 2, 4 or 8, chosen at launch), tiles of
+// all machines dealt over the grid (greedy_core.cuh: compact_tile).
+constexpr int kCompactRowsThreads = 256;
+constexpr int kCompactRowsWarps = kCompactRowsThreads / 32;
+
+template <bool kMasked>
+__global__ void __launch_bounds__(kCompactRowsThreads) compact_rows_kernel(
+    const uint32_t* __restrict__ rows, const uint32_t* __restrict__ cover,
+    const uint8_t* __restrict__ taken, int64_t m, int64_t n, int64_t W,
+    int64_t num_tiles, bool vec, int64_t cap, int g,
+    unsigned long long* total, int32_t* listed, int32_t* row_ids,
+    int32_t* counts, int64_t* starts, int2* tiles, int2* ent) {
+  __shared__ int s_count[kCompactRowsWarps][kTileRows];
+  __shared__ int64_t s_start[kCompactRowsWarps][kTileRows];
+  const int warp = threadIdx.x >> 5;
+  const int group = warp / g, groups = kCompactRowsWarps / g;
+  for (int64_t i = (int64_t)blockIdx.x * groups + group; i < m * num_tiles;
+       i += (int64_t)gridDim.x * groups) {
     const int64_t mach = i / num_tiles;
-    compact_tile(rows + mach * n * W, n, W, vec, i % num_tiles, cap, total,
-                 listed + mach, row_ids + mach * n, counts + mach * n,
-                 starts + mach * n, tiles + mach * num_tiles, ent, lane);
+    compact_tile<kMasked>(
+        rows + mach * n * W, kMasked ? cover + mach * W : nullptr,
+        kMasked ? taken + mach * n : nullptr, n, W, vec, i % num_tiles, cap,
+        total, listed + mach, row_ids + mach * n, counts + mach * n,
+        starts + mach * n, tiles + mach * num_tiles, ent, g, warp % g, group,
+        s_count[group], s_start[group]);
   }
 }
 
@@ -121,11 +177,15 @@ constexpr int kCompactThreads = 1024;
 // loads in flight together.
 constexpr int kSlotsPerLane = 4;
 
-// All k picks of m machines over their lists, one block per machine.
+// Picks p0 .. k - 1 of m machines over their lists, one block per
+// machine, from the cover in ``covered`` and the taken flags (zero for a
+// fresh solve; a dense launch's at its handover); a machine stops at the
+// first pick whose best gain is <= 0, the later picks keeping their
+// pre-filled outputs.
 __global__ void __launch_bounds__(kCompactThreads, 1)
 greedy_pick_compact_kernel(const uint32_t* __restrict__ rows,
                            const int32_t* __restrict__ excluded, int64_t E,
-                           int64_t n, int64_t W, int64_t k,
+                           int64_t n, int64_t W, int64_t k, int64_t p0,
                            const int32_t* __restrict__ listed,
                            const int32_t* __restrict__ row_ids,
                            const int32_t* __restrict__ counts,
@@ -145,12 +205,13 @@ greedy_pick_compact_kernel(const uint32_t* __restrict__ rows,
                   ent};
   const int64_t slots = listed[mach];
 
-  for (int64_t w = threadIdx.x; w < W; w += blockDim.x) cov[w] = 0;
+  for (int64_t w = threadIdx.x; w < W; w += blockDim.x)
+    cov[w] = covered[mach * W + w];
   if (threadIdx.x == 0)
     mark_excluded(excluded + mach * E, E, n, 1, 1, 0, T);
   __syncthreads();
 
-  for (int64_t p = 0; p < k; ++p) {
+  for (int64_t p = p0; p < k; ++p) {
     unsigned long long best = 0;
     for (int64_t j0 = (int64_t)warp * 32; j0 < slots;
          j0 += (int64_t)wpb * 32 * kSlotsPerLane) {
@@ -161,6 +222,7 @@ greedy_pick_compact_kernel(const uint32_t* __restrict__ rows,
     best = block_max_key(warp_max(best), scratch);
     if (threadIdx.x == 0) s_win = best;
     __syncthreads();
+    if (key_gain(s_win) <= 0) break;  // the gains ran out
     const int64_t out = mach * k + p;
     commit_pick(s_win, R, W, 1, 1, 0, cov, T, seeds + out, gains + out,
                 rows_out + out * W);
@@ -223,10 +285,15 @@ greedy_pick_batch_kernel(const uint32_t* __restrict__ rows,
   }
 }
 
+// The dense picks of m machines from pick 0: ``tally`` (uint64 [k + 2],
+// zeroed) gets each swept pick's residual count, then the picks made and
+// whether every machine's gains ran out; ``cap`` > 0 hands over after the
+// first pick whose residual is at most ``cap``.
 extern "C" int greedy_pick(const void* rows, const void* excluded, void* keys,
-                           void* taken, void* seeds, void* rows_out,
-                           void* covered, void* gains, int64_t m, int64_t n,
-                           int64_t W, int64_t k, int64_t E, void* stream) {
+                           void* taken, void* tally, void* seeds,
+                           void* rows_out, void* covered, void* gains,
+                           int64_t m, int64_t n, int64_t W, int64_t k,
+                           int64_t E, int64_t cap, void* stream) {
   const int threads = 256;
   const size_t smem = (size_t)W * sizeof(uint32_t);
   int dev = 0, sms = 0, optin = 0, per_sm = 0;
@@ -246,11 +313,11 @@ extern "C" int greedy_pick(const void* rows, const void* excluded, void* keys,
   int bpm = (int)(resident / m);
   const int64_t useful = (n + (threads / 32) - 1) / (threads / 32);
   if (bpm > useful) bpm = (int)(useful > 0 ? useful : 1);
-  int64_t E_ = E, n_ = n, W_ = W, k_ = k;
+  int64_t E_ = E, m_ = m, n_ = n, W_ = W, k_ = k, cap_ = cap;
   bool vec = vec_rows(rows, W);
-  void* args[] = {(void*)&rows, (void*)&excluded, &E_, &n_, &W_, &k_,
-                  &bpm, &vec, &keys, &taken, &seeds, &rows_out, &covered,
-                  &gains};
+  void* args[] = {(void*)&rows, (void*)&excluded, &E_, &m_, &n_, &W_, &k_,
+                  &cap_, &bpm, &vec, &keys, &taken, &tally, &seeds,
+                  &rows_out, &covered, &gains};
   err = cudaLaunchCooperativeKernel((void*)greedy_pick_kernel,
                                     dim3((unsigned)(m * bpm)), dim3(threads),
                                     args, smem, (cudaStream_t)stream);
@@ -261,42 +328,56 @@ extern "C" int greedy_pick(const void* rows, const void* excluded, void* keys,
 // Build the compact list of rows [m, n, W] (greedy_core.cuh): ``total``
 // (one uint64, zeroed) counts every non-zero word, ``listed`` (int32 [m],
 // zeroed) the listed rows of each machine; entries past ``cap`` are
-// counted but not written.
-extern "C" int compact_rows(const void* rows, void* total, void* listed,
+// counted but not written.  ``cover`` (uint32 [m, W]) and ``taken``
+// (uint8 [m, n]), both null or both given, list the residual of a dense
+// solve instead: untaken rows, words & ~cover.
+extern "C" int compact_rows(const void* rows, const void* cover,
+                            const void* taken, void* total, void* listed,
                             void* row_ids, void* counts, void* starts,
                             void* tiles, void* ent, int64_t m, int64_t n,
                             int64_t W, int64_t cap, void* stream) {
-  const int threads = 256;
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // the residual of a dense solve (cover and taken flags), or the rows
+  auto kernel = cover ? compact_rows_kernel<true> : compact_rows_kernel<false>;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, compact_rows_kernel, threads, 0);
+      &per_sm, kernel, kCompactRowsThreads, 0);
   if (err != cudaSuccess) return (int)err;
   const int64_t num_tiles = (n + kTileRows - 1) / kTileRows;
-  int64_t blocks = (m * num_tiles * 32 + threads - 1) / threads;
-  if (blocks > (int64_t)per_sm * sms) blocks = (int64_t)per_sm * sms;
-  compact_rows_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)rows, m, n, W, num_tiles, vec_rows(rows, W), cap,
+  // As many warps a tile (at most 8) as the resident warps leave once
+  // every tile has one: a warp a tile where tiles fill the card (it hides
+  // latency without barriers), a block a tile where they are few.
+  const int64_t resident = (int64_t)per_sm * sms;
+  int g = kCompactRowsWarps;
+  while (g > 1 && m * num_tiles * g > resident * kCompactRowsWarps) g >>= 1;
+  int64_t blocks = (m * num_tiles + kCompactRowsWarps / g - 1) /
+                   (kCompactRowsWarps / g);
+  if (blocks > resident) blocks = resident;
+  const bool vec = vec_rows(rows, W) && (!cover || vec_rows(cover, W));
+  kernel<<<(unsigned)blocks, kCompactRowsThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)rows, (const uint32_t*)cover, (const uint8_t*)taken,
+      m, n, W, num_tiles, vec, cap, g,
       (unsigned long long*)total, (int32_t*)listed, (int32_t*)row_ids,
       (int32_t*)counts, (int64_t*)starts, (int2*)tiles, (int2*)ent);
   return (int)cudaGetLastError();
 }
 
-// The compact layout's picks: one block of kCompactThreads per machine.
+// The compact layout's picks p0 .. k - 1: one block of kCompactThreads
+// per machine; ``covered`` holds the cover of the picks before p0.
 extern "C" int greedy_pick_compact(const void* rows, const void* excluded,
                                    const void* listed, const void* row_ids,
                                    const void* counts, const void* starts,
                                    const void* ent, void* taken, void* seeds,
                                    void* rows_out, void* covered, void* gains,
                                    int64_t m, int64_t n, int64_t W, int64_t k,
-                                   int64_t E, void* stream) {
+                                   int64_t E, int64_t p0, void* stream) {
   size_t smem = 0;
   const int planned = cover_smem(greedy_pick_compact_kernel, W, &smem);
   if (planned) return planned;
   greedy_pick_compact_kernel<<<(unsigned)m, kCompactThreads, smem,
                                (cudaStream_t)stream>>>(
-      (const uint32_t*)rows, (const int32_t*)excluded, E, n, W, k,
+      (const uint32_t*)rows, (const int32_t*)excluded, E, n, W, k, p0,
       (const int32_t*)listed, (const int32_t*)row_ids, (const int32_t*)counts,
       (const int64_t*)starts, (const int2*)ent, (uint8_t*)taken,
       (int32_t*)seeds, (uint32_t*)rows_out, (uint32_t*)covered,

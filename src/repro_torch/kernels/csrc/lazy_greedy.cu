@@ -9,9 +9,12 @@
 // the TPU the tiles are swept in order against a running best; here
 // warps and blocks run in any order, so a pick first sweeps some tiles,
 // reads the best so far, and then skips a tile only when its bound is
-// below that best.  Any best read during a pick is <= the pick's final
-// best, so a skipped tile (fresh masked max <= ub < best) could neither
-// win nor tie: seeds, rows, covered and gains are those of the resident
+// below that best (the machine axis: when the best key its rows could
+// hold, its bound at its first row, is below the best's key, so a tile
+// that could only tie the best at a higher row skips too;
+// greedy_core.cuh: tile_key).  Any best read during a pick is <= the
+// pick's final best, so a skipped tile could neither win nor tie at a
+// lower row: seeds, rows, covered and gains are those of the resident
 // solve in every schedule.  A swept tile's bound becomes its fresh masked
 // max, which bounds every later pick (the cover and the picked set only
 // grow).  tiles_swept counts the sweeps; it depends on the schedule.
@@ -38,7 +41,14 @@
 // blocks, and only a tile's owner sweeps it or writes its bound.  Phase
 // 1: every block sweeps its own tile with the largest bound.  Phase 2,
 // after a grid-wide sync: every block sweeps each other tile of its own
-// unless ub[t] < best, best read again (from L2) before each tile.
+// unless the best read again (from L2) before each tile lets it skip.  It
+// stops and hands over as greedy_pick.cu's greedy_pick_kernel: a machine
+// whose best gain is <= 0 sweeps no more, and the residual it hands
+// over on is the sum of each tile's count from its last sweep (``tres``; an upper
+// bound, as the cover and the taken rows only grow; every tile is swept
+// in the first pick).  lazy_greedy_compact_kernel goes on from the
+// handover with the bounds ub as they stand: both layouts bound the same
+// 32-row tiles.
 //
 // lazy_greedy_batch_kernel: a group of G queries shares every sweep (G
 // covers in shared memory, each row word loaded once for all G, as in
@@ -76,13 +86,15 @@ namespace cg = cooperative_groups;
 
 __global__ void lazy_greedy_kernel(
     const uint32_t* __restrict__ rows, const int32_t* __restrict__ excluded,
-    int64_t E, int64_t n, int64_t W, int64_t k, int64_t tile,
-    int64_t num_tiles, int bpm, bool vec,
-    unsigned long long* keys, uint8_t* taken, int32_t* ub, int32_t* swept,
-    int32_t* seeds, uint32_t* rows_out, uint32_t* covered, int32_t* gains) {
+    int64_t E, int64_t m, int64_t n, int64_t W, int64_t k, int64_t tile,
+    int64_t num_tiles, int64_t cap, int bpm, bool vec,
+    unsigned long long* keys, uint8_t* taken, int32_t* ub, int64_t* tres,
+    unsigned long long* tally, int32_t* swept, int32_t* seeds,
+    uint32_t* rows_out, uint32_t* covered, int32_t* gains) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) uint32_t cov[];
   __shared__ unsigned long long scratch[32];
+  __shared__ long long cscratch[32];
   __shared__ int64_t s_tile;
   __shared__ int s_go;
   const int mach = blockIdx.x / bpm;
@@ -93,6 +105,7 @@ __global__ void lazy_greedy_kernel(
   uint8_t* T = taken + (int64_t)mach * n;
   unsigned long long* K = keys + (int64_t)mach * k;
   int32_t* U = ub + (int64_t)mach * num_tiles;
+  int64_t* TR = tres + (int64_t)mach * num_tiles;
   int my_swept = 0;
 
   for (int64_t w = threadIdx.x; w < W; w += blockDim.x) cov[w] = 0;
@@ -100,62 +113,102 @@ __global__ void lazy_greedy_kernel(
     mark_excluded(excluded + (int64_t)mach * E, E, n, tile, bpm, lb, T);
   __syncthreads();
 
-  // Sweep tile t: post its best key and refresh its bound (thread 0).
+  // Sweep tile t: post its best key, refresh its bound and its residual
+  // count (thread 0).
   auto sweep = [&](int64_t t, unsigned long long* slot) {
     const int64_t end = (t + 1) * tile < n ? (t + 1) * tile : n;
-    const unsigned long long best = block_max_key(
-        warp_sweep_argmax(R, T, cov, W, vec, t * tile + warp, end, wpb,
-                          lane),
-        scratch);
+    long long mine = 0, resid = 0;
+    const unsigned long long best = block_max_key_count(
+        warp_sweep_argmax(R, T, cov, W, vec, t * tile + warp, end, wpb, lane,
+                          &mine),
+        mine, scratch, cscratch, &resid);
     if (threadIdx.x == 0) {
       U[t] = key_gain(best);
+      TR[t] = resid;
       if (best) atomicMax(slot, best);
       ++my_swept;
     }
   };
 
-  for (int64_t p = 0; p < k; ++p) {
-    if (threadIdx.x == 0) {  // phase 1: this block's largest bound
-      int64_t lead = -1;
-      int top = INT_MIN;
-      for (int64_t t = lb; t < num_tiles; t += bpm)
-        if (U[t] > top) top = U[t], lead = t;
-      s_tile = lead;
-    }
-    __syncthreads();
-    const int64_t lead = s_tile;
-    if (lead >= 0) sweep(lead, K + p);
-    grid.sync();
-    for (int64_t t = lb; t < num_tiles; t += bpm) {  // phase 2
-      if (t == lead) continue;
-      if (threadIdx.x == 0) {
-        const unsigned long long cur = __ldcg(K + p);
-        s_go = !(cur && U[t] < key_gain(cur));
+  bool spent = false;      // this machine's gains ran out: it sweeps no more
+  bool all_spent = false;  // every machine's did: the launch ends
+  int64_t p = 0;
+  for (; p < k; ++p) {
+    int64_t lead = -1;
+    if (!spent) {
+      if (threadIdx.x == 0) {  // phase 1: this block's largest bound
+        int top = INT_MIN;
+        for (int64_t t = lb; t < num_tiles; t += bpm)
+          if (U[t] > top) top = U[t], lead = t;
+        s_tile = lead;
       }
       __syncthreads();
-      const bool go = s_go;
-      __syncthreads();
-      if (go) sweep(t, K + p);
+      lead = s_tile;
+      if (lead >= 0) sweep(lead, K + p);
     }
     grid.sync();
-    const int64_t out = (int64_t)mach * k + p;
-    commit_pick(__ldcg(K + p), R, W, tile, bpm, lb, cov, T, seeds + out,
-                gains + out, rows_out + out * W);
+    if (!spent) {
+      for (int64_t t = lb; t < num_tiles; t += bpm) {  // phase 2
+        if (t == lead) continue;
+        if (threadIdx.x == 0)
+          s_go = !(tile_key(U[t], t * tile) < __ldcg(K + p));
+        __syncthreads();
+        const bool go = s_go;
+        __syncthreads();
+        if (go) sweep(t, K + p);
+      }
+      // The residual of this block's tiles: each tile's count from its
+      // last sweep, which bounds it now (the cover and the taken rows only
+      // grow).  Every tile is swept in the first pick (bounds INT_MAX).
+      __syncthreads();
+      if (warp == 0) {
+        long long s = 0;
+        for (int64_t t = lb + (int64_t)lane * bpm; t < num_tiles;
+             t += 32ll * bpm)
+          s += TR[t];
+        s = warp_sum64(s);
+        if (lane == 0 && s) atomicAdd(tally + p, (unsigned long long)s);
+      }
+    }
+    grid.sync();
+    if (!any_gain(keys, m, k, p)) {
+      all_spent = true;
+      break;
+    }
+    const unsigned long long win = __ldcg(K + p);
+    spent = key_gain(win) <= 0;
+    if (!spent) {
+      const int64_t out = (int64_t)mach * k + p;
+      commit_pick(win, R, W, tile, bpm, lb, cov, T, seeds + out, gains + out,
+                  rows_out + out * W);
+    }
+    if (cap > 0 && __ldcg(tally + p) <= (unsigned long long)cap) {
+      ++p;
+      break;
+    }
   }
   if (lb == 0)
     for (int64_t w = threadIdx.x; w < W; w += blockDim.x)
       covered[(int64_t)mach * W + w] = cov[w];
   if (threadIdx.x == 0) atomicAdd(swept + mach, my_swept);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    tally[k] = (unsigned long long)p;
+    tally[k + 1] = all_spent;
+  }
 }
 
 constexpr int kCompactThreads = 1024;
 
-// All k picks of m machines over their compact lists, one block per
-// machine; ``tiles`` (first slot, listed rows) per 32-row tile.
+// Picks p0 .. k - 1 of m machines over their compact lists, one block
+// per machine; ``tiles`` (first slot, listed rows) per 32-row tile.  The
+// cover starts from ``covered``, the taken flags, bounds ``ub`` and
+// ``swept`` from what they hold (a fresh solve's zeros and INT_MAX, or a
+// dense launch's at its handover); a machine stops at the first pick
+// whose best gain is <= 0.
 __global__ void __launch_bounds__(kCompactThreads, 1)
 lazy_greedy_compact_kernel(
     const uint32_t* __restrict__ rows, const int32_t* __restrict__ excluded,
-    int64_t E, int64_t n, int64_t W, int64_t k, int64_t num_tiles,
+    int64_t E, int64_t n, int64_t W, int64_t k, int64_t p0, int64_t num_tiles,
     const int32_t* __restrict__ row_ids, const int32_t* __restrict__ counts,
     const int64_t* __restrict__ starts, const int2* __restrict__ tiles,
     const int2* __restrict__ ent, uint8_t* taken, int32_t* ub,
@@ -175,7 +228,8 @@ lazy_greedy_compact_kernel(
   const RowList L{row_ids + mach * n, counts + mach * n, starts + mach * n,
                   ent};
 
-  for (int64_t w = threadIdx.x; w < W; w += blockDim.x) cov[w] = 0;
+  for (int64_t w = threadIdx.x; w < W; w += blockDim.x)
+    cov[w] = covered[mach * W + w];
   if (threadIdx.x == 0) {
     mark_excluded(excluded + mach * E, E, n, 1, 1, 0, T);
     s_swept = 0;
@@ -196,14 +250,14 @@ lazy_greedy_compact_kernel(
       atomicAdd(&s_swept, 1);
     }
   };
-  // The best read so far lets tile t be skipped.
+  // The best read so far lets tile t be skipped (greedy_core.cuh:
+  // tile_key).
   auto skip = [&](int64_t t) {
-    const unsigned long long cur =
-        *reinterpret_cast<volatile unsigned long long*>(&s_best);
-    return cur && U[t] < key_gain(cur);
+    return tile_key(U[t], t * kTileRows) <
+           *reinterpret_cast<volatile unsigned long long*>(&s_best);
   };
 
-  for (int64_t p = 0; p < k; ++p) {
+  for (int64_t p = p0; p < k; ++p) {
     if (threadIdx.x == 0) s_best = 0;
     __syncthreads();
     // phase 1: each warp sweeps its own tile with the largest bound (the
@@ -242,17 +296,19 @@ lazy_greedy_compact_kernel(
       }
     }
     __syncthreads();
+    if (key_gain(s_best) <= 0) break;  // the gains ran out
     const int64_t out = mach * k + p;
     commit_pick(s_best, R, W, 1, 1, 0, cov, T, seeds + out, gains + out,
                 rows_out + out * W);
   }
   for (int64_t w = threadIdx.x; w < W; w += blockDim.x)
     covered[mach * W + w] = cov[w];
-  if (threadIdx.x == 0) swept[mach] = s_swept;
+  if (threadIdx.x == 0) swept[mach] += s_swept;
 }
 
-// The compact layout's lazy picks: one block of kCompactThreads per
-// machine over the list of greedy_pick.cu's compact_rows.
+// The compact layout's lazy picks p0 .. k - 1: one block of
+// kCompactThreads per machine over the list of greedy_pick.cu's
+// compact_rows.
 extern "C" int lazy_greedy_compact(const void* rows, const void* excluded,
                                    const void* row_ids, const void* counts,
                                    const void* starts, const void* tiles,
@@ -260,14 +316,15 @@ extern "C" int lazy_greedy_compact(const void* rows, const void* excluded,
                                    void* swept, void* seeds, void* rows_out,
                                    void* covered, void* gains, int64_t m,
                                    int64_t n, int64_t W, int64_t k, int64_t E,
-                                   void* stream) {
+                                   int64_t p0, void* stream) {
   size_t smem = 0;
   const int planned = cover_smem(lazy_greedy_compact_kernel, W, &smem);
   if (planned) return planned;
   const int64_t num_tiles = (n + kTileRows - 1) / kTileRows;
   lazy_greedy_compact_kernel<<<(unsigned)m, kCompactThreads, smem,
                                (cudaStream_t)stream>>>(
-      (const uint32_t*)rows, (const int32_t*)excluded, E, n, W, k, num_tiles,
+      (const uint32_t*)rows, (const int32_t*)excluded, E, n, W, k, p0,
+      num_tiles,
       (const int32_t*)row_ids, (const int32_t*)counts, (const int64_t*)starts,
       (const int2*)tiles, (const int2*)ent, (uint8_t*)taken, (int32_t*)ub,
       (int32_t*)swept, (int32_t*)seeds, (uint32_t*)rows_out,
@@ -316,11 +373,15 @@ extern "C" int lazy_greedy_blocks_per_machine(int64_t m, int64_t n, int64_t W,
   return err ? err : (int)bpm;
 }
 
+// The dense lazy picks from pick 0: ``tres`` (int64 [m, tiles]) keeps
+// each tile's residual count from its last sweep; ``tally`` and ``cap``
+// as greedy_pick.cu's greedy_pick.
 extern "C" int lazy_greedy(const void* rows, const void* excluded, void* keys,
-                           void* taken, void* ub, void* swept, void* seeds,
-                           void* rows_out, void* covered, void* gains,
-                           int64_t m, int64_t n, int64_t W, int64_t k,
-                           int64_t E, int64_t tile, int64_t min_tiles_per_block,
+                           void* taken, void* ub, void* tres, void* tally,
+                           void* swept, void* seeds, void* rows_out,
+                           void* covered, void* gains, int64_t m, int64_t n,
+                           int64_t W, int64_t k, int64_t E, int64_t tile,
+                           int64_t min_tiles_per_block, int64_t cap,
                            void* stream) {
   size_t smem = 0;
   int64_t bpm = 0;
@@ -328,11 +389,12 @@ extern "C" int lazy_greedy(const void* rows, const void* excluded, void* keys,
   if (planned) return planned;
   const int64_t num_tiles = (n + tile - 1) / tile;
   int bpm_ = (int)bpm;
-  int64_t E_ = E, n_ = n, W_ = W, k_ = k, tile_ = tile, nt_ = num_tiles;
+  int64_t E_ = E, m_ = m, n_ = n, W_ = W, k_ = k, tile_ = tile,
+          nt_ = num_tiles, cap_ = cap;
   bool vec = vec_rows(rows, W);
-  void* args[] = {(void*)&rows, (void*)&excluded, &E_, &n_, &W_, &k_,
-                  &tile_, &nt_, &bpm_, &vec, &keys, &taken, &ub, &swept,
-                  &seeds, &rows_out, &covered, &gains};
+  void* args[] = {(void*)&rows, (void*)&excluded, &E_, &m_, &n_, &W_, &k_,
+                  &tile_, &nt_, &cap_, &bpm_, &vec, &keys, &taken, &ub,
+                  &tres, &tally, &swept, &seeds, &rows_out, &covered, &gains};
   cudaError_t err = cudaLaunchCooperativeKernel(
       (void*)lazy_greedy_kernel, dim3((unsigned)(m * bpm)), dim3(kThreads),
       args, smem, (cudaStream_t)stream);

@@ -19,9 +19,13 @@ the rows once into a list of their non-zero words (``compact_rows``,
 bytes — the rows read once and the outputs written once; the picks are
 latency, not traffic.  The rows of supercritical cascades are nearly
 all non-zero words, and a longer list takes the dense sweep
-(``greedy_pick``), which re-reads every row in each pick over all SMs.
-Both layouts give the same bits; ``ops.LAUNCHES`` and
-``stats["layout"]`` show which one ran.  The query
+(``greedy_pick``), which re-reads every row in each pick over all SMs
+while that pays: it counts the residual (the words a list would hold
+now) as it sweeps, hands over to the compact picks over the list of the
+residual once that fits the compact layout's room
+(:func:`greedy_dense`), and stops where every machine's gains run out.
+Both layouts give the same bits; ``ops.LAUNCHES``, ``ops.HANDOVERS``
+and ``stats`` show which ran and where the handover came.  The query
 axis reads the shared pool in place, never copied: blocks own rows, and
 each row is read once per pick for a group of G queries whose covers
 sit in shared memory (:func:`query_groups`), so a pick moves ceil(B /
@@ -37,10 +41,10 @@ import torch
 from repro_torch.core import bitset
 from repro_torch.kernels import build, ops, topk_gain
 
-_ARGS = [ops.PTR] * 8 + [ops.I64] * 5
+_ARGS = [ops.PTR] * 9 + [ops.I64] * 6
 _BATCH_ARGS = [ops.PTR] * 8 + [ops.I64] * 6
-_COMPACT_ARGS = [ops.PTR] * 8 + [ops.I64] * 4
-_COMPACT_PICK_ARGS = [ops.PTR] * 12 + [ops.I64] * 5
+_COMPACT_ARGS = [ops.PTR] * 10 + [ops.I64] * 4
+_COMPACT_PICK_ARGS = [ops.PTR] * 12 + [ops.I64] * 6
 # The largest query group the query-axis kernels are built for
 # (``kMaxGroup`` in ``csrc/greedy_core.cuh``).
 MAX_GROUP = 8
@@ -95,6 +99,81 @@ def compact_pays(entries: int, words: int, m: int) -> bool:
     return entries <= compact_capacity(words, m)
 
 
+def list_room(m: int, n: int, w: int) -> int:
+    """Entries of the one list allocation of rows [m, n, W]: the longest
+    list the compact layout takes, at most every word.  Also the
+    residual at which a dense solve hands over (:func:`greedy_dense`)."""
+    return min(compact_capacity(m * n * w, m), m * n * w)
+
+
+class Partial(NamedTuple):
+    """A machine-axis solve after its dense picks (``greedy_pick`` or
+    ``lazy_greedy``, or their plain versions)."""
+    out: tuple             # (seeds, sel_rows, covered, gains): picks
+    #                        0 .. p0 - 1 made, the later ones pre-filled
+    taken: torch.Tensor    # [m, n] excluded and picked rows (bool on the
+    #                        CPU, uint8 on the card)
+    p0: int                # picks made
+    spent: bool            # every machine's best gain was <= 0 at pick p0
+    residual: list         # per swept pick, its residual words over all
+    #                        machines before its commit
+
+
+def start(rows: torch.Tensor, k: int, excluded: torch.Tensor) -> Partial:
+    """A fresh solve of rows [m, n, W]: pre-filled outputs, the excluded
+    rows taken (bool), no pick made."""
+    m, n, w = rows.shape
+    taken = torch.zeros((m, n), dtype=torch.bool, device=rows.device)
+    ok = (excluded >= 0) & (excluded < n)
+    mach = torch.arange(m, device=rows.device)[:, None].expand_as(excluded)
+    taken[mach[ok], excluded[ok].long()] = True
+    return Partial(outputs(m, k, w, rows.device), taken, 0, False, [])
+
+
+def residual_words(rows: torch.Tensor, covered: torch.Tensor,
+                   taken: torch.Tensor) -> torch.Tensor:
+    """int64 [m]: each machine's residual, the non-zero words of row &
+    ~covered over its rows not taken — the entries a compaction against
+    this cover lists (:func:`compact_rows_plain`)."""
+    nz = (rows & ~covered[:, None, :]) != 0
+    return (nz & ~taken.bool()[:, :, None]).sum((1, 2))
+
+
+def plain_picks(rows: torch.Tensor, k: int, state: Partial, pick,
+                cap: int = 0, residual=None, stop: bool = False) -> Partial:
+    """Picks state.p0 .. k - 1 of rows [m, n, W]: each ``pick(rows,
+    covered, taken) -> (best gain, best index)`` committed on the device
+    as the reference's loop body (a best gain <= 0 gives seed -1, gain 0
+    and a zero row), the outputs and taken flags of ``state`` updated in
+    place.  With ``stop`` the picks end at the first whose best gain is
+    <= 0 on every machine (the later ones keep their pre-fill: the same
+    outputs; a host read a pick).  ``residual(covered, taken)``, if
+    given, counts each pick's residual before its commit, and with ``cap``
+    > 0 the picks end after the first whose count is at most ``cap`` (the
+    dense kernels' handover)."""
+    seeds, sel_rows, covered, gains = state.out
+    taken = state.taken
+    counts = list(state.residual)
+    ar = torch.arange(rows.shape[0], device=rows.device)
+    for i in range(state.p0, k):
+        best_gain, best = pick(rows, covered, taken.bool())
+        best = best.long()
+        take = best_gain > 0
+        if stop and not bool(take.any()):
+            return state._replace(p0=i, spent=True, residual=counts)
+        if residual is not None:
+            counts.append(int(residual(covered, taken)))
+        row = torch.where(take[:, None], rows[ar, best], 0)
+        covered |= row
+        seeds[:, i] = torch.where(take, best.to(torch.int32), -1)
+        sel_rows[:, i] = row
+        gains[:, i] = torch.where(take, best_gain, 0)
+        taken[ar, best] |= take.to(taken.dtype)
+        if cap > 0 and residual is not None and counts[-1] <= cap:
+            return state._replace(p0=i + 1, residual=counts)
+    return state._replace(p0=k, residual=counts)
+
+
 def excluded_ids(excluded, m: int, device) -> torch.Tensor:
     """int32 [m, E] exclusion ids (-1 pads); one row is shared by all
     machines when a flat [E] array is given."""
@@ -118,30 +197,22 @@ def greedy_plain(rows: torch.Tensor, k: int, excluded: torch.Tensor,
     plain sweep by default, ``topk_gain.best_gain_index`` for the fused
     solver), each committed on the device as the reference's loop body —
     no host sync per pick."""
-    m, n, w = rows.shape
-    dev = rows.device
-    covered = torch.zeros((m, w), dtype=torch.int32, device=dev)
-    seeds = torch.full((m, k), -1, dtype=torch.int32, device=dev)
-    sel_rows = torch.zeros((m, k, w), dtype=torch.int32, device=dev)
-    gains = torch.zeros((m, k), dtype=torch.int32, device=dev)
-    if n == 0:
-        return seeds, sel_rows, covered, gains
-    picked = torch.zeros((m, n), dtype=torch.bool, device=dev)
-    ok = (excluded >= 0) & (excluded < n)
-    mach = torch.arange(m, device=dev)[:, None].expand_as(excluded)
-    picked[mach[ok], excluded[ok].long()] = True
-    ar = torch.arange(m, device=dev)
-    for i in range(k):
-        best_gain, best = pick(rows, covered, picked)
-        best = best.long()
-        take = best_gain > 0
-        row = torch.where(take[:, None], rows[ar, best], 0)
-        covered |= row
-        seeds[:, i] = torch.where(take, best.to(torch.int32), -1)
-        sel_rows[:, i] = row
-        gains[:, i] = torch.where(take, best_gain, 0)
-        picked[ar, best] |= take
-    return seeds, sel_rows, covered, gains
+    state = start(rows, k, excluded)
+    if rows.shape[1] == 0:
+        return state.out
+    return plain_picks(rows, k, state, pick).out
+
+
+def greedy_dense_plain(rows: torch.Tensor, k: int, excluded: torch.Tensor,
+                       cap: int = 0) -> Partial:
+    """The dense kernel's picks (``greedy_pick``) in plain PyTorch: from
+    pick 0, each counting the residual over all machines
+    (:func:`residual_words`), until the gains run out, k, or the first
+    pick whose residual is at most ``cap`` (0: never)."""
+    return plain_picks(
+        rows, k, start(rows, k, excluded), topk_gain.best_gain_index_plain,
+        cap, lambda covered, taken: residual_words(rows, covered, taken).sum(),
+        stop=True)
 
 
 def _segments(starts: torch.Tensor, counts: torch.Tensor):
@@ -166,11 +237,18 @@ def _listed_slots(lists: RowLists):
             lists.starts[valid])
 
 
-def compact_rows_plain(rows: torch.Tensor) -> RowLists:
+def compact_rows_plain(rows: torch.Tensor, covered=None,
+                       taken=None) -> RowLists:
     """The compact layout of rows int32 [m, n, W] in plain PyTorch, in
     the canonical order: each machine's listed rows ascending, entries
-    machine by machine and row by row (the kernel's order is free)."""
+    machine by machine and row by row (the kernel's order is free).
+    With ``covered`` [m, W] and ``taken`` [m, n] (a dense solve's state at
+    its handover) it lists the residual instead: the rows not taken,
+    their words & ~covered."""
     m, n, w = rows.shape
+    if covered is not None:
+        rows = torch.where(taken.bool()[:, :, None], 0,
+                           rows & ~covered[:, None, :])
     nz = rows != 0
     per_row = nz.sum(2, dtype=torch.int32)
     has = per_row > 0
@@ -234,19 +312,25 @@ def listed_gains(lists: RowLists):
 
 
 def greedy_compact_plain(rows: torch.Tensor, k: int, excluded: torch.Tensor,
-                         lists: RowLists):
-    """The compact layout's solve in plain PyTorch: :func:`greedy_plain`
-    with each pick's gains swept from ``lists``."""
+                         lists: RowLists, state: Partial | None = None):
+    """The compact layout's picks in plain PyTorch, each pick's gains swept
+    from ``lists``, stopping where the gains run out: from pick 0, or
+    from a dense solve's ``state`` over the list of its residual
+    (:func:`residual_lists`)."""
     gains = listed_gains(lists)
-    return greedy_plain(rows, k, excluded, pick=lambda rows, covered, picked:
-                        topk_gain.best_of(gains(covered), picked))
+    state = start(rows, k, excluded) if state is None else state
+    return plain_picks(rows, k, state, lambda rows, covered, taken:
+                       topk_gain.best_of(gains(covered), taken),
+                       stop=True).out
 
 
-def compact_rows_launch(rows: torch.Tensor, cap: int):
+def compact_rows_launch(rows: torch.Tensor, cap: int, covered=None,
+                        taken=None):
     """One launch of ``compact_rows`` over rows int32 [m, n, W] on the
     card into ``cap`` entries -> (the list, its ``nonzero_words`` not
     read yet, and the int64 [1] count on the card, which also counts the
-    entries past ``cap``; those are not written)."""
+    entries past ``cap``; those are not written).  ``covered`` and
+    ``taken`` (uint8) as :func:`compact_rows_plain`'s."""
     m, n, w = rows.shape
     dev = rows.device
     total = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -257,19 +341,44 @@ def compact_rows_launch(rows: torch.Tensor, cap: int):
     tiles = torch.empty((m, -(-n // LIST_TILE_ROWS), 2), dtype=torch.int32,
                         device=dev)
     entries = torch.empty((cap, 2), dtype=torch.int32, device=dev)
+    if covered is not None:
+        ops.check(covered, "covered", torch.int32, (m, w))
+        ops.check(taken, "taken", torch.uint8, (m, n))
     ops.launch("compact_rows", "greedy_pick", "compact_rows", _COMPACT_ARGS,
-               rows.data_ptr(), total.data_ptr(), listed.data_ptr(),
+               rows.data_ptr(),
+               *((None, None) if covered is None else
+                 (covered.data_ptr(), taken.data_ptr())),
+               total.data_ptr(), listed.data_ptr(),
                row_ids.data_ptr(), counts.data_ptr(), starts.data_ptr(),
                tiles.data_ptr(), entries.data_ptr(), m, n, w, cap)
     return RowLists(listed, row_ids, counts, starts, tiles, entries,
                     -1), total
 
 
-def compact_rows(rows: torch.Tensor, cap: int) -> RowLists:
+def compact_rows(rows: torch.Tensor, cap: int, covered=None,
+                 taken=None) -> RowLists:
     """:func:`compact_rows_launch` with its count read back to the host
     (8 bytes)."""
-    lists, total = compact_rows_launch(rows, cap)
+    lists, total = compact_rows_launch(rows, cap, covered, taken)
     return lists._replace(nonzero_words=int(total))
+
+
+def residual_lists(rows: torch.Tensor, state: Partial, cap: int) -> RowLists:
+    """The compact layout of what a dense solve ``state`` leaves: the
+    untaken rows' words & ~cover (one ``compact_rows`` into ``cap``
+    entries and its count's read on the card, its plain version on the
+    CPU).  The dense picks handed over at a residual count of at most
+    ``cap``, which bounds this list (the cover and the taken rows only
+    grew since), so a longer list is a fault: it raises."""
+    covered, taken = state.out[2], state.taken
+    if ops.on_card(rows, covered, taken):
+        lists = compact_rows(rows, cap, covered, taken)
+    else:
+        lists = compact_rows_plain(rows, covered, taken)
+    if lists.nonzero_words > cap:
+        raise RuntimeError(f"the residual's list holds {lists.nonzero_words} "
+                           f"entries, past the {cap} its handover allowed")
+    return lists._replace(entries=lists.entries[:lists.nonzero_words])
 
 
 def row_lists(rows: torch.Tensor) -> RowLists:
@@ -284,7 +393,7 @@ def row_lists(rows: torch.Tensor) -> RowLists:
         lists = compact_rows_plain(rows)
     else:
         ops.check(rows, "rows", torch.int32, (m, n, w))
-        lists = compact_rows(rows, min(compact_capacity(words, m), words))
+        lists = compact_rows(rows, list_room(m, n, w))
     if not compact_pays(lists.nonzero_words, words, m):
         return lists._replace(entries=None)
     return lists._replace(entries=lists.entries[:lists.nonzero_words])
@@ -344,44 +453,107 @@ def _launch(counter: str, fn: str, argtypes, rows: torch.Tensor, m: int,
     return out
 
 
-def greedy_dense(rows: torch.Tensor, k: int, ex: torch.Tensor):
-    """The dense layout: every pick sweeps every row of ``rows`` int32
-    [m, n, W] (``greedy_pick``); ``ex`` from :func:`excluded_ids`."""
+def read_tally(out: tuple, taken: torch.Tensor, tally: torch.Tensor,
+               k: int) -> Partial:
+    """The :class:`Partial` a dense launch leaves, from its ``tally``
+    (int64 [k + 2]: the swept picks' residual counts, then the picks made
+    and whether every machine's gains ran out), read in one host read."""
+    t = tally.tolist()
+    return Partial(out, taken, t[k], bool(t[k + 1]), t[:t[k]])
+
+
+def hand_over(kernel: str, state: Partial, k: int,
+              stats: dict | None) -> bool:
+    """Whether the dense picks of ``state`` hand over to the compact ones
+    (some machine's gains are left, and picks).  Counts a handover in
+    ``ops.HANDOVERS[kernel]``; ``stats`` gets ``handover_pick`` (the
+    compact layout's first pick, or None), ``spent_pick`` (the pick at
+    which the dense launch found every machine's gains run out, or None)
+    and ``residual`` (the swept picks' counts)."""
+    handed = not state.spent and state.p0 < k
+    ops.HANDOVERS[kernel] += handed
+    if stats is not None:
+        stats.update(handover_pick=state.p0 if handed else None,
+                     spent_pick=state.p0 if state.spent else None,
+                     residual=state.residual)
+    return handed
+
+
+def greedy_dense(rows: torch.Tensor, k: int, ex: torch.Tensor,
+                 cap: int | None = None, stats: dict | None = None):
+    """The dense layout: each pick sweeps every row of ``rows`` int32
+    [m, n, W] over all SMs (``greedy_pick``) and counts the residual
+    (:func:`residual_words`) over all machines; after the first pick whose
+    count is at most ``cap`` (default :func:`list_room`; 0: never) the
+    picks go on over the list of the residual (:func:`residual_lists`,
+    then :func:`greedy_compact` from there).  A machine whose gains ran
+    out sweeps no more, and the launch ends when every machine's have.
+    ``ex`` from :func:`excluded_ids`; ``stats`` as :func:`hand_over`."""
+    m, n, w = rows.shape
+    if m * n * k == 0:
+        return outputs(m, k, w, rows.device)
+    cap = list_room(m, n, w) if cap is None else cap
+    state = dense_picks(rows, k, ex, cap)
+    if hand_over("greedy_pick", state, k, stats):
+        greedy_compact(rows, k, ex, residual_lists(rows, state, cap), state)
+    return state.out
+
+
+def dense_picks(rows: torch.Tensor, k: int, ex: torch.Tensor,
+                cap: int) -> Partial:
+    """The dense picks of :func:`greedy_dense` up to their handover (m, n,
+    k >= 1): one ``greedy_pick`` launch and its tally's read on the card,
+    :func:`greedy_dense_plain` on the CPU."""
     m, n, w = rows.shape
     if not ops.on_card(rows, ex):
-        return greedy_plain(rows, k, ex)
+        return greedy_dense_plain(rows, k, ex, cap)
     ops.check(rows, "rows", torch.int32, (m, n, w))
-    return _launch("greedy_pick", "greedy_pick", _ARGS, rows, m, n, w, k, ex)
+    out = outputs(m, k, w, rows.device)
+    keys = torch.zeros((m, k), dtype=torch.int64, device=rows.device)
+    taken = torch.zeros((m, n), dtype=torch.uint8, device=rows.device)
+    tally = torch.zeros(k + 2, dtype=torch.int64, device=rows.device)
+    ops.launch("greedy_pick", "greedy_pick", "greedy_pick", _ARGS,
+               rows.data_ptr(), ex.data_ptr(), keys.data_ptr(),
+               taken.data_ptr(), tally.data_ptr(),
+               *(o.data_ptr() for o in out), m, n, w, k, ex.shape[1], cap)
+    return read_tally(out, taken, tally, k)
 
 
 def greedy_compact(rows: torch.Tensor, k: int, ex: torch.Tensor,
-                   lists: RowLists):
+                   lists: RowLists, state: Partial | None = None):
     """The compact layout: every pick sweeps ``lists`` (from
     :func:`row_lists`, entries not None) and commits from ``rows``
-    (``greedy_pick_compact``, one block a machine)."""
+    (``greedy_pick_compact``, one block a machine); a machine stops where
+    its gains run out.  From pick 0, or from a dense solve's ``state``
+    over its residual's list, writing its outputs in place."""
     m, n, w = rows.shape
     if not ops.on_card(rows, ex, lists.entries):
-        return greedy_compact_plain(rows, k, ex, lists)
+        return greedy_compact_plain(rows, k, ex, lists, state)
     ops.check(rows, "rows", torch.int32, (m, n, w))
-    out = outputs(m, k, w, rows.device)
     if m * n * k == 0:
-        return out
-    taken = torch.zeros((m, n), dtype=torch.uint8, device=rows.device)
+        return outputs(m, k, w, rows.device)
+    if state is None:
+        state = Partial(outputs(m, k, w, rows.device),
+                        torch.zeros((m, n), dtype=torch.uint8,
+                                    device=rows.device), 0, False, [])
     ops.launch("greedy_pick_compact", "greedy_pick", "greedy_pick_compact",
                _COMPACT_PICK_ARGS, rows.data_ptr(), ex.data_ptr(),
                lists.listed.data_ptr(), lists.row_ids.data_ptr(),
                lists.counts.data_ptr(), lists.starts.data_ptr(),
-               lists.entries.data_ptr(), taken.data_ptr(),
-               *(o.data_ptr() for o in out), m, n, w, k, ex.shape[1])
-    return out
+               lists.entries.data_ptr(), state.taken.data_ptr(),
+               *(o.data_ptr() for o in state.out), m, n, w, k, ex.shape[1],
+               state.p0)
+    return state.out
 
 
 def greedy_maxcover_resident(rows: torch.Tensor, k: int, excluded=None,
                              stats: dict | None = None):
     """All k picks of every machine of ``rows`` int32 [m, n, W]: the
-    list (:func:`row_lists`), then one launch of the layout it chose;
+    list (:func:`row_lists`), then the layout it chose (the dense one
+    may hand over to the compact picks, :func:`greedy_dense`);
     ``excluded`` int32 [E] or [m, E] row ids never picked.  ``stats``
-    gets the layout, the non-zero words and the listed rows."""
+    gets the layout, the non-zero words, the listed rows and, on the
+    dense layout, the handover (:func:`hand_over`)."""
     m, n, w = rows.shape
     ex = excluded_ids(excluded, m, rows.device)
     ops.on_card(rows, ex)                  # raises on mixed devices
@@ -390,7 +562,7 @@ def greedy_maxcover_resident(rows: torch.Tensor, k: int, excluded=None,
     lists = row_lists(rows)
     report(stats, lists)
     if lists.entries is None:
-        return greedy_dense(rows, k, ex)
+        return greedy_dense(rows, k, ex, stats=stats)
     return greedy_compact(rows, k, ex, lists)
 
 

@@ -31,6 +31,10 @@ KERNELS = ("rrr_expand_resident", "rrr_expand_streamed", "rrr_expand_ic",
            "compact_rows", "greedy_pick_compact", "lazy_greedy_compact")
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+# Machine-axis solves on the dense layout since the counts were last
+# reset that handed over to the compact picks, by dense kernel
+# (``greedy_pick.hand_over``).
+HANDOVERS: dict[str, int] = {"greedy_pick": 0, "lazy_greedy": 0}
 
 # What the C entry points return besides a cudaError_t: the kernel
 # does not take these inputs, and nothing was launched.
@@ -51,6 +55,8 @@ I64 = ctypes.c_int64
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for name in HANDOVERS:
+        HANDOVERS[name] = 0
 
 
 def on_card(*tensors: torch.Tensor) -> bool:

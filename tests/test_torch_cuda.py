@@ -653,7 +653,9 @@ def test_machine_axis_layouts(dev, case):
     """The machine-axis solves take the compact layout on sparse rows and
     the dense sweep on dense rows, say so in ``stats`` and in the launch
     counts, and equal their plain versions either way (the forced other
-    layout too); tiles_swept stays in range."""
+    layout too); tiles_swept stays in range.  On the dense layout the
+    dense kernel runs, then, when ``stats`` reports a handover, one more
+    compaction (of the residual) and the compact picks."""
     gen = torch.Generator().manual_seed(11)
     rows = _machine_rows(gen, case, dev)
     ex = torch.tensor([[7, -1], [3, 999], [-1, -1]], dtype=torch.int32,
@@ -671,9 +673,16 @@ def test_machine_axis_layouts(dev, case):
         assert stats["nonzero_words"] == lists.nonzero_words
         assert stats["listed_rows"] == int(lists.listed.sum())
         _equal(got[:4], want)
-        kernel = name if layout == "dense" else name + "_compact"
+        if layout == "dense":
+            handed = int(stats["handover_pick"] is not None)
+            launched = {"compact_rows": 1 + handed, name: 1,
+                        name + "_compact": handed}
+        else:
+            launched = {"compact_rows": 1, name + "_compact": 1}
         assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
-            "compact_rows": 1, kernel: 1}
+            k: v for k, v in launched.items() if v}
+        assert ops.HANDOVERS[name] == launched.get(name + "_compact", 0) * (
+            layout == "dense")
         if name == "lazy_greedy":
             assert all(tiles <= int(t) <= k * tiles for t in got[4])
     full = greedy_pick.compact_rows(rows, rows.numel())
@@ -684,6 +693,99 @@ def test_machine_axis_layouts(dev, case):
     assert all(tiles <= int(t) <= k * tiles for t in swept)
     _equal(greedy_pick.greedy_dense(rows, k, ex), want)
     _equal(lazy_greedy.lazy_dense(rows, k, ex)[:4], want)
+
+
+def _dense_case(case, dev):
+    """The CPU tests' dense machine rows (``test_torch_maxcover.py``
+    ``dense_case``: every word non-zero, exclusions, gains that run out
+    before k or last past it, or on one machine many picks before the
+    other's), made here with numpy from the same seed, and a wider set of
+    the same kind (m = 4, 300 rows of 36 words)."""
+    m, n, w, k = (2, 40, 2, 4 if case == "lasts" else 24) if case in (
+        "exhausts", "lasts", "uneven") else (4, 300, 36, 100)
+    rng = np.random.default_rng(7)
+    rows = rng.integers(0, 2**32, (m, n, w), dtype=np.uint32)
+    for _ in range(2):
+        rows &= rng.integers(0, 2**32, (m, n, w), dtype=np.uint32)
+    rows |= np.uint32(1) << rng.integers(0, 32, (m, n, w)).astype(np.uint32)
+    rows[:, 9] = rows[:, 4]
+    if case == "uneven":
+        rows[1, 3:] = 0
+    ex = np.full((m, 3), -1, np.int32)
+    ex[0, :2], ex[1] = (4, 17), (0, n + 3, 22)
+    return (torch.from_numpy(rows.view(np.int32)).to(dev), k,
+            torch.from_numpy(ex).to(dev))
+
+
+@pytest.mark.parametrize("case", ["exhausts", "lasts", "uneven", "wide"])
+@pytest.mark.parametrize("after", [0, 1, 2, "k - 1", "never"])
+def test_dense_handover(dev, case, after):
+    """Both dense kernels with the handover forced after pick 0, 1, 2 or
+    k - 1 (``cap`` the residual the kernel counted there) or never: the
+    whole solve equals the plain one; ``greedy_pick`` counts the residual
+    exactly (as its plain version) and stops where the gains ran out, as
+    its plain version; ``lazy_greedy``'s counts bound the exact ones and
+    hand over at the first pick at most ``cap``.  From the handover
+    state, the masked compaction equals its plain version (as sets per
+    row) and each compact kernel equals its plain version from the same
+    state, its stop where the gains run out included."""
+    rows, k, ex = _dense_case(case, dev)
+    m, n, _ = rows.shape
+    want = greedy_pick.greedy_plain(rows, k, ex)
+    exact = greedy_pick.greedy_dense_plain(rows, k, ex)
+    tiles = lazy_greedy.num_row_tiles(n)
+    for name, dense in (("greedy_pick", greedy_pick.greedy_dense),
+                        ("lazy_greedy", lazy_greedy.lazy_dense)):
+        full = {}
+        got = dense(rows, k, ex, cap=0, stats=full)
+        _equal(got[:4], want)
+        residual = full["residual"]
+        assert full["handover_pick"] is None
+        assert full["spent_pick"] == (exact.p0 if exact.spent else None)
+        if name == "greedy_pick":
+            assert residual == exact.residual
+        else:
+            assert len(residual) == len(exact.residual) and all(
+                a >= b for a, b in zip(residual, exact.residual))
+        if after == "never":
+            continue
+        p = min(k - 1 if after == "k - 1" else after, len(residual) - 1)
+        cap = residual[p]
+        stats = {}
+        got = dense(rows, k, ex, cap=cap, stats=stats)
+        _equal(got[:4], want)
+        if name == "greedy_pick":
+            first = next(i for i, r in enumerate(residual) if r <= cap)
+            assert stats["handover_pick"] == (first + 1 if first + 1 < k
+                                              else None)
+        else:
+            assert stats["handover_pick"] is None or (
+                stats["handover_pick"] <= p + 1)
+            assert all(tiles <= int(t) <= k * tiles for t in got[4])
+    # the handover state of the plain dense picks, on the card
+    cap = exact.residual[min(2, len(exact.residual) - 1)]
+    state = greedy_pick.greedy_dense_plain(rows, k, ex, cap)
+    state = state._replace(taken=state.taken.to(torch.uint8))
+    lists = greedy_pick.residual_lists(rows, state, cap)
+    plain_lists = greedy_pick.compact_rows_plain(rows, state.out[2],
+                                                 state.taken)
+    _equal(greedy_pick.canonical_lists(lists),
+           greedy_pick.canonical_lists(plain_lists))
+
+    def clone(s):
+        return s._replace(out=tuple(o.clone() for o in s.out),
+                          taken=s.taken.clone())
+    _equal(greedy_pick.greedy_compact(rows, k, ex, lists, clone(state)),
+           greedy_pick.greedy_compact_plain(rows, k, ex, lists,
+                                            clone(state)))
+    _equal(greedy_pick.greedy_compact(rows, k, ex, lists, clone(state)), want)
+    ub, swept = lazy_greedy.fresh_bounds(m, n, dev)
+    got = lazy_greedy.lazy_compact(rows, k, ex, lists, clone(state),
+                                   ub.clone(), swept.clone())
+    _equal(got[:4], want)
+    _equal(got[:4], lazy_greedy.lazy_compact_plain(
+        rows, k, ex, lists, clone(state), ub.clone(), swept.clone())[:4])
+    assert all(0 <= int(t) <= k * tiles for t in got[4])
 
 
 @pytest.mark.parametrize("m,n,w,share", [(3, 1000, 36, 0.01),

@@ -14,7 +14,8 @@ from repro.core import maxcover as ref  # noqa: E402
 from repro.kernels.lazy_greedy import greedy_maxcover_lazy_pallas  # noqa: E402
 from repro_torch.core import maxcover  # noqa: E402
 from repro_torch.kernels import greedy_pick, lazy_greedy  # noqa: E402
-from tests.test_torch_maxcover import COMPACT_CASES, compact_case  # noqa: E402
+from tests.test_torch_maxcover import (COMPACT_CASES, HANDOVERS,  # noqa: E402
+                                       compact_case, dense_case, forced_cap)
 from tests.test_torch_ref import partitionable, to_port, u32, words  # noqa: E402,F401
 
 TILE = lazy_greedy.TILE_ROWS
@@ -153,3 +154,35 @@ def test_entries_needed_counts_the_listed_words_of_needed_tiles():
     assert stats["entries_needed"] == int(((rows != 0).sum(2) * free).sum())
     lazy_greedy.lazy_plain(rows, 8, ex, stats)
     assert stats["nonzero_words_needed"] <= stats["entries_needed"]
+
+
+@pytest.mark.parametrize("case,after", HANDOVERS)
+def test_lazy_dense_handover_matches_pallas_and_plain(case, after):
+    """The dense layout's lazy solve with its handover forced at a pick
+    (``cap`` the residual it counted there) or never: seeds, rows,
+    covered and gains equal the reference's lazy Pallas kernel
+    (interpret mode, per machine) and the plain solve bit for bit, the
+    tile bounds carried into the compact picks; ``tiles_swept`` (both
+    parts) in range.  Its residual counts bound the exact ones (a tile's
+    count is taken when it is swept)."""
+    rows, k, ex = dense_case(case)
+    port, exc = to_port(rows), torch.from_numpy(ex)
+    want = greedy_pick.greedy_plain(port, k, exc)
+    full, _, _ = lazy_greedy.lazy_dense_plain(port, k, exc)
+    exact = greedy_pick.greedy_dense_plain(port, k, exc)
+    assert (full.p0, full.spent) == (exact.p0, exact.spent)
+    assert all(a >= b for a, b in zip(full.residual, exact.residual))
+    cap, pick = forced_cap(full.residual, after, k)
+    stats = {}
+    *got, swept = lazy_greedy.lazy_dense(port, k, exc, cap=cap, stats=stats)
+    assert stats["handover_pick"] == pick
+    tiles = lazy_greedy.num_row_tiles(rows.shape[1])
+    assert all(tiles <= int(s) <= k * tiles for s in swept)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(u32(a), u32(b))
+    for j in range(rows.shape[0]):
+        ref_out = greedy_maxcover_lazy_pallas(jnp.asarray(rows[j]), k,
+                                              jnp.asarray(ex[j]),
+                                              interpret=True)
+        for a, b in zip([o[j] for o in got], ref_out[:4]):
+            np.testing.assert_array_equal(u32(a), u32(b))

@@ -307,3 +307,104 @@ def test_dense_rows_take_the_dense_sweep():
     _assert_same(got, greedy_pick.greedy_plain(
         rows, 5, greedy_pick.excluded_ids(None, 2, "cpu")))
     assert greedy_pick.row_lists(rows).entries is None
+
+
+def dense_case(case):
+    """(rows uint32 [m, n, W], k, excluded [m, E]) of small dense machine
+    rows (numpy from a seed): every word non-zero, exclusions (an id past
+    n among them), and a tie.  "exhausts": k well past the pick where
+    every machine's gains run out; "lasts": k before it; "uneven": as
+    "exhausts" but machine 1 holds two rows that can be picked, so its
+    gains run out many picks before machine 0's."""
+    m, n, w = 2, 40, 2
+    rng = np.random.default_rng(7)
+    rows = words(rng, (m, n, w), density=0.2)
+    rows |= np.uint32(1) << rng.integers(0, 32, (m, n, w)).astype(np.uint32)
+    rows[:, 9] = rows[:, 4]                     # a tie: lowest index wins
+    if case == "uneven":
+        rows[1, 3:] = 0
+    ex = np.array([[4, 17, -1], [0, n + 3, 22]], np.int32)
+    return rows, 4 if case == "lasts" else 24, ex
+
+
+# Where the dense picks hand over: after pick p (the compact picks go on
+# from p + 1), after the last pick with a positive gain, after pick k - 1
+# (no pick left), or never (cap 0).
+HANDOVERS = [("exhausts", 0), ("exhausts", 1), ("exhausts", 2),
+             ("exhausts", "last gain"), ("exhausts", "never"),
+             ("lasts", 0), ("lasts", 1), ("lasts", 2), ("lasts", "k - 1"),
+             ("lasts", "never"), ("uneven", 0), ("uneven", 1),
+             ("uneven", "last gain"), ("uneven", "never")]
+
+
+def forced_cap(residual, after, k):
+    """(cap, the handover_pick it gives) for a dense solve whose picks
+    count ``residual`` (with cap 0)."""
+    if after == "never":
+        return 0, None
+    p = {"last gain": len(residual) - 1, "k - 1": k - 1}.get(after, after)
+    cap = residual[p]
+    first = next(i for i, r in enumerate(residual) if r <= cap)
+    return cap, (first + 1 if first + 1 < k else None)
+
+
+@pytest.mark.parametrize("case,after", HANDOVERS)
+def test_dense_handover_matches_pallas_and_plain(case, after):
+    """The dense layout's solve with its handover to the compact picks
+    forced at a pick (``cap`` the residual counted there) or never:
+    equal to the reference's resident Pallas kernel (interpret mode, per
+    machine) and to the plain solve bit for bit; the picks count the
+    residual exactly (every untaken row's non-zero words of row &
+    ~cover) and stop where every machine's gains ran out."""
+    rows, k, ex = dense_case(case)
+    port, exc = to_port(rows), torch.from_numpy(ex)
+    want = greedy_pick.greedy_plain(port, k, exc)
+    full = greedy_pick.greedy_dense_plain(port, k, exc)
+    assert full.spent == (case != "lasts") and len(full.residual) == full.p0
+    if case == "uneven":        # machine 1 sweeps nothing after pick 2
+        assert (want[3] > 0).sum(1).tolist()[1] <= 2 < full.p0 - 4
+    assert full.p0 == (int((want[3] > 0).sum(1).max()) if full.spent else k)
+    taken = greedy_pick.start(port, k, exc).taken
+    cov = torch.zeros_like(want[2])
+    for p, count in enumerate(full.residual):   # the count before pick p
+        assert count == int(greedy_pick.residual_words(port, cov, taken).sum())
+        cov |= want[1][:, p]
+        taken[torch.arange(2), want[0][:, p].long().clamp(min=0)] |= (
+            want[0][:, p] >= 0)
+    cap, pick = forced_cap(full.residual, after, k)
+    stats = {}
+    got = greedy_pick.greedy_dense(port, k, exc, cap=cap, stats=stats)
+    assert stats["handover_pick"] == pick
+    assert stats["spent_pick"] == (full.p0 if pick is None and full.spent
+                                   else None)
+    _assert_same(got, want)
+    for j in range(rows.shape[0]):
+        ref_out = greedy_maxcover_resident_pallas(
+            jnp.asarray(rows[j]), k, jnp.asarray(ex[j]), interpret=True)
+        _assert_same([o[j] for o in got], ref_out)
+
+
+@pytest.mark.parametrize("after", [0, 1, 2])
+def test_residual_lists_the_untaken_rows_less_the_cover(after):
+    """The masked compaction lists exactly the non-zero words of row &
+    ~cover of the rows not taken, each with its word index; its count is
+    the dense picks' residual count at the handover at most, and a cap
+    below the count raises (no fallback: a count past the handover's cap
+    is a fault)."""
+    rows, k, ex = dense_case("exhausts")
+    port, exc = to_port(rows), torch.from_numpy(ex)
+    full = greedy_pick.greedy_dense_plain(port, k, exc)
+    state = greedy_pick.greedy_dense_plain(port, k, exc,
+                                           cap=full.residual[after])
+    assert state.p0 == after + 1
+    cov, taken = state.out[2], state.taken
+    lists = greedy_pick.residual_lists(port, state, full.residual[after])
+    masked = np.where(u32(taken)[:, :, None], 0, rows & ~u32(cov)[:, None])
+    nz = np.nonzero(masked)
+    assert lists.nonzero_words == len(nz[0]) <= full.residual[after]
+    np.testing.assert_array_equal(u32(lists.entries[:, 1]), masked[nz])
+    np.testing.assert_array_equal(lists.entries[:, 0].numpy(), nz[2])
+    assert lists.listed.tolist() == masked.any(2).sum(1).tolist()
+    assert not (np.repeat(u32(taken)[:, :, None], rows.shape[2], 2)[nz]).any()
+    with pytest.raises(RuntimeError, match="past the"):
+        greedy_pick.residual_lists(port, state, lists.nonzero_words - 1)

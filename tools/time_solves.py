@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the sender solves on one NVIDIA GPU.
 
-    python3 tools/time_solves.py [--axis query|machine|sweep] [--src DIR]
+    python3 tools/time_solves.py [--axis query|machine|sweep|handover]
+                                 [--src DIR]
                                  [--label NAME] [--shapes NAME ...]
 
 ``--axis query`` (the default): the serving batch's sender kernels.
@@ -23,9 +24,11 @@ chunks are zero.
 rows ([8, 32768, 1024]) and the fixed-theta round's shuffled rows ([8,
 32768, 4096]) of ER n = 262,144 at avg degree 4, and the supercritical
 configuration's (ER n = 32,768 at avg degree 76.3: IMM [8, 4096, 1024],
-the round at theta = 32,768 [8, 4096, 1024]).  Where this version has the
-compact layout it also times the compaction alone and each layout of
-each solve forced.
+the round at theta = 32,768 [8, 4096, 1024]; ``--shapes`` names some of
+them).  Where this version has the compact layout it also times the
+compaction alone and each layout of each solve forced; where its dense
+solves hand over to the compact picks, also the dense sweep forced to
+the end (``cap=0``), with the handover's pick and the residual counts.
 
 ``--axis sweep``: the layout rule's measurements.  Rows whose words are
 non-zero with a given share (each such word one random bit) at the IMM
@@ -36,6 +39,14 @@ the compact layout forced (one compaction at the list's size, its
 8-byte count read, the picks) and the wrapper with the layout it chose.
 Once the compact layout takes four times the dense one, larger shares
 skip it.
+
+``--axis handover``: the handover threshold's measurement.  Rows of the
+supercritical shape ([8, 4096, 1024], each non-zero word one random bit)
+whose residual after the first pick is a multiple of the handover's
+room (``greedy_pick.list_room``: 0.25, 0.5, 1, 2 and 4 times it); for
+each and each dense solve, the dense sweep forced to the end (``cap=0``)
+and the solve with its handover forced after the first pick (``cap``
+the residual counted there).
 
 Every input checks that all the solves of it agree bit for bit and
 prints a digest of the outputs: runs of two versions on the same inputs
@@ -68,6 +79,9 @@ SWEEP_SHAPES = {"imm": (8, 32768, 1024), "round": (8, 32768, 4096),
                 "imm m=2": (2, 131072, 1024), "imm m=32": (32, 8192, 1024),
                 "small m=3": (3, 1000, 36), "small m=8": (8, 1024, 128)}
 SWEEP_GIVE_UP = 4.0     # compact / dense time past which larger shares skip
+MACHINE_SHAPES = ("imm", "round", "imm supercritical", "round supercritical")
+HANDOVER_SHAPE = (8, 4096, 1024)
+HANDOVER_ROOMS = (0.25, 0.5, 1.0, 2.0, 4.0)
 
 
 def median_ms(fn, reps: int) -> float:
@@ -167,8 +181,9 @@ def query_axis(args, dev):
         del res, lazy, fused, pick
 
 
-def machine_rows(seed: int, dev):
-    """{name: rows int32 [m, n, W]} of the full-size runs' machine axis."""
+def machine_rows(seed: int, dev, wanted=MACHINE_SHAPES):
+    """{name: rows int32 [m, n, W]} of the full-size runs' machine axis,
+    those named in ``wanted``."""
     from repro_torch.core import greediris, prng, rrr
     from repro_torch.graphs import csr, generators
 
@@ -177,6 +192,8 @@ def machine_rows(seed: int, dev):
             ("", 262144, 4.0, 32768, 131072),
             (" supercritical", SUPERCRITICAL_N, SUPERCRITICAL_DEG,
              SUPERCRITICAL_THETA, SUPERCRITICAL_THETA)):
+        if not {"imm" + label, "round" + label} & set(wanted):
+            continue
         m = 8
         g = generators.erdos_renyi(n, deg, seed, device=dev)
         nbr, prob, wt = csr.padded_adjacency(g)
@@ -207,6 +224,36 @@ def solvers():
              lazy_greedy.lazy_dense, lazy_greedy.lazy_compact))
 
 
+def handovers():
+    """The dense picks up to the handover of the two machine-axis solves:
+    ``fn(rows, k, ex, cap) -> (state, *lazy state)``."""
+    from repro_torch.kernels import greedy_pick, lazy_greedy
+    return (lambda *a: (greedy_pick.dense_picks(*a),),
+            lazy_greedy.lazy_dense_picks)
+
+
+def handover_split(rows, k, ex, upto, picks, reps: int) -> dict:
+    """The parts of a dense solve with its handover: the dense launch up
+    to the handover with its tally's read (``dense_picks``), the
+    residual's compaction with its count's read (``lists``) and the
+    compact picks from the handover state (``compact_from``; each run on
+    a copy of the state, the copy inside the timing)."""
+    from repro_torch.kernels import greedy_pick
+    cap = greedy_pick.list_room(*rows.shape)
+    state, *lazy = upto(rows, k, ex, cap)
+    lists = greedy_pick.residual_lists(rows, state, cap)
+
+    def from_copy():
+        st = state._replace(out=tuple(o.clone() for o in state.out),
+                            taken=state.taken.clone())
+        return picks(rows, k, ex, lists, st, *(t.clone() for t in lazy))
+    return dict(
+        dense_picks=median_ms(lambda: upto(rows, k, ex, cap), reps),
+        lists=median_ms(lambda: greedy_pick.residual_lists(rows, state, cap),
+                        reps),
+        compact_from=median_ms(from_copy, reps))
+
+
 def exact_list(rows, count: int):
     """The list of ``rows`` built once at its size ``count`` (the count
     read back): the compact layout forced."""
@@ -220,7 +267,11 @@ def machine_axis(args, dev):
 
     k = 100
     compact = hasattr(greedy_pick, "row_lists")
-    for label, rows in machine_rows(args.seed, dev).items():
+    handover = hasattr(greedy_pick, "list_room")
+    wanted = [x for x in args.shapes or MACHINE_SHAPES if x in MACHINE_SHAPES]
+    for label, rows in machine_rows(args.seed, dev, wanted).items():
+        if label not in wanted:
+            continue
         m = rows.shape[0]
         ex = greedy_pick.excluded_ids(None, m, dev)
         stats = {}
@@ -252,6 +303,21 @@ def machine_axis(args, dev):
                     out[f"{name}_{layout}_ms"] = median_ms(fn, args.reps)
                 out[f"{name}_picks_ms"] = median_ms(
                     lambda: picks(rows, k, ex, lists), args.reps)
+        if handover:
+            for (name, _, dense, picks), upto in zip(solvers(), handovers()):
+                full, handed = {}, {}
+                dense(rows, k, ex, cap=0, stats=full)
+                if digest(dense(rows, k, ex, stats=handed)[:4]) != out[
+                        "digest"]:
+                    raise AssertionError(f"{label}: {name} dense differs")
+                out[f"{name}_full_sweep_ms"] = median_ms(
+                    lambda: dense(rows, k, ex, cap=0), args.reps)
+                out[f"{name}_handover_pick"] = handed["handover_pick"]
+                out[f"{name}_residual"] = full["residual"][:8]
+                out[f"{name}_spent_pick"] = full["spent_pick"]
+                out.update({f"{name}_{part}_ms": ms for part, ms in
+                            handover_split(rows, k, ex, upto, picks,
+                                           args.reps).items()})
         emit(**out)
         del res, lazy
 
@@ -276,7 +342,8 @@ def sweep_axis(args, dev):
     from repro_torch.kernels import greedy_pick
 
     k = 100
-    for label in args.shapes or SWEEP_SHAPES:
+    for label in [x for x in args.shapes or SWEEP_SHAPES
+                  if x in SWEEP_SHAPES]:
         shape = SWEEP_SHAPES[label]
         gave_up = set()
         for share in SWEEP_SHARES:
@@ -319,16 +386,51 @@ def sweep_axis(args, dev):
             torch.cuda.empty_cache()
 
 
+def handover_axis(args, dev):
+    from repro_torch.kernels import greedy_pick
+
+    k = 100
+    m, n, w = HANDOVER_SHAPE
+    room = greedy_pick.list_room(m, n, w)
+    ex = greedy_pick.excluded_ids(None, m, dev)
+    for rooms in HANDOVER_ROOMS:
+        rows = synthetic_rows(HANDOVER_SHAPE, rooms * room / (m * n * w),
+                              args.seed, dev)
+        out = dict(label=args.label, shape=list(HANDOVER_SHAPE),
+                   rooms=rooms, room=room)
+        want = None
+        for name, _, dense, _ in solvers():
+            full, handed = {}, {}
+            got = digest(dense(rows, k, ex, cap=0, stats=full)[:4])
+            cap = full["residual"][0]
+            want = got if want is None else want
+            if digest(dense(rows, k, ex, cap=cap, stats=handed)[:4]) != got \
+                    or got != want or handed["handover_pick"] != 1:
+                raise AssertionError(f"{rooms}: {name} differs or did not "
+                                     f"hand over after pick 0 {handed}")
+            out.update({f"{name}_residual": cap,
+                        f"{name}_full_sweep_ms": median_ms(
+                            lambda: dense(rows, k, ex, cap=0), args.reps),
+                        f"{name}_handover_ms": median_ms(
+                            lambda: dense(rows, k, ex, cap=cap), args.reps)})
+        out["digest"] = want
+        emit(**out)
+        del rows
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--axis", default="query",
-                    choices=("query", "machine", "sweep"))
+                    choices=("query", "machine", "sweep", "handover"))
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--label", default="")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--shapes", nargs="*", choices=tuple(SWEEP_SHAPES),
-                    help="the sweep's shapes (default: all)")
+    ap.add_argument("--shapes", nargs="*",
+                    choices=tuple(SWEEP_SHAPES) + MACHINE_SHAPES,
+                    help="the sweep's or the machine axis's shapes "
+                    "(default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_solves: no CUDA device", file=sys.stderr)
@@ -341,7 +443,7 @@ def main(argv=None) -> int:
         timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     {"query": query_axis, "machine": machine_axis,
-     "sweep": sweep_axis}[args.axis](args, dev)
+     "sweep": sweep_axis, "handover": handover_axis}[args.axis](args, dev)
     return 0
 
 
