@@ -4,7 +4,11 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
-holds each kernel against its plain PyTorch version on the card (exact
+runs the launch and footprint checker on the card (phase ``contracts``:
+every contract of ``repro_torch.analysis.contracts`` and the port's AST
+lint, each device function's static shared memory, registers and local
+memory, and the shared-memory model at the full-size shapes), holds
+each kernel against its plain PyTorch version on the card (exact
 equality: every output is integer words or ids, so the tolerance is
 zero), checks the kernel paths against the plain paths end to end at a
 small size (the IMM loop, the fixed-theta GreediRIS round and the
@@ -66,9 +70,10 @@ from repro_torch.core import (cascade, maxcover, randgreedi,  # noqa: E402
                               streaming)
 from repro_torch.graphs import csr, generators  # noqa: E402
 from repro_torch.core import service  # noqa: E402
+from repro_torch.analysis import check, contracts  # noqa: E402
 from repro_torch.kernels import (build, bucket, bucket_insert,  # noqa: E402
                                  coins, coverage, greedy_pick, lazy_greedy,
-                                 ops, rrr_expand, topk_gain)
+                                 ops, rrr_expand, smem_budget, topk_gain)
 from repro_torch.launch import im_driver, serve  # noqa: E402
 from tools.time_sampler import SamplerClock  # noqa: E402
 from tools.time_receiver import (imm_chunk, regime_inputs,  # noqa: E402
@@ -1101,8 +1106,8 @@ def parity_receivers(dev) -> dict:
 
 
 def parity_slice3(gen, dev) -> dict:
-    """bucket_gains at the receiver's shape (B = 63, W = 4096) and at odd
-    shapes and unaligned starts; the three query-axis kernels over one
+    """bucket_gains at the receiver's shape (B = 63, W = 4096), at odd
+    shapes, unaligned starts, one long row and many buckets; the three query-axis kernels over one
     shared pool, with a tie across tiles, exclusions (pads, ids past n)
     and a query that excludes nothing, at B = 8, at B = 1, at B = 16
     with W = 4096 (two query groups; dense rows, and sparse ones whose
@@ -1112,7 +1117,8 @@ def parity_slice3(gen, dev) -> dict:
     errs = dict.fromkeys(("bucket_gains", "greedy_pick_batch",
                           "lazy_greedy_batch", "topk_gain_batch"), 0)
     for b, w, off in ((63, 4096, 0), (1, 1, 0), (7, 33, 0), (64, 2053, 0),
-                      (63, 4096, 1), (5, 1029, 3)):
+                      (63, 4096, 1), (5, 1029, 3), (200, 4096, 0),
+                      (1, 65536, 0), (63, 4097, 0)):
         row = rand_words(gen, w + off, dev=dev)[off:]
         covers = (rand_words(gen, b, w + off, dev=dev)
                   & rand_words(gen, b, w + off, dev=dev))[:, off:].contiguous()
@@ -3173,8 +3179,12 @@ def serve_timings(dev, svc_lazy, trace) -> dict:
         "bucket_gains", lambda: [bucket.bucket_gains(row, covers)],
         lambda: [bucket.bucket_gains_plain(row, covers)], 50, 10,
         bytes_=4 * (b * w + w + b), words=b * w,
-        nonzero=int(((row[None] & ~covers) != 0).sum()))
-    rows_out["bucket_gains"].update(B=b, W=w)
+        nonzero=int(((row[None] & ~covers) != 0).sum()), hide_host=True)
+    # ms is the device span; the wrapper's time keeps the host's path to
+    # the launch (checks, the output's allocation, the C call)
+    rows_out["bucket_gains"].update(
+        B=b, W=w, cluster=bucket.launch_cluster(b, w, True, dev),
+        wrapper_ms=median_ms(lambda: bucket.bucket_gains(row, covers), 50))
 
     pool = svc_lazy.pool
     r1 = pool.r1
@@ -3322,6 +3332,52 @@ def spread_splits(dev, runs: dict):
         torch.cuda.empty_cache()
 
 
+def contracts_phase(dev) -> None:
+    """The launch and footprint checker on the card: every contract of
+    the registry and the AST lint (``repro_torch.analysis.check --all``),
+    one line a contract; every device function's static shared memory,
+    registers and local memory (``cudaFuncGetAttributes``); and the
+    model's dynamic shared memory of every launch at the full-size
+    shapes of PERF.md section 4 (``smem_budget.FULL_SIZE``), equal to the
+    C side's and within the opt-in limit with the static figure."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "contracts.json")
+        with contextlib.redirect_stdout(sys.stderr):
+            rc = check.main(["--all", "--device", "cuda", "--repo-root",
+                             ROOT, "--json", path])
+        with open(path) as fh:
+            report = json.load(fh)
+    for row in report["contracts"]:
+        emit(phase="contracts", **row)
+    emit(phase="contracts", name="ast-lint",
+         ok=not report["ast"]["violations"], **report["ast"])
+    table = contracts.device_kernels(dev)
+    emit(phase="kernel_attributes", kernels={
+        launch: [{k: e[k] for k in ("name", *contracts.ATTRIBUTES)}
+                 for e in entries] for launch, entries in table.items()})
+    budget = smem_budget.budget_bytes(dev)
+    shapes, bad = [], []
+    for kernel in ops.KERNELS:
+        entries = table[kernel]
+        static = max(e["static_smem"] for e in entries)
+        for cell, w, x in smem_budget.FULL_SIZE[kernel]:
+            dyn = smem_budget.launch_bytes(kernel, w, x)
+            row = dict(kernel=kernel, cell=cell, W=w, x=x, dynamic=dyn,
+                       c_dynamic=contracts.c_launch_bytes(
+                           entries[0]["lib"], kernel, w, x, dev),
+                       static=static,
+                       model_static=smem_budget.STATIC_BYTES[kernel])
+            row["ok"] = (row["c_dynamic"] == dyn and static
+                         == row["model_static"] and dyn + static <= budget)
+            shapes.append(row)
+            if not row["ok"]:
+                bad.append(row)
+    emit(phase="smem_full_size", budget=budget, shapes=shapes)
+    if rc or bad:
+        raise AssertionError(f"the contract checker failed (rc {rc}) or "
+                             f"the model disagrees at full size: {bad}")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3332,8 +3388,9 @@ def card_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--stop-after", choices=("build", "parity", "paths",
-                                             "full", "round", "serve"),
+    ap.add_argument("--stop-after", choices=("build", "contracts", "parity",
+                                             "paths", "full", "round",
+                                             "serve"),
                     help="end early after this phase (no result lines)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3355,6 +3412,10 @@ def main(argv=None) -> int:
             if "registers" in ln or "spill" in ln]
     emit(phase="build", seconds=build_s, ptxas=regs)
     if args.stop_after == "build":
+        return 0
+    contracts_phase(dev)
+    lap("contracts")
+    if args.stop_after == "contracts":
         return 0
 
     errs = parity_small(dev)

@@ -49,6 +49,18 @@ from repro_torch.graphs.csr import (CSRGraph, padded_adjacency,
                                     padded_forward_adjacency)
 from repro_torch.kernels import rrr_expand
 
+# The contract checker's declaration (``repro_torch/analysis/contracts.py``):
+# the kernel engine's launches a diffusion step, by model and gather.
+CONTRACT = dict(
+    family="cascade",
+    dtypes=("bool", "float32", "int32", "int64", "uint8"),
+    variants=dict(
+        kernel=dict(launches={"cascade_ic": 1}, per_step=True),
+        lt=dict(launches={"cascade_lt": 1}, per_step=True),
+        resident=dict(launches={"rrr_expand_resident": 1}, per_step=True),
+    ),
+)
+
 MODELS = ("IC", "LT", "WC")
 ENGINES = ("map", "packed", "kernel")
 

@@ -50,6 +50,17 @@ from repro_torch.graphs.csr import (CSRGraph, padded_adjacency,
 from repro_torch.runtime.faults import (FaultPlan, InjectedFault,
                                         fire as _fire_fault)
 
+# The contract checker's declaration (``repro_torch/analysis/contracts.py``):
+# a batch of queries solved in one launch.
+CONTRACT = dict(
+    family="service",
+    dtypes=("bool", "int32", "int64", "uint8"),
+    # G >= 2 queries' gains and keys spill from the 128 registers a
+    # thread of 512 may hold (32-112 bytes a thread)
+    variants=dict(batched=dict(launches={"greedy_pick_batch": 1},
+                               local_memory=("greedy_pick_batch",))),
+)
+
 # The reference's model codes (``repro/core/cascade.py:99``): a pool
 # snapshot stores the index into this tuple, so the codes must match.
 _MODELS = ("IC", "LT", "WC")

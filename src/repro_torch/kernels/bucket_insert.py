@@ -20,7 +20,19 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import bitset
-from repro_torch.kernels import build, ops
+from repro_torch.kernels import build, ops, smem_budget
+
+# The contract checker's declaration (``repro_torch/analysis/contracts.py``):
+# one launch a chunk or a whole stream, none for the scan.
+CONTRACT = dict(
+    family="bucket_insert",
+    dtypes=("bool", "float32", "int32", "int64"),
+    variants=dict(
+        chunk=dict(launches={"bucket_insert": 1}),
+        stream=dict(launches={"bucket_insert_stream": 1}),
+        scan_ref=dict(launches={}),
+    ),
+)
 
 _ARGS = [ops.PTR] * 10 + [ops.I64] * 4
 _STREAM_ARGS = [ops.PTR] * 10 + [ops.I64] * 5
@@ -201,13 +213,5 @@ def stream_chunk_capacity(num_words: int, device) -> int:
                                   [ops.I64])(num_words))
 
 
-def auto_chunk_size(num_words: int, total: int, device) -> int:
-    """The pipelined receiver's chunk size (stands in for the reference's
-    VMEM-budget solve, ``vmem_budget.receiver_chunk_size``): on a CUDA
-    device the stream kernel's capacity, at least 1; on the CPU the
-    whole stream.  At most the stream; results never depend on it."""
-    if torch.device(device).type == "cuda":
-        c = max(1, stream_chunk_capacity(num_words, device))
-    else:
-        c = max(1, total)
-    return min(c, total) if total > 0 else c
+# The pipelined receiver's chunk size: ``smem_budget``'s model.
+auto_chunk_size = smem_budget.auto_chunk_size

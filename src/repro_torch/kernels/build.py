@@ -85,12 +85,13 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def function(lib: str, fn: str, argtypes) -> ctypes._CFuncPtr:
+def function(lib: str, fn: str, argtypes,
+             restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """The C entry point ``fn`` of library ``lib``, built on first use."""
     if lib not in _loaded:
         build([lib])
         _loaded[lib] = ctypes.CDLL(str(lib_path(lib)))
     f = getattr(_loaded[lib], fn)
     f.argtypes = list(argtypes)
-    f.restype = ctypes.c_int
+    f.restype = restype
     return f

@@ -13,6 +13,14 @@ import torch
 from repro_torch.core import bitset
 from repro_torch.kernels import ops
 
+# The contract checker's declaration (``repro_torch/analysis/contracts.py``):
+# one sweep a Ripples pick.
+CONTRACT = dict(
+    family="coverage",
+    dtypes=("bool", "int32", "int64"),
+    variants=dict(ripples=dict(launches={"coverage": 1}, per_step=True)),
+)
+
 _ARGS = [ops.PTR] * 3 + [ops.I64] * 3
 
 

@@ -44,6 +44,7 @@
 #include <cuda_runtime.h>
 
 #include "gain_core.cuh"
+#include "kernel_table.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -297,11 +298,26 @@ struct Launch {
   int64_t B, N, W, k;
 };
 
+// One block a bucket, or a cluster of two blocks splitting its words
+// once one block's threads would hold more than one unit of a row each
+// (W > 1,024 words with 16-byte units: the round's W = 4,096); below
+// that the cluster barrier costs more than the half of the words saves.
+static int recv_cluster(int64_t W, bool vec) {
+  return RECV_CLUSTER ? RECV_CLUSTER : W / (vec ? 4 : 1) > THREADS ? 2 : 1;
+}
+
+// A block's dynamic shared memory: its share of the bucket's cover, in
+// units of 16 bytes (``vec``: rows and covers 16-byte aligned, W a
+// multiple of 4) or 4.
+static int64_t cover_share_bytes(int64_t W, bool vec) {
+  const int64_t unit = vec ? 16 : 4, cs = recv_cluster(W, vec);
+  return (W / (unit / 4) + cs - 1) / cs * unit;
+}
+
 template <int G, int CS, typename Unit>
 static int launch_as(const Launch& a, cudaStream_t st) {
   auto kern = settle_kernel<G, CS, Unit>;
-  constexpr int PER = sizeof(Unit) / sizeof(uint32_t);
-  const size_t smem = (size_t)(a.W / PER + CS - 1) / CS * sizeof(Unit);
+  const size_t smem = (size_t)cover_share_bytes(a.W, sizeof(Unit) == 16);
   if ((int64_t)smem + PART_BYTES > optin_smem()) return -2;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -328,17 +344,10 @@ static int launch_as(const Launch& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// One block a bucket, or a cluster of two blocks splitting its words
-// once one block's threads would hold more than one unit of a row each
-// (W > 1,024 words with 16-byte units: the round's W = 4,096); below
-// that the cluster barrier costs more than the half of the words saves.
 static int settle(const Launch& a, cudaStream_t st) {
   const bool vec = vec_rows(a.rows, a.W) && vec_rows(a.covers_in, a.W) &&
                    vec_rows(a.covers, a.W);
-  const int cluster = RECV_CLUSTER ? RECV_CLUSTER
-                      : a.W / (vec ? 4 : 1) > THREADS ? 2
-                                                      : 1;
-  if (cluster == 2)
+  if (recv_cluster(a.W, vec) == 2)
     return vec ? launch_as<RECV_GROUP, 2, uint4>(a, st)
                : launch_as<RECV_GROUP, 2, uint32_t>(a, st);
   return vec ? launch_as<RECV_GROUP, 1, uint4>(a, st)
@@ -380,3 +389,29 @@ extern "C" int bucket_insert_stream(const void* ids, const void* rows,
                  W,      k};
   return settle(a, (cudaStream_t)stream);
 }
+
+// The dynamic shared memory of a launch (kernel_table.cuh): a block's
+// share of the cover, x = 1 for 16-byte units, 0 for 4-byte ones.
+extern "C" int64_t launch_smem(const char* launch, int64_t W, int64_t x) {
+  if (same_launch(launch, "bucket_insert") ||
+      same_launch(launch, "bucket_insert_stream"))
+    return cover_share_bytes(W, x != 0);
+  return -1;
+}
+
+// Both launch names run the same four instantiations.
+#define SETTLE_ENTRIES(LAUNCH)                                              \
+  {LAUNCH, "settle_kernel<G, 1, uint4>",                                    \
+   (const void*)settle_kernel<RECV_GROUP, 1, uint4>, THREADS},              \
+      {LAUNCH, "settle_kernel<G, 1, uint32_t>",                             \
+       (const void*)settle_kernel<RECV_GROUP, 1, uint32_t>, THREADS},       \
+      {LAUNCH, "settle_kernel<G, 2, uint4>",                                \
+       (const void*)settle_kernel<RECV_GROUP, 2, uint4>, THREADS},          \
+      {LAUNCH, "settle_kernel<G, 2, uint32_t>",                             \
+       (const void*)settle_kernel<RECV_GROUP, 2, uint32_t>, THREADS}
+
+static const KernelEntry kKernels[] = {
+    SETTLE_ENTRIES("bucket_insert"),
+    SETTLE_ENTRIES("bucket_insert_stream"),
+};
+KERNEL_TABLE_EXPORTS(kKernels)

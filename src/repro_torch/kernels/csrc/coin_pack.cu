@@ -41,6 +41,7 @@
 #include <cuda_runtime.h>
 
 #include "gain_core.cuh"
+#include "kernel_table.cuh"
 #include "threefry.cuh"
 
 constexpr int kCoinThreads = 256;
@@ -146,3 +147,16 @@ extern "C" int coin_pack(const void* keys, const void* prob_p,
         (uint32_t*)plane);
   return (int)cudaGetLastError();
 }
+
+// The dynamic shared memory of a launch (kernel_table.cuh): none.
+extern "C" int64_t launch_smem(const char* launch, int64_t, int64_t) {
+  return same_launch(launch, "coin_pack") ? 0 : -1;
+}
+
+static const KernelEntry kKernels[] = {
+    {"coin_pack", "coin_pack_kernel<true>",
+     (const void*)coin_pack_kernel<true>, kCoinThreads},
+    {"coin_pack", "coin_pack_kernel<false>",
+     (const void*)coin_pack_kernel<false>, kCoinThreads},
+};
+KERNEL_TABLE_EXPORTS(kKernels)

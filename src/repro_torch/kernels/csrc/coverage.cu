@@ -11,6 +11,7 @@
 #include <cuda_runtime.h>
 
 #include "gain_core.cuh"
+#include "kernel_table.cuh"
 
 __global__ void coverage_kernel(const uint32_t* __restrict__ rows,
                                 const uint32_t* __restrict__ covered,
@@ -31,10 +32,20 @@ __global__ void coverage_kernel(const uint32_t* __restrict__ rows,
   }
 }
 
+constexpr int kThreads = 256;
+
+// A block's dynamic shared memory: the machine's cover of W words.
+static int64_t cover_bytes(int64_t W) { return W * (int64_t)sizeof(uint32_t); }
+
+// The dynamic shared memory of a launch (kernel_table.cuh).
+extern "C" int64_t launch_smem(const char* launch, int64_t W, int64_t) {
+  return same_launch(launch, "coverage") ? cover_bytes(W) : -1;
+}
+
 extern "C" int coverage(const void* rows, const void* covered, void* gains,
                         int64_t m, int64_t n, int64_t W, void* stream) {
-  const int threads = 256;
-  const size_t smem = (size_t)W * sizeof(uint32_t);
+  const int threads = kThreads;
+  const size_t smem = (size_t)cover_bytes(W);
   int dev = 0, sms = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -56,3 +67,8 @@ extern "C" int coverage(const void* rows, const void* covered, void* gains,
       vec_rows(rows, W), (int32_t*)gains);
   return (int)cudaGetLastError();
 }
+
+static const KernelEntry kKernels[] = {
+    {"coverage", "coverage_kernel", (const void*)coverage_kernel, kThreads},
+};
+KERNEL_TABLE_EXPORTS(kKernels)

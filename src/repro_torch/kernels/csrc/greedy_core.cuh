@@ -21,6 +21,15 @@
 // accumulators a lane) and keep G x 32 keys of scratch.
 constexpr int kMaxGroup = 8;
 
+// The dynamic shared memory of the senders' covers: one cover of W words
+// (the machine axis, the Ripples sweep), or a query group's G.
+inline int64_t cover_bytes(int64_t W) {
+  return W * (int64_t)sizeof(uint32_t);
+}
+inline int64_t group_cover_bytes(int64_t G, int64_t W) {
+  return G * cover_bytes(W);
+}
+
 // Host side: f(std::integral_constant<int, G>) for the runtime G, or -6
 // (no such instantiation).
 template <class F>
@@ -615,7 +624,7 @@ __device__ __forceinline__ unsigned long long warp_listed_best(
 // cudaError_t.
 template <class Kernel>
 inline int cover_smem(Kernel kernel, int64_t W, size_t* smem) {
-  *smem = (size_t)W * sizeof(uint32_t);
+  *smem = (size_t)cover_bytes(W);
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);

@@ -72,6 +72,7 @@
 #include <cuda_runtime.h>
 
 #include "greedy_core.cuh"
+#include "kernel_table.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -285,6 +286,8 @@ greedy_pick_batch_kernel(const uint32_t* __restrict__ rows,
   }
 }
 
+constexpr int kDenseThreads = 256;
+
 // The dense picks of m machines from pick 0: ``tally`` (uint64 [k + 2],
 // zeroed) gets each swept pick's residual count, then the picks made and
 // whether every machine's gains ran out; ``cap`` > 0 hands over after the
@@ -294,8 +297,8 @@ extern "C" int greedy_pick(const void* rows, const void* excluded, void* keys,
                            void* rows_out, void* covered, void* gains,
                            int64_t m, int64_t n, int64_t W, int64_t k,
                            int64_t E, int64_t cap, void* stream) {
-  const int threads = 256;
-  const size_t smem = (size_t)W * sizeof(uint32_t);
+  const int threads = kDenseThreads;
+  const size_t smem = (size_t)cover_bytes(W);
   int dev = 0, sms = 0, optin = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -404,7 +407,7 @@ static int launch_batch(const void* rows, const void* excluded, void* keys,
                         void* taken, void* seeds, void* rows_out,
                         void* covered, void* gains, int64_t B, int64_t n,
                         int64_t W, int64_t k, int64_t E, void* stream) {
-  const size_t smem = (size_t)G * W * sizeof(uint32_t);
+  const size_t smem = (size_t)group_cover_bytes(G, W);
   const int budget = greedy_pick_batch_budget();
   if (budget < 0) return -budget;
   if (smem > (size_t)budget) return -2;
@@ -445,3 +448,30 @@ extern "C" int greedy_pick_batch(const void* rows, const void* excluded,
                                             B, n, W, k, E, stream);
   });
 }
+
+// The dynamic shared memory of a launch (kernel_table.cuh): the cover of
+// W words (greedy_pick, greedy_pick_compact), a group's x covers
+// (greedy_pick_batch, x = G), none (compact_rows).
+extern "C" int64_t launch_smem(const char* launch, int64_t W, int64_t x) {
+  if (same_launch(launch, "greedy_pick") ||
+      same_launch(launch, "greedy_pick_compact"))
+    return cover_bytes(W);
+  if (same_launch(launch, "greedy_pick_batch"))
+    return group_cover_bytes(x, W);
+  if (same_launch(launch, "compact_rows")) return 0;
+  return -1;
+}
+
+static const KernelEntry kKernels[] = {
+    {"greedy_pick", "greedy_pick_kernel", (const void*)greedy_pick_kernel,
+     kDenseThreads},
+    {"compact_rows", "compact_rows_kernel<false>",
+     (const void*)compact_rows_kernel<false>, kCompactRowsThreads},
+    {"compact_rows", "compact_rows_kernel<true>",
+     (const void*)compact_rows_kernel<true>, kCompactRowsThreads},
+    {"greedy_pick_compact", "greedy_pick_compact_kernel",
+     (const void*)greedy_pick_compact_kernel, kCompactThreads},
+    GROUP_ENTRIES("greedy_pick_batch", greedy_pick_batch_kernel,
+                  kBatchThreads),
+};
+KERNEL_TABLE_EXPORTS(kKernels)

@@ -81,6 +81,7 @@
 #include <cuda_runtime.h>
 
 #include "greedy_core.cuh"
+#include "kernel_table.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -338,7 +339,7 @@ static const int kThreads = 256;
 // returns 0, a refusal (-2, -3) or a cudaError_t.
 static int plan(int64_t m, int64_t n, int64_t W, int64_t tile,
                 int64_t min_tiles_per_block, size_t* smem, int64_t* bpm) {
-  *smem = (size_t)W * sizeof(uint32_t);
+  *smem = (size_t)cover_bytes(W);
   int dev = 0, sms = 0, optin = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -581,7 +582,7 @@ extern "C" int lazy_greedy_batch_budget() {
 // dynamic shared memory; returns 0, -2 or a cudaError_t.
 template <int G>
 static int plan_batch(int64_t n, int64_t W, size_t* smem, int64_t* nb) {
-  *smem = (size_t)G * W * sizeof(uint32_t);
+  *smem = (size_t)group_cover_bytes(G, W);
   const int budget = lazy_greedy_batch_budget();
   if (budget < 0) return -budget;
   if (*smem > (size_t)budget) return -2;
@@ -641,3 +642,25 @@ extern "C" int lazy_greedy_batch(const void* rows, const void* excluded,
         rows_out, covered, gains, B, n, W, k, E, tile, stream);
   });
 }
+
+// The dynamic shared memory of a launch (kernel_table.cuh): the cover of
+// W words (lazy_greedy, lazy_greedy_compact), or a group's x covers
+// (lazy_greedy_batch, x = G).
+extern "C" int64_t launch_smem(const char* launch, int64_t W, int64_t x) {
+  if (same_launch(launch, "lazy_greedy") ||
+      same_launch(launch, "lazy_greedy_compact"))
+    return cover_bytes(W);
+  if (same_launch(launch, "lazy_greedy_batch"))
+    return group_cover_bytes(x, W);
+  return -1;
+}
+
+static const KernelEntry kKernels[] = {
+    {"lazy_greedy", "lazy_greedy_kernel", (const void*)lazy_greedy_kernel,
+     kThreads},
+    {"lazy_greedy_compact", "lazy_greedy_compact_kernel",
+     (const void*)lazy_greedy_compact_kernel, kCompactThreads},
+    GROUP_ENTRIES("lazy_greedy_batch", lazy_greedy_batch_kernel,
+                  kBatchThreads),
+};
+KERNEL_TABLE_EXPORTS(kKernels)

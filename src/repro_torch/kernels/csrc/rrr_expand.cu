@@ -51,6 +51,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "kernel_table.cuh"
 #include "threefry.cuh"
 
 static constexpr int kThreads = 256;
@@ -557,6 +558,14 @@ __global__ void cascade_ic_kernel(const uint32_t* __restrict__ frontier,
 
 static constexpr int kSharedKeyBytes = 48 * 1024;
 
+// The shared memory a cascade step stages its key table of ``words``
+// words in: all of it when it fits in kSharedKeyBytes, else none (the
+// table is read through the read-only cache).
+static size_t staged_key_bytes(int64_t words) {
+  const int64_t bytes = words * (int64_t)sizeof(uint32_t);
+  return bytes <= kSharedKeyBytes ? (size_t)bytes : 0;
+}
+
 extern "C" int cascade_ic(const void* frontier, const void* visited,
                           const void* nbr, const void* prob, const void* keys,
                           void* new_frontier, void* visited_out, void* count,
@@ -574,8 +583,8 @@ extern "C" int cascade_ic(const void* frontier, const void* visited,
   }
   const int table_words = (int)(2 * n_chunks * num_sims);
   const int64_t blocks = ((n * W << lg) + kThreads - 1) / kThreads;
-  const size_t bytes = sizeof(uint32_t) * (size_t)table_words;
-  if (bytes <= (size_t)kSharedKeyBytes)
+  const size_t bytes = staged_key_bytes(table_words);
+  if (bytes)
     cascade_ic_kernel<true><<<(unsigned)blocks, kThreads, bytes, s>>>(
         (const uint32_t*)frontier, (const uint32_t*)visited,
         (const int32_t*)nbr, (const float*)prob, (const uint32_t*)keys, n,
@@ -843,8 +852,8 @@ extern "C" int cascade_lt(const void* frontier, const void* visited,
     if (err != cudaSuccess) return (int)err;
   }
   const int64_t blocks = ((n * W << lg) + kThreads - 1) / kThreads;
-  const size_t bytes = 2 * sizeof(uint32_t) * (size_t)num_sims;
-  if (bytes <= (size_t)kSharedKeyBytes)
+  const size_t bytes = staged_key_bytes(2 * num_sims);
+  if (bytes)
     cascade_lt_kernel<true><<<(unsigned)blocks, kThreads, bytes, s>>>(
         (const uint32_t*)frontier, (const uint32_t*)visited,
         (const int32_t*)nbr, (const float*)cumw, (const int32_t*)rows,
@@ -858,3 +867,41 @@ extern "C" int cascade_lt(const void* frontier, const void* visited,
         (uint32_t*)new_frontier, (uint32_t*)visited_out, (uint32_t*)count);
   return (int)cudaGetLastError();
 }
+
+// The dynamic shared memory of a launch (kernel_table.cuh): the cascade
+// steps' staged key table, x its words (2 x n_chunks x num_sims for
+// cascade_ic, 2 x num_sims for cascade_lt); the other steps take none.
+extern "C" int64_t launch_smem(const char* launch, int64_t, int64_t x) {
+  if (same_launch(launch, "cascade_ic") || same_launch(launch, "cascade_lt"))
+    return (int64_t)staged_key_bytes(x);
+  if (same_launch(launch, "rrr_expand_resident") ||
+      same_launch(launch, "rrr_expand_streamed") ||
+      same_launch(launch, "rrr_expand_ic") ||
+      same_launch(launch, "rrr_expand_lt"))
+    return 0;
+  return -1;
+}
+
+static const KernelEntry kKernels[] = {
+    {"rrr_expand_resident", "lines_kernel<PlaneMask>",
+     (const void*)lines_kernel<PlaneMask>, kThreads},
+    {"rrr_expand_resident", "rows_kernel<PlaneMask>",
+     (const void*)rows_kernel<PlaneMask>, kThreads},
+    {"rrr_expand_streamed", "lines_kernel<GatheredMask>",
+     (const void*)lines_kernel<GatheredMask>, kThreads},
+    {"rrr_expand_streamed", "rows_kernel<GatheredMask>",
+     (const void*)rows_kernel<GatheredMask>, kThreads},
+    {"rrr_expand_ic", "push_ic_kernel", (const void*)push_ic_kernel,
+     kThreads},
+    {"cascade_ic", "cascade_ic_kernel<true>",
+     (const void*)cascade_ic_kernel<true>, kThreads},
+    {"cascade_ic", "cascade_ic_kernel<false>",
+     (const void*)cascade_ic_kernel<false>, kThreads},
+    {"rrr_expand_lt", "push_lt_kernel", (const void*)push_lt_kernel,
+     kThreads},
+    {"cascade_lt", "cascade_lt_kernel<true>",
+     (const void*)cascade_lt_kernel<true>, kThreads},
+    {"cascade_lt", "cascade_lt_kernel<false>",
+     (const void*)cascade_lt_kernel<false>, kThreads},
+};
+KERNEL_TABLE_EXPORTS(kKernels)

@@ -33,6 +33,9 @@
 #include <cuda_runtime.h>
 
 #include "greedy_core.cuh"
+#include "kernel_table.cuh"
+
+constexpr int kThreads = 256;
 
 __global__ void best_gain_kernel(const uint32_t* __restrict__ rows,
                                  const uint32_t* __restrict__ covered,
@@ -96,7 +99,7 @@ __global__ void decode_kernel(const unsigned long long* __restrict__ keys,
 
 static int decode(const void* keys, void* best, void* index, int64_t m,
                   cudaStream_t s) {
-  decode_kernel<<<1, 256, 0, s>>>((const unsigned long long*)keys, m,
+  decode_kernel<<<1, kThreads, 0, s>>>((const unsigned long long*)keys, m,
                                   (int32_t*)best, (int32_t*)index);
   return (int)cudaGetLastError();
 }
@@ -105,8 +108,8 @@ extern "C" int best_gain_index(const void* rows, const void* covered,
                                const void* picked, void* keys, void* best,
                                void* index, int64_t m, int64_t n, int64_t W,
                                void* stream) {
-  const int threads = 256;
-  const size_t smem = (size_t)W * sizeof(uint32_t);
+  const int threads = kThreads;
+  const size_t smem = (size_t)cover_bytes(W);
   int dev = 0, sms = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -151,7 +154,7 @@ template <int G>
 static int launch_group(const void* rows, const void* covered,
                         const void* picked, void* keys, int64_t q0, int64_t n,
                         int64_t W, bool vec, cudaStream_t s) {
-  const size_t smem = (size_t)G * W * sizeof(uint32_t);
+  const size_t smem = (size_t)group_cover_bytes(G, W);
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -183,7 +186,7 @@ extern "C" int best_gain_index_batch(const void* rows, const void* covered,
   if (G < 1 || G > kMaxGroup) return -6;
   const int budget = topk_gain_batch_budget();
   if (budget < 0) return -budget;
-  if ((size_t)G * W * sizeof(uint32_t) > (size_t)budget) return -2;
+  if (group_cover_bytes(G, W) > budget) return -2;
   const bool vec = vec_rows(rows, W);
   cudaStream_t s = (cudaStream_t)stream;
   for (int64_t q0 = 0; q0 < B; q0 += G) {
@@ -196,3 +199,22 @@ extern "C" int best_gain_index_batch(const void* rows, const void* covered,
   }
   return decode(keys, best, index, B, s);
 }
+
+// The dynamic shared memory of a launch (kernel_table.cuh): the cover of
+// W words (topk_gain), or a group's x covers (topk_gain_batch, x = G;
+// a ragged last group asks for its own size).
+extern "C" int64_t launch_smem(const char* launch, int64_t W, int64_t x) {
+  if (same_launch(launch, "topk_gain")) return cover_bytes(W);
+  if (same_launch(launch, "topk_gain_batch")) return group_cover_bytes(x, W);
+  return -1;
+}
+
+static const KernelEntry kKernels[] = {
+    {"topk_gain", "best_gain_kernel", (const void*)best_gain_kernel,
+     kThreads},
+    {"topk_gain", "decode_kernel", (const void*)decode_kernel, kThreads},
+    GROUP_ENTRIES("topk_gain_batch", best_gain_batch_kernel, kBatchThreads),
+    {"topk_gain_batch", "decode_kernel", (const void*)decode_kernel,
+     kThreads},
+};
+KERNEL_TABLE_EXPORTS(kKernels)

@@ -39,35 +39,36 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import bitset
-from repro_torch.kernels import build, ops, topk_gain
+from repro_torch.kernels import ops, smem_budget, topk_gain
+
+# The contract checker's declaration (``repro_torch/analysis/contracts.py``):
+# a machine-axis solve's launches, by layout (the dense one handing over
+# once), and the scan reference's none.
+CONTRACT = dict(
+    family="greedy_pick",
+    dtypes=("bool", "int8", "int32", "int64", "uint8"),
+    variants=dict(
+        resident=dict(launches={"compact_rows": 1, "greedy_pick_compact": 1}),
+        dense=dict(launches={"greedy_pick": 1, "compact_rows": 1,
+                             "greedy_pick_compact": 1}),
+        scan_ref=dict(launches={}),
+    ),
+)
 
 _ARGS = [ops.PTR] * 9 + [ops.I64] * 6
 _BATCH_ARGS = [ops.PTR] * 8 + [ops.I64] * 6
 _COMPACT_ARGS = [ops.PTR] * 10 + [ops.I64] * 4
 _COMPACT_PICK_ARGS = [ops.PTR] * 12 + [ops.I64] * 6
-# The largest query group the query-axis kernels are built for
-# (``kMaxGroup`` in ``csrc/greedy_core.cuh``).
-MAX_GROUP = 8
 # ``kTileRows`` in ``csrc/greedy_core.cuh``: the list keeps the rows of
 # each tile of this many rows together (a warp lane a row), the lazy
 # solve's tiles.
 LIST_TILE_ROWS = 32
-# The layout rule (:func:`compact_pays`), set from both layouts forced on
-# rows with 0.01% to 50% of their words non-zero at m = 2, 8 and 32
-# (``tools/time_solves.py --axis sweep``, NVIDIA H100 80GB HBM3, 700 W).
-# The compact picks run on one block a machine, where an entry costs
-# 0.45-1.3 ns (a row of more than four entries takes the whole warp, one
-# row at a time), and the list mostly misses L2 once it is long; the
-# dense sweep streams every word over all SMs at about 1.3 ps a word.  So
-# the compact layout pays while the list holds at most
-# m' x (words / COMPACT_WORDS_PER_ENTRY + COMPACT_BLOCK_ENTRIES) entries,
-# m' = min(m, COMPACT_MAX_MACHINES): a block's share of the list then
-# costs it no more than the dense sweep costs the card, the second term
-# standing for the dense sweep's grid-wide syncs in each pick.  m' stops
-# at 16: at m = 32 the lazy solves crossed below m / 1024 of the words.
-COMPACT_WORDS_PER_ENTRY = 1024
-COMPACT_BLOCK_ENTRIES = 1024
-COMPACT_MAX_MACHINES = 16
+# The layout rule (:func:`compact_pays`) and the query groups:
+# ``smem_budget``'s model.
+MAX_GROUP = smem_budget.MAX_GROUP
+compact_capacity = smem_budget.compact_capacity
+list_room = smem_budget.list_room
+query_groups = smem_budget.query_groups
 
 
 class RowLists(NamedTuple):
@@ -86,24 +87,10 @@ class RowLists(NamedTuple):
     nonzero_words: int
 
 
-def compact_capacity(words: int, m: int) -> int:
-    """The longest list of ``words`` dense words over ``m`` machines on
-    which the compact layout pays (the constants above)."""
-    return min(m, COMPACT_MAX_MACHINES) * (
-        words // COMPACT_WORDS_PER_ENTRY + COMPACT_BLOCK_ENTRIES)
-
-
 def compact_pays(entries: int, words: int, m: int) -> bool:
     """The compact layout pays for a list of ``entries`` non-zero words of
     ``words`` dense words over ``m`` machines."""
     return entries <= compact_capacity(words, m)
-
-
-def list_room(m: int, n: int, w: int) -> int:
-    """Entries of the one list allocation of rows [m, n, W]: the longest
-    list the compact layout takes, at most every word.  Also the
-    residual at which a dense solve hands over (:func:`greedy_dense`)."""
-    return min(compact_capacity(m * n * w, m), m * n * w)
 
 
 class Partial(NamedTuple):
@@ -408,27 +395,10 @@ def report(stats: dict | None, lists: RowLists) -> None:
                      listed_rows=int(lists.listed.sum()))
 
 
-def query_groups(b: int, num_words: int, budget: int) -> tuple[int, int]:
-    """(G, groups) for B queries of ``num_words``-word covers when a block
-    may give ``budget`` bytes of shared memory to covers: G is as many
-    queries as the budget and :data:`MAX_GROUP` allow, at most B, and
-    the last group holds the rest (12 queries go 8 + 4).  A cover wider
-    than the budget still gets G = 1, and the kernel refuses it."""
-    if b < 1:
-        raise ValueError(f"need at least one query, got {b}")
-    g = max(1, min(MAX_GROUP, b, budget // (4 * num_words)))
-    return g, -(-b // g)
-
-
 def query_plan(lib: str, b: int, num_words: int, device) -> tuple[int, int]:
     """:func:`query_groups` with the shared-memory budget of ``lib``'s
-    query-axis kernel on the CUDA ``device``."""
-    with torch.cuda.device(device):
-        budget = int(build.function(lib, f"{lib}_batch_budget", [])())
-    if budget <= 0:
-        raise RuntimeError(f"{lib}: CUDA error {-budget} reading the "
-                           "shared-memory budget")
-    return query_groups(b, num_words, budget)
+    query-axis kernel on the CUDA ``device`` (``smem_budget.query_budget``)."""
+    return query_groups(b, num_words, smem_budget.query_budget(lib, device))
 
 
 def outputs(m: int, k: int, w: int, device):

@@ -34,6 +34,22 @@ import torch
 
 from repro_torch.kernels import build, coverage, greedy_pick, ops
 
+# The contract checker's declaration (``repro_torch/analysis/contracts.py``):
+# a lazy solve's launches on either layout, and the query axis's one.
+CONTRACT = dict(
+    family="lazy_greedy",
+    dtypes=("bool", "int8", "int32", "int64", "uint8"),
+    variants=dict(
+        resident=dict(launches={"compact_rows": 1, "lazy_greedy_compact": 1}),
+        dense=dict(launches={"lazy_greedy": 1, "compact_rows": 1,
+                             "lazy_greedy_compact": 1}),
+        # G >= 2 queries' gains and keys spill from the 128 registers
+        # a thread of 512 may hold (32-112 bytes a thread)
+        batch=dict(launches={"lazy_greedy_batch": 1},
+                   local_memory=("lazy_greedy_batch",)),
+    ),
+)
+
 TILE_ROWS = greedy_pick.LIST_TILE_ROWS
 # Tiles each block of the machine axis owns at least, so that a pick's
 # first phase (every block's largest-bound tile) leaves most tiles to the

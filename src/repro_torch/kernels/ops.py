@@ -5,7 +5,8 @@ take the kernel's plain PyTorch version, tensors on a CUDA device launch
 the kernel — there is no fallback between the two.  :func:`launch`
 calls the C entry point on ``torch.cuda.current_stream()``, raises if it
 returns an error, and only then adds one to that kernel's count in
-:data:`LAUNCHES` (so a run can show that it went through the kernels).
+:data:`LAUNCHES` (so a run can show that it went through the kernels)
+and notes the launch in the active :data:`RECORDER`, if any.
 The ``*_batch`` counts are the query-axis launches of the sender
 kernels: B queries over one shared row pool, which ``greedy_pick_batch``,
 ``lazy_greedy_batch`` and ``topk_gain_batch`` read once per pick for
@@ -31,6 +32,9 @@ KERNELS = ("rrr_expand_resident", "rrr_expand_streamed", "rrr_expand_ic",
            "compact_rows", "greedy_pick_compact", "lazy_greedy_compact")
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+# The recorder of ``repro_torch.analysis.trace_check`` while one is
+# active: :func:`launch` notes each launch in it.  None: nothing is noted.
+RECORDER = None
 # Machine-axis solves on the dense layout since the counts were last
 # reset that handed over to the compact picks, by dense kernel
 # (``greedy_pick.hand_over``).
@@ -96,3 +100,5 @@ def launch(kernel: str, lib: str, fn: str, argtypes, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA error {err} at launch")
     LAUNCHES[kernel] += 1
+    if RECORDER is not None:
+        RECORDER.note_launch(kernel)

@@ -77,6 +77,20 @@ from repro_torch.core import bitset, prng
 from repro_torch.core.prng import Key
 from repro_torch.kernels import coins, ops
 
+# The contract checker's declaration (``repro_torch/analysis/contracts.py``):
+# the kernel sampler's launches a BFS step, by layout and model.
+CONTRACT = dict(
+    family="rrr_expand",
+    dtypes=("bool", "float32", "int32", "int64", "uint8"),
+    variants=dict(
+        resident=dict(launches={"rrr_expand_ic": 1}, per_step=True),
+        # lines_kernel<GatheredMask> keeps a 16-byte stack frame
+        streamed=dict(launches={"coin_pack": 1, "rrr_expand_streamed": 1},
+                      per_step=True, local_memory=("rrr_expand_streamed",)),
+        lt=dict(launches={"rrr_expand_lt": 1}, per_step=True),
+    ),
+)
+
 _RESIDENT_ARGS = [ops.PTR] * 11 + [ops.I64] * 4
 _STREAMED_ARGS = [ops.PTR] * 10 + [ops.I64] * 3
 _IC_ARGS = [ops.PTR, ops.I64] + [ops.PTR] * 8 + [ops.I64] * 5

@@ -16,6 +16,19 @@ import torch
 
 from repro_torch.kernels import coverage, ops
 
+# The contract checker's declaration (``repro_torch/analysis/contracts.py``):
+# one launch a pick, on either axis.
+CONTRACT = dict(
+    family="topk_gain",
+    dtypes=("bool", "int32", "int64"),
+    variants=dict(
+        fused=dict(launches={"topk_gain": 1}, per_step=True),
+        # best_gain_batch_kernel<7> keeps an 8-byte stack frame
+        batch=dict(launches={"topk_gain_batch": 1}, per_step=True,
+                   local_memory=("topk_gain_batch",)),
+    ),
+)
+
 _ARGS = [ops.PTR] * 6 + [ops.I64] * 3
 _BATCH_ARGS = [ops.PTR] * 6 + [ops.I64] * 4
 

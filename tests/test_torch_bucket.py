@@ -1,6 +1,8 @@
 """Port parity: ``bucket_gains`` (TPU kernel #9) — the plain version
 against the reference's Pallas kernel in interpret mode and its jnp
-oracle, exact, for any B and any W (no padding on the port's side)."""
+oracle, exact, for any B and any W (no padding on the port's side),
+including the shapes whose word axis the card's kernel splits over a
+cluster of blocks or cannot split (W not a multiple of 4)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -14,8 +16,9 @@ from repro_torch.kernels import bucket, ops  # noqa: E402
 from tests.test_torch_ref import to_port, u32, words  # noqa: E402
 
 
-@pytest.mark.parametrize("b", [1, 7, 63, 64])
-@pytest.mark.parametrize("w", [1, 33, 1024, 2053])
+@pytest.mark.parametrize("b", [1, 7, 63, 64, 200])
+@pytest.mark.parametrize("w", [1, 3, 33, 1024, 2053, 4095, 4096, 4097,
+                               65536])
 def test_bucket_gains_matches_pallas_and_oracle(b, w):
     rng = np.random.default_rng(b * 10007 + w)
     row = words(rng, (w,), density=0.5)

@@ -12,9 +12,10 @@ import numpy as np  # noqa: E402
 from repro_torch.core import (bitset, cascade, greediris, imm,  # noqa: E402
                               maxcover, prng, rrr)
 from repro_torch.graphs import csr, generators  # noqa: E402
+from repro_torch.analysis import contracts  # noqa: E402
 from repro_torch.kernels import (bucket, bucket_insert, coins,  # noqa: E402
                                  coverage, greedy_pick, lazy_greedy, ops,
-                                 rrr_expand, topk_gain)
+                                 rrr_expand, smem_budget, topk_gain)
 from repro_torch.launch import serve  # noqa: E402
 from tools import time_receiver  # noqa: E402
 
@@ -997,18 +998,34 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
             torch.zeros(2, device=dev))
 
 
-@pytest.mark.parametrize("b,w", [(1, 1), (7, 33), (63, 4096), (64, 2053),
-                                 (3, 4099)])
+@pytest.mark.parametrize("b", [1, 3, 7, 63, 64, 200])
+@pytest.mark.parametrize("w", [1, 3, 33, 2053, 4095, 4096, 4097, 4099,
+                               65536])
 def test_bucket_gains(dev, b, w):
+    """Every cluster size the launch takes (one block a bucket where W is
+    narrow or B fills the card, up to 8 blocks a bucket of a long row),
+    on 16-byte and 4-byte loads."""
     gen = torch.Generator().manual_seed(b * w)
-    row = _words(gen, w, dev=dev)
-    covers = _words(gen, b, w, dev=dev) & _words(gen, b, w, dev=dev)
+    row = _words(gen, w + 1, dev=dev)
+    covers = _words(gen, b, w + 1, dev=dev) & _words(gen, b, w + 1, dev=dev)
     covers[0] = 0
-    _equal([bucket.bucket_gains(row, covers)],
-           [bucket.bucket_gains_plain(row, covers)])
+    _equal([bucket.bucket_gains(row[:w], covers[:, :w].contiguous())],
+           [bucket.bucket_gains_plain(row[:w], covers[:, :w])])
     # unaligned starts take the 4-byte path
     _equal([bucket.bucket_gains(row[1:], covers[:, 1:].contiguous())],
            [bucket.bucket_gains_plain(row[1:], covers[:, 1:])])
+
+
+def test_bucket_gains_cluster(dev):
+    """The receiver's shape (B = 63, W = 4,096) splits each bucket over a
+    cluster of blocks, as the model says; narrow rows take one block."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b, w, vec in ((63, 4096, True), (63, 4097, False), (1, 65536, True),
+                      (200, 4096, True), (63, 3, False), (1, 1, False)):
+        assert (bucket.launch_cluster(b, w, vec, dev)
+                == bucket.cluster_size(b, w, vec, sms))
+    assert bucket.launch_cluster(63, 4096, True, dev) > 1
+    assert bucket.launch_cluster(63, 3, False, dev) == 1
 
 
 @pytest.mark.parametrize("n,w,k,b,case", [
@@ -1131,3 +1148,81 @@ def test_serve_check_on_card_equals_the_cpu(dev):
         assert got["rc"] == 0 and want["rc"] == 0
         assert all(serve.answers_equal(a, b)
                    for a, b in zip(got["answers"], want["answers"]))
+
+
+# ------------------------------------------------ the launch and footprint
+# checker (repro_torch.analysis) and the shared-memory model
+
+def _model_shapes():
+    """(kernel, W, x) of every full-size shape (smem_budget.FULL_SIZE)
+    and of every contract fixture (its declared shapes, on the CPU)."""
+    out = {(k, w, x) for k, shapes in smem_budget.FULL_SIZE.items()
+           for _, w, x in shapes}
+    for c in contracts.build_registry():
+        fixture = c.build(torch.device("cpu"))
+        out |= {(k, *fixture.shapes[k]) for k, n in c.launches.items() if n}
+    return sorted(out)
+
+
+def test_smem_model_equals_the_c_side(dev):
+    """The model's dynamic figure equals each library's ``launch_smem`` at
+    every fixture and full-size shape, its static figure the largest
+    ``cudaFuncGetAttributes`` of the launch's device functions, its budget
+    the card's opt-in limit, and the query budgets and the receiver's
+    chunk capacity the C side's."""
+    table = contracts.device_kernels(dev)
+    assert set(table) == set(ops.KERNELS)
+    for kernel, w, x in _model_shapes():
+        lib = table[kernel][0]["lib"]
+        assert (contracts.c_launch_bytes(lib, kernel, w, x, dev)
+                == smem_budget.launch_bytes(kernel, w, x)), (kernel, w, x)
+    for kernel, entries in table.items():
+        assert (max(e["static_smem"] for e in entries)
+                == smem_budget.STATIC_BYTES[kernel]), kernel
+    assert smem_budget.budget_bytes(dev) == smem_budget.HOPPER_OPTIN_BYTES
+    for lib in ("greedy_pick", "lazy_greedy", "topk_gain"):
+        assert smem_budget.query_budget(lib, dev) == smem_budget.query_budget(
+            lib)
+    for w in (1, 11, 1024, 4096, 20000, 60000):
+        assert (bucket_insert.stream_chunk_capacity(w, dev)
+                == smem_budget.stream_chunk_capacity(w, dev))
+
+
+def test_no_local_memory_where_contracts_allow_none(dev):
+    """No device function of a contract's launches keeps local memory (a
+    stack frame or spills) unless the contract allows it."""
+    table = contracts.device_kernels(dev)
+    for c in contracts.build_registry():
+        for kernel, n in c.launches.items():
+            if n and kernel not in c.local_memory:
+                assert all(e["local_bytes"] == 0 for e in table[kernel]), (
+                    c.name, kernel, table[kernel])
+
+
+@pytest.mark.parametrize("name", [
+    "rrr_expand.resident", "rrr_expand.streamed", "rrr_expand.lt",
+    "greedy_pick.resident", "greedy_pick.scan_ref", "greedy_pick.dense",
+    "lazy_greedy.resident", "lazy_greedy.dense", "lazy_greedy.batch",
+    "topk_gain.fused", "topk_gain.batch", "coverage.ripples",
+    "bucket_insert.chunk", "bucket_insert.stream", "bucket_insert.scan_ref",
+    "bucket.gains", "cascade.kernel", "cascade.lt", "cascade.resident",
+    "service.batched"])
+def test_contract_on_card(dev, name):
+    """Each contract holds on the card (launch counts, layout, dtypes,
+    shared memory, local memory, co-residency), and its fixture gives the
+    plain versions' outputs on the CPU."""
+    c = contracts.contracts_by_name()[name]
+    report = contracts.run_contract(c, dev)
+    assert report.ok, report.violations
+    assert report.stats["launches"] or not any(c.launches.values())
+    got = _leaves(c.build(dev).fn())
+    want = _leaves(c.build(torch.device("cpu")).fn())
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b), name
+
+
+def _leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for y in x for t in _leaves(y)]
