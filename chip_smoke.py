@@ -42,7 +42,13 @@ every kernel at the shapes those runs gave it (the receivers also at the
 supercritical shapes, with the passes, accepts and rows read of their
 grouped settlement beside each time), splits the spread into
 its parts (phase ``spread_split``) and ranks the kernels by the time each
-loses over those runs (phase ``order``).  Prints JSON lines; the line before the last
+loses over those runs (phase ``order``).  Phase ``lm``, after the serving
+replay, drives the LM scaffold (``tools/time_lm.py``): the six ported
+SMOKE architectures on the card against the CPU, gemma-7b's full config
+through prefill and 16 decode steps against its forward, gemma-7b at
+full width cut to 2 layers through 3 train steps and a microbatched
+gradient, and mamba2-370m's full config through ``launch.train`` with
+``--coreset`` (the fused receiver) and a checkpoint resumed bit for bit.  Prints JSON lines; the line before the last
 lists the kernels, the last line is the device summary.  Exits non-zero
 without a CUDA device or on any failure.  Imports nothing of JAX.
 """
@@ -79,6 +85,7 @@ from tools.time_sampler import SamplerClock  # noqa: E402
 from tools.time_receiver import (imm_chunk, regime_inputs,  # noqa: E402
                                  round_stream, summary)
 from tools.time_spread import split_spread  # noqa: E402
+from tools.time_lm import lm_phase  # noqa: E402
 from tools.timing import median_ms  # noqa: E402
 
 # The slice's command: SNAP com-DBLP scale (317k vertices, 1.05M edges),
@@ -3390,7 +3397,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--stop-after", choices=("build", "contracts", "parity",
                                              "paths", "full", "round",
-                                             "serve"),
+                                             "serve", "lm"),
                     help="end early after this phase (no result lines)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3454,6 +3461,10 @@ def main(argv=None) -> int:
     full.update(serve_launches)
     lap("serve")
     if args.stop_after == "serve":
+        return 0
+    lm_phase(dev, card, emit)
+    lap("lm")
+    if args.stop_after == "lm":
         return 0
     rows = serve_timings(dev, svc_lazy, trace)
     del svc_lazy

@@ -12,7 +12,9 @@ numpy arrays.
 * all but the newest ``keep`` steps are deleted after each write;
 * ``restore`` loads the newest intact step (or a requested one),
   verifies the CRCs, and rebuilds the tree: torch leaves as tensors on
-  ``device``, numpy leaves as arrays.
+  the device of their template leaf (on the host where the template
+  leaf is no tensor) or on ``device`` when one is given, numpy leaves
+  as arrays.
 
 The ``checkpoint.write`` fault site fires before the tmp directory
 exists, so an injected failure never publishes a partial step.
@@ -32,27 +34,28 @@ import torch
 
 from repro_torch.runtime.faults import (FaultPlan, InjectedFault,
                                         fire as _fire_fault)
+from repro_torch.tree import is_record, tree_map
 
 
 def _flatten(tree):
-    """(leaves, treedef) of nested dicts: keys in sorted order, as
-    ``jax.tree`` orders them."""
-    if not isinstance(tree, dict):
-        return [tree], "*"
-    leaves, defs = [], []
-    for k in sorted(tree):
-        sub, d = _flatten(tree[k])
-        leaves += sub
-        defs.append((k, d))
-    return leaves, defs
-
-
-def _unflatten(treedef, leaves):
-    it = iter(leaves)
-
-    def build(d):
-        return next(it) if d == "*" else {k: build(s) for k, s in d}
-    return build(treedef)
+    """(leaves, treedef) of nested dicts and NamedTuples: dict keys in
+    sorted order and record fields in their order, as ``jax.tree``
+    orders them."""
+    if isinstance(tree, dict):
+        leaves, defs = [], []
+        for k in sorted(tree):
+            sub, d = _flatten(tree[k])
+            leaves += sub
+            defs.append((k, d))
+        return leaves, defs
+    if is_record(tree):
+        leaves, defs = [], []
+        for f in tree._fields:
+            sub, d = _flatten(getattr(tree, f))
+            leaves += sub
+            defs.append((f, d))
+        return leaves, {"record": type(tree).__name__, "fields": defs}
+    return [tree], "*"
 
 
 def _to_host(leaf):
@@ -159,8 +162,10 @@ class CheckpointStore:
         return sorted(out)
 
     def restore(self, template: Any, step: Optional[int] = None,
-                device="cpu"):
+                device=None):
         """Load into the structure of ``template`` and verify the CRCs.
+        A torch leaf goes to ``device`` if given, else to its template
+        leaf's device (the host where that leaf is no tensor).
         Returns (tree, step), or (None, -1) when the store is empty."""
         steps = self.list_steps()
         if not steps:
@@ -169,7 +174,7 @@ class CheckpointStore:
         d = os.path.join(self.root, f"step_{step:09d}")
         with open(os.path.join(d, "MANIFEST.json")) as f:
             manifest = json.load(f)
-        leaves, treedef = _flatten(template)
+        leaves, _ = _flatten(template)
         if manifest["num_leaves"] != len(leaves):
             raise ValueError("checkpoint/template structure mismatch: "
                              f"{manifest['num_leaves']} leaves stored, "
@@ -187,7 +192,11 @@ class CheckpointStore:
             if meta["kind"] == "torch":
                 t = torch.from_numpy(arr)
                 want = getattr(torch, meta["dtype"].removeprefix("torch."))
-                out.append((t.view(want) if t.dtype != want else t).to(device))
+                to = (device if device is not None else
+                      leaves[i].device if isinstance(leaves[i], torch.Tensor)
+                      else "cpu")
+                out.append((t.view(want) if t.dtype != want else t).to(to))
             else:
                 out.append(arr)
-        return _unflatten(treedef, out), step
+        it = iter(out)
+        return tree_map(lambda _: next(it), template), step

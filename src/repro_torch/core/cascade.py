@@ -39,6 +39,7 @@ of 1.0 fires surely) and LT (live-edge form).
 from __future__ import annotations
 
 import contextlib
+from typing import Literal
 
 import torch
 
@@ -48,6 +49,8 @@ from repro_torch.core.rrr import GATHERS, _coin_chunks, xla_cumsum
 from repro_torch.graphs.csr import (CSRGraph, padded_adjacency,
                                     padded_forward_adjacency)
 from repro_torch.kernels import rrr_expand
+
+Model = Literal["IC", "LT", "WC"]
 
 # The contract checker's declaration (``repro_torch/analysis/contracts.py``):
 # the kernel engine's launches a diffusion step, by model and gather.

@@ -44,7 +44,7 @@ path, and on ``frontier.any()`` for the plain path.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Literal, Optional
 
 import torch
 
@@ -52,6 +52,8 @@ from repro_torch.core import bitset
 from repro_torch.core.prng import Key
 from repro_torch.graphs.csr import padded_adjacency, padded_forward_adjacency
 from repro_torch.kernels import coins, rrr_expand
+
+Model = Literal["IC", "LT"]
 
 SAMPLERS = ("dense", "packed", "kernel")
 GATHERS = ("resident", "streamed", "auto")

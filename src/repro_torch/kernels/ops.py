@@ -102,3 +102,20 @@ def launch(kernel: str, lib: str, fn: str, argtypes, *args) -> None:
     LAUNCHES[kernel] += 1
     if RECORDER is not None:
         RECORDER.note_launch(kernel)
+
+
+# The reference's public kernel entry points (``repro/kernels/ops.py``),
+# defined in ``kernels.public``: the kernel modules import this one, so
+# the names resolve on first use.
+PUBLIC = ("marginal_gain", "bucket_gains", "best_gain_index",
+          "greedy_maxcover_resident", "greedy_maxcover_resident_batch",
+          "greedy_maxcover_lazy", "greedy_maxcover_lazy_batch",
+          "rrr_expand_step", "rrr_expand_step_resident",
+          "bucket_insert_chunk", "bucket_insert_stream")
+
+
+def __getattr__(name: str):
+    if name in PUBLIC:
+        from repro_torch.kernels import public
+        return getattr(public, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
