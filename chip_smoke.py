@@ -43,12 +43,16 @@ supercritical shapes, with the passes, accepts and rows read of their
 grouped settlement beside each time), splits the spread into
 its parts (phase ``spread_split``) and ranks the kernels by the time each
 loses over those runs (phase ``order``).  Phase ``lm``, after the serving
-replay, drives the LM scaffold (``tools/time_lm.py``): the six ported
-SMOKE architectures on the card against the CPU, gemma-7b's full config
-through prefill and 16 decode steps against its forward, gemma-7b at
-full width cut to 2 layers through 3 train steps and a microbatched
-gradient, and mamba2-370m's full config through ``launch.train`` with
-``--coreset`` (the fused receiver) and a checkpoint resumed bit for bit.  Prints JSON lines; the line before the last
+replay, drives the LM scaffold (``tools/time_lm.py``): all ten SMOKE
+architectures on the card against the CPU, gemma-7b's and
+recurrentgemma-2b's full configs through prefill and 16 decode steps
+against their forwards, deepseek-v3 at full width cut to one dense and
+one MoE layer through prefill and 16 absorbed MLA decode steps against
+its forward (with its MTP head), gemma-7b and recurrentgemma-2b at full
+width cut in depth through 3 train steps (gemma's with a microbatched
+gradient), and mamba2-370m's and seamless-m4t-large-v2's full configs
+through ``launch.train`` with ``--coreset`` (the fused receiver) and a
+checkpoint resumed bit for bit.  Prints JSON lines; the line before the last
 lists the kernels, the last line is the device summary.  Exits non-zero
 without a CUDA device or on any failure.  Imports nothing of JAX.
 """

@@ -8,7 +8,9 @@ numpy arrays.
   caller frees or overwrites afterwards;
 * a step is written to ``<root>/step_<n>.tmp`` and renamed (atomic
   publish), with a MANIFEST.json holding each file's CRC32, shape,
-  dtype and kind (torch or numpy);
+  dtype and kind (torch or numpy); the CRC is taken of the bytes as
+  they are written, and ``restore`` reads each file once, so a file
+  crosses the disk once each way;
 * all but the newest ``keep`` steps are deleted after each write;
 * ``restore`` loads the newest intact step (or a requested one),
   verifies the CRCs, and rebuilds the tree: torch leaves as tensors on
@@ -21,6 +23,7 @@ exists, so an injected failure never publishes a partial step.
 """
 from __future__ import annotations
 
+import io
 import json
 import os
 import queue
@@ -56,6 +59,17 @@ def _flatten(tree):
             defs.append((f, d))
         return leaves, {"record": type(tree).__name__, "fields": defs}
     return [tree], "*"
+
+
+class _CRCWriter:
+    """A file's ``write`` that also takes the CRC32 of what it writes."""
+
+    def __init__(self, f):
+        self.f, self.crc = f, 0
+
+    def write(self, data):
+        self.crc = zlib.crc32(data, self.crc)
+        return self.f.write(data)
 
 
 def _to_host(leaf):
@@ -131,10 +145,10 @@ class CheckpointStore:
                     "treedef": json.dumps(treedef), "files": {}}
         for i, (arr, kind, dtype) in enumerate(leaves):
             fn = f"leaf_{i:05d}.npy"
-            path = os.path.join(tmp, fn)
-            np.save(path, arr)
-            with open(path, "rb") as f:
-                crc = zlib.crc32(f.read())
+            with open(os.path.join(tmp, fn), "wb") as f:
+                out = _CRCWriter(f)
+                np.save(out, arr)
+            crc = out.crc
             manifest["files"][fn] = {"crc32": crc, "shape": list(arr.shape),
                                      "dtype": dtype, "kind": kind}
         with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
@@ -184,11 +198,12 @@ class CheckpointStore:
             fn = f"leaf_{i:05d}.npy"
             path = os.path.join(d, fn)
             with open(path, "rb") as f:
-                crc = zlib.crc32(f.read())
+                data = f.read()
             meta = manifest["files"][fn]
-            if crc != meta["crc32"]:
+            if zlib.crc32(data) != meta["crc32"]:
                 raise IOError(f"CRC mismatch in {path}")
-            arr = np.load(path)
+            arr = np.load(io.BytesIO(data))
+            del data
             if meta["kind"] == "torch":
                 t = torch.from_numpy(arr)
                 want = getattr(torch, meta["dtype"].removeprefix("torch."))

@@ -42,15 +42,35 @@ def tensor_from_reference(arr, *, device="cuda") -> torch.Tensor:
 
 def params_from_reference(tree, cfg, *, device="cuda"):
     """The port's parameter tree from the reference's (nested dicts of
-    numpy arrays).  The two layouts share every path and shape
-    (``stack{i}/slot{j}/...`` with the leading [count] axis), so this is
-    a plain map; raises if the stacks do not match ``cfg``'s plan."""
+    numpy arrays).  The two layouts share every path and shape, so this
+    is a plain map once the tree's top level is checked against
+    ``cfg``: a decoder-only tree has ``stack{i}/slot{j}/...`` with the
+    leading [count] axis, one stack an entry of the plan, and an ``mtp``
+    subtree exactly when ``cfg.mtp_depth`` (its ``layer`` unstacked:
+    ``ln1`` is [d_model]); the encoder-decoder's has ``encoder`` and
+    ``decoder`` stacks, ``enc_norm``, ``dec_norm`` and ``head``.  Raises
+    on a tree that does not match."""
     from repro_torch.models.transformer import build_plan
-    want = {f"stack{i}" for i in range(len(build_plan(cfg)))}
-    got = {k for k in tree if k.startswith("stack")}
-    if got != want:
-        raise ValueError(f"stacks {sorted(got)} do not match the plan of "
-                         f"{cfg.name} ({sorted(want)})")
+    if cfg.is_encoder_decoder:
+        want = {"embed", "head", "enc_norm", "dec_norm", "encoder",
+                "decoder"}
+        if set(tree) != want:
+            raise ValueError(f"{sorted(tree)} is not the encoder-decoder "
+                             f"tree of {cfg.name} ({sorted(want)})")
+    else:
+        want = {f"stack{i}" for i in range(len(build_plan(cfg)))}
+        got = {k for k in tree if k.startswith("stack")}
+        if got != want:
+            raise ValueError(f"stacks {sorted(got)} do not match the plan "
+                             f"of {cfg.name} ({sorted(want)})")
+        if ("mtp" in tree) != bool(cfg.mtp_depth):
+            raise ValueError(f"{cfg.name}: mtp_depth {cfg.mtp_depth}, "
+                             f"the tree {'has' if 'mtp' in tree else 'lacks'}"
+                             " an mtp subtree")
+        if "mtp" in tree and np.shape(tree["mtp"]["layer"]["ln1"]) != (
+                cfg.d_model,):
+            raise ValueError("the mtp layer must be unstacked: ln1 is "
+                             f"{np.shape(tree['mtp']['layer']['ln1'])}")
     dev = resolve_device(device)
 
     def conv(t):
@@ -60,7 +80,29 @@ def params_from_reference(tree, cfg, *, device="cuda"):
     return conv(tree)
 
 
+def caches_from_reference(caches, *, device="cuda"):
+    """The port's caches from the reference's (``KVCache``,
+    ``RGLRUCache``, ``SSMCache`` records of numpy arrays, in the lists
+    and dicts the model's ``init_caches`` builds)."""
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.rglru import RGLRUCache
+    from repro_torch.models.ssm import SSMCache
+    records = {c.__name__: c for c in (KVCache, RGLRUCache, SSMCache)}
+    dev = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)) and not hasattr(t, "_fields"):
+            return type(t)(conv(v) for v in t)
+        if hasattr(t, "_fields"):
+            return records[type(t).__name__](*(conv(v) for v in t))
+        return tensor_from_reference(t, device=dev)
+    return conv(caches)
+
+
 def batch_from_reference(batch, *, device="cuda"):
-    """A batch dict (``tokens``, ``patches``) from numpy arrays."""
+    """A batch dict (``tokens``, ``patches``, ``frames``) from numpy
+    arrays."""
     return {k: tensor_from_reference(v, device=device)
             for k, v in batch.items()}

@@ -12,8 +12,8 @@ technique at the data layer; on the card through the fused receiver).
 Same flags and ``[train]`` lines as the reference, plus ``--device``
 (default ``cuda``) and a closing ``[train] timing`` line: the median
 step's wall seconds, tokens per second and the device's peak memory.
-The families of the LM scaffold's part 2 (MoE, MLA, RG-LRU, the
-encoder-decoder) raise ``NotImplementedError``.
+Every ``--arch`` runs: the encoder-decoder's batches carry stub frame
+embeddings, the VLM's stub patch embeddings.
 """
 from __future__ import annotations
 
@@ -38,9 +38,17 @@ from repro_torch.tree import tree_leaves
 
 def make_data_fn(cfg, batch: int, seq: int, seed: int, coreset: bool, dev):
     """The launcher's batches: ``data_fn(step)`` -> {"tokens" [batch,
-    seq + 1] (+ "patches" for the VLM)}.  With ``coreset``, a pool of
-    2 x ``batch`` pipeline rows goes through the streaming max-cover and
-    the picked rows (padded with unpicked ones) are the batch."""
+    seq + 1] (+ "frames" [batch, seq, d_model] for the encoder-decoder,
+    "patches" [batch, num_patches, d_model] for the VLM)}.  With
+    ``coreset``, a pool of 2 x ``batch`` pipeline rows goes through the
+    streaming max-cover and the picked rows (padded with unpicked ones)
+    are the batch.
+
+    The frames and patches stand in for a modality frontend, as the
+    reference's do: standard normals in bf16, drawn on ``dev`` from a
+    torch generator seeded with the bits of the step's key
+    ``fold_in(key(seed), step)`` (the reference draws them with
+    ``jax.random.normal`` under that key, so the values differ)."""
     pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                     global_batch=batch, seed=seed),
                          device=dev)
@@ -61,12 +69,16 @@ def make_data_fn(cfg, batch: int, seq: int, seed: int, coreset: bool, dev):
         else:
             tokens = pipe.batch(step)
         out = {"tokens": tokens}
-        if cfg.family == "vlm":
-            k = prng.key(seed).fold_in(step)
-            out["patches"] = torch.randn(
-                (batch, cfg.num_patches, cfg.d_model),
-                generator=generator((k.k0 << 32) | k.k1, dev), device=dev,
+        k = prng.key(seed).fold_in(step)
+
+        def normals(shape):
+            return torch.randn(shape, generator=generator(
+                (k.k0 << 32) | k.k1, dev), device=dev,
                 dtype=torch.float32).to(torch.bfloat16)
+        if cfg.is_encoder_decoder:
+            out["frames"] = normals((batch, seq, cfg.d_model))
+        if cfg.family == "vlm":
+            out["patches"] = normals((batch, cfg.num_patches, cfg.d_model))
         return out
 
     return data_fn
@@ -151,8 +163,14 @@ def main(argv=None, report: dict | None = None):
             state, start = restored, ck_step
             report["restored_step"], report["restored"] = ck_step, restored
             print(f"[train] restored checkpoint at step {start}")
+        del restored
         t_last[0] = time.time()
-        state, final = sup.run(state, step_fn, timed_data, args.steps,
+        # the supervisor holds the only reference to the starting state,
+        # so it is freed after the first step (a fresh state: one copy
+        # of the parameters and moments less at the peak)
+        box = [state]
+        del state
+        state, final = sup.run(box.pop(), step_fn, timed_data, args.steps,
                                start_step=start, on_metrics=on_metrics)
     else:
         t_last[0] = time.time()

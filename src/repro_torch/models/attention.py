@@ -1,5 +1,5 @@
-"""Attention blocks: GQA/MQA/MHA, local windows and position-explicit
-caches — twin of the GQA half of ``repro.models.attention``.
+"""Attention blocks: GQA/MQA/MHA, MLA (DeepSeek), local windows and
+position-explicit caches — twin of ``repro.models.attention``.
 
 ``chunked_attention`` is the reference's blockwise formulation in plain
 PyTorch operations: for each query block, a loop over key blocks with a
@@ -11,7 +11,10 @@ Caches are position-explicit ring buffers: slot i stores absolute
 position ``pos[i]`` (``EMPTY_POS`` = empty, masked out by the causal
 test), so windowed architectures decode against a fixed buffer.
 
-MLA (DeepSeek) raises :data:`repro_torch.models.PART2`.
+MLA decode uses the *absorbed* formulation: q_nope is folded through
+the k up-projection so the per-step attention runs directly against
+the compressed c_kv cache — the cache stays [S, kv_lora + rope] per
+token instead of [S, 2 * H * head_dim].
 """
 from __future__ import annotations
 
@@ -20,16 +23,15 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.models import PART2
 from repro_torch.models.common import (ModelConfig, apply_rope, constrain,
-                                       make_rope, truncated_normal)
+                                       make_rope, rms_norm, truncated_normal)
 
 EMPTY_POS = 1 << 30
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor       # [B, T, KVH, hd]
-    v: torch.Tensor       # [B, T, KVH, hd]
+    k: torch.Tensor       # [B, T, KVH, hd]   (MLA: c_kv [B, T, kv_lora])
+    v: torch.Tensor       # [B, T, KVH, hd]   (MLA: k_rope [B, T, rope])
     pos: torch.Tensor     # int32 [T] absolute position per slot
     length: torch.Tensor  # int32 [] total tokens ever written
 
@@ -209,12 +211,97 @@ def init_cache_gqa(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 
 # --------------------------------------------------------------------
-# MLA (DeepSeek-V3): the LM scaffold, part 2
+# MLA block (DeepSeek-V3)
 # --------------------------------------------------------------------
 
-def init_mla(gen, cfg: ModelConfig):
-    raise NotImplementedError(f"MLA attention: {PART2}")
+def init_mla(gen: torch.Generator, cfg: ModelConfig):
+    d, h = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    sc = 1.0 / math.sqrt(d)
+    zeros = dict(dtype=cfg.pdtype, device=gen.device)
+    params = {
+        "wq_a": truncated_normal(gen, (d, qr), cfg.pdtype, sc),
+        "q_norm": torch.zeros((qr,), **zeros),
+        "wq_b": truncated_normal(gen, (qr, h, nd + rd), cfg.pdtype,
+                                 1.0 / math.sqrt(qr)),
+        "wkv_a": truncated_normal(gen, (d, kvr + rd), cfg.pdtype, sc),
+        "kv_norm": torch.zeros((kvr,), **zeros),
+        "wk_b": truncated_normal(gen, (kvr, h, nd), cfg.pdtype,
+                                 1.0 / math.sqrt(kvr)),
+        "wv_b": truncated_normal(gen, (kvr, h, vd), cfg.pdtype,
+                                 1.0 / math.sqrt(kvr)),
+        "wo": truncated_normal(gen, (h, vd, d), cfg.pdtype,
+                               1.0 / math.sqrt(h * vd)),
+    }
+    specs = {
+        "wq_a": ("fsdp", None), "q_norm": (None,),
+        "wq_b": ("fsdp", "tp", None),
+        "wkv_a": ("fsdp", None), "kv_norm": (None,),
+        "wk_b": (None, "tp", None), "wv_b": (None, "tp", None),
+        "wo": ("tp", None, "fsdp"),
+    }
+    return params, specs
 
 
-def mla_attention(p, x, positions, cfg: ModelConfig, rules, *, cache=None):
-    raise NotImplementedError(f"MLA attention: {PART2}")
+def mla_attention(p, x, positions, cfg: ModelConfig, rules, *,
+                  cache: Optional[KVCache] = None):
+    """MLA; cache holds (c_kv [B,T,kvr], k_rope [B,T,rd], pos [T]).
+    Prefill and forward expand K and V from c_kv and attend blockwise;
+    a one-token decode against a cache attends in the kv_lora space."""
+    s = x.shape[1]
+    nd, rd = cfg.qk_nope_dim, cfg.qk_rope_dim
+    scale = 1.0 / math.sqrt(nd + rd)
+
+    cq = rms_norm(torch.einsum("bsd,dr->bsr", x, p["wq_a"]), p["q_norm"],
+                  cfg.rmsnorm_eps)
+    q = torch.einsum("bsr,rhk->bshk", cq, p["wq_b"])
+    qn, qr_ = q[..., :nd], q[..., nd:]
+    ckv_full = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])
+    ckv = rms_norm(ckv_full[..., :cfg.kv_lora_rank], p["kv_norm"],
+                   cfg.rmsnorm_eps)
+    krope = ckv_full[..., cfg.kv_lora_rank:]
+    sin, cos = make_rope(positions, rd, cfg.rope_theta, x.dtype)
+    qr_ = apply_rope(qr_, sin, cos)
+    krope = apply_rope(krope[:, :, None, :], sin, cos)[:, :, 0, :]
+
+    new_cache = (_cache_write(cache, ckv, krope, positions)
+                 if cache is not None else None)
+
+    if cache is not None and s == 1:
+        # absorbed decode in the compressed kv_lora space: bf16
+        # products, fp32 sums for the two score terms
+        ckv_all, kr_all, kv_pos = new_cache.k, new_cache.v, new_cache.pos
+        q_abs = torch.einsum("bshn,rhn->bshr", qn, p["wk_b"])
+        s_c = _f32_einsum("bshr,btr->bhst", q_abs,
+                          ckv_all.to(q_abs.dtype))
+        s_r = _f32_einsum("bshk,btk->bhst", qr_, kr_all.to(qr_.dtype))
+        logits = (s_c + s_r) * scale
+        valid = kv_pos[None, :] <= positions[..., -1:]
+        logits = torch.where(valid[:, None, None, :], logits, -1e30)
+        w = torch.softmax(logits, dim=-1).to(x.dtype)
+        ctx = torch.einsum("bhst,btr->bshr", w, ckv_all.to(x.dtype))
+        out = torch.einsum("bshr,rhv->bshv", ctx, p["wv_b"])
+    else:
+        k_nope = torch.einsum("btr,rhn->bthn", ckv, p["wk_b"])
+        v = torch.einsum("btr,rhv->bthv", ckv, p["wv_b"])
+        k = torch.cat([k_nope, krope[:, :, None, :].expand(
+            *k_nope.shape[:3], rd)], dim=-1)
+        qfull = torch.cat([qn, qr_], dim=-1)
+        out = chunked_attention(qfull, k, v, q_pos=positions,
+                                kv_pos=positions, causal=True, scale=scale,
+                                q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    y = torch.einsum("bshv,hvd->bsd", out, p["wo"])
+    return constrain(y, ("dp", None, None), rules), new_cache
+
+
+def init_cache_mla(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device):
+    return KVCache(
+        k=torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                      device=device),
+        v=torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype,
+                      device=device),
+        pos=torch.full((max_len,), EMPTY_POS, dtype=torch.int32,
+                       device=device),
+        length=torch.zeros((), dtype=torch.int32, device=device))

@@ -176,7 +176,7 @@ def truncated_normal(gen: torch.Generator, shape, dtype, scale):
     the generator's device."""
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * scale).to(dtype)
+    return t.mul_(scale).to(dtype)       # in place: one fp32 copy at peak
 
 
 def generator(seed: int, device) -> torch.Generator:

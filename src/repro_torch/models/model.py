@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import resolve_device
+from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import ModelConfig, generator, mesh_rules
 from repro_torch.optim import adamw
@@ -47,6 +48,9 @@ class ModelBundle:
         return steps_lib.make_decode_step(self.cfg, self.rules)
 
     def init_caches(self, batch: int, max_len: int):
+        if self.cfg.is_encoder_decoder:
+            return encdec_lib.init_caches(self.cfg, batch, max_len,
+                                          self.cfg.cdtype, self.device)
         return tfm.init_caches(self.cfg, batch, max_len, self.cfg.cdtype,
                                self.device)
 
@@ -54,10 +58,8 @@ class ModelBundle:
 def build(cfg: ModelConfig, opt_cfg: Optional[adamw.OptConfig] = None,
           multi_pod: bool = False, sharded: bool = True, *,
           device="cuda") -> ModelBundle:
-    """The bundle of ``cfg`` on ``device``; part-2 families raise.
-    ``sharded`` keeps the reference's mesh rules as data (nothing is
-    sharded on one card)."""
-    tfm.check_supported(cfg)
+    """The bundle of ``cfg`` on ``device``.  ``sharded`` keeps the
+    reference's mesh rules as data (nothing is sharded on one card)."""
     return ModelBundle(cfg=cfg, opt_cfg=opt_cfg or adamw.OptConfig(),
                        rules=mesh_rules(multi_pod) if sharded else {},
                        device=resolve_device(device))

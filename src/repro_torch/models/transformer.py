@@ -1,21 +1,22 @@
-"""Decoder-only transformer stack — twin of ``repro.models.transformer``
-for the dense, VLM and Mamba-2 families.
+"""Decoder-only transformer stack for all assigned LM architectures —
+twin of ``repro.models.transformer``.
 
-Layer mixers dispatch on the config pattern: "attn" (GQA) and "ssd"
-(Mamba-2); the FFN is dense or absent.  Consecutive identical layers
-form a *stack* whose parameters carry a leading [count] axis, as the
-reference's scanned stacks do (``count == 1`` included), so the two
-packages' parameter trees have the same paths and shapes.  A stack runs
+Layer mixers dispatch on the config pattern: "attn" (GQA), "mla"
+(DeepSeek), "rglru" (RecurrentGemma), "ssd" (Mamba-2); the FFN is dense,
+MoE or absent per layer.  Consecutive identical layers form a *stack*
+whose parameters carry a leading [count] axis, as the reference's
+scanned stacks do (``count == 1`` included), so the two packages'
+parameter trees have the same paths and shapes; hybrid patterns
+(RecurrentGemma's rec-rec-attn) stack as a repeating unit.  A stack runs
 as a Python loop over its units; with ``cfg.remat`` and gradients on,
 each unit runs under ``torch.utils.checkpoint`` (the reference's
-``jax.checkpoint`` of the scan body).
-
-"mla", "rglru", MoE FFNs and multi-token prediction raise
-:data:`repro_torch.models.PART2`.
+``jax.checkpoint`` of the scan body).  The multi-token-prediction head's
+layer is not stacked: its leaves have no [count] axis.
 
 Public entry points (used by ``models.model``):
   init_model(gen, cfg)       -> (params, specs)
   forward(params, cfg, rules, tokens/embeds, positions, caches, ...)
+  mtp_logits(params, cfg, rules, hidden, next_tokens, positions)
   init_caches(cfg, batch, max_len, dtype, device)
 """
 from __future__ import annotations
@@ -26,9 +27,10 @@ from typing import List, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import PART2
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (ModelConfig, const, constrain,
                                        rms_norm, truncated_normal)
@@ -81,31 +83,23 @@ def build_plan(cfg: ModelConfig) -> List[Tuple[Tuple[LayerSpec, ...], int]]:
     return plan
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise :data:`PART2` for a family this part of the port lacks.
-    Every entry point (init, caches, the steps) checks first, so the
-    layers below meet only "attn" and "ssd" mixers, dense or no FFN."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"the encoder-decoder: {PART2}")
-    if cfg.mtp_depth:
-        raise NotImplementedError(f"multi-token prediction: {PART2}")
-    for unit, _ in build_plan(cfg):
-        for mixer, ffn_kind, _ in unit:
-            if mixer not in ("attn", "ssd"):
-                raise NotImplementedError(f"mixer {mixer!r}: {PART2}")
-            if ffn_kind == "moe":
-                raise NotImplementedError(f"the MoE FFN: {PART2}")
-
-
 # --------------------------- init -----------------------------------
 
 def _init_layer(gen, cfg: ModelConfig, spec: LayerSpec):
     mixer, ffn_kind, _ = spec
     if mixer == "attn":
         mp, ms = attn_lib.init_gqa(gen, cfg)
-    else:
+    elif mixer == "mla":
+        mp, ms = attn_lib.init_mla(gen, cfg)
+    elif mixer == "rglru":
+        mp, ms = rglru_lib.init_rglru(gen, cfg)
+    elif mixer == "ssd":
         mp, ms = ssm_lib.init_ssd(gen, cfg)
-    if ffn_kind == "none":
+    else:
+        raise ValueError(mixer)
+    if ffn_kind == "moe":
+        fp, fs = moe_lib.init_moe(gen, cfg)
+    elif ffn_kind == "none":
         fp, fs = {}, {}
     else:
         fp, fs = ffn_lib.init_ffn(gen, cfg)
@@ -151,7 +145,6 @@ def _map_specs(fn, specs):
 def init_model(gen: torch.Generator, cfg: ModelConfig):
     """(params, specs) of the stack; weights drawn from ``gen`` on its
     device."""
-    check_supported(cfg)
     plan = build_plan(cfg)
     params: dict = {}
     specs: dict = {}
@@ -171,54 +164,90 @@ def init_model(gen: torch.Generator, cfg: ModelConfig):
         p, s = _stack_init(gen, cfg, unit, count)
         params[f"stack{si}"] = p
         specs[f"stack{si}"] = s
+    if cfg.mtp_depth:
+        # DeepSeek-V3 multi-token prediction: one extra transformer
+        # layer + projection predicting token t+2 from [h_t; emb_{t+1}].
+        mp, ms = _init_layer(gen, cfg, ("mla" if cfg.use_mla else "attn",
+                                        "dense", 0))
+        params["mtp"] = {
+            "proj": truncated_normal(gen, (2 * cfg.d_model, cfg.d_model),
+                                     cfg.pdtype,
+                                     1.0 / math.sqrt(2 * cfg.d_model)),
+            "norm": torch.zeros((cfg.d_model,), dtype=cfg.pdtype,
+                                device=gen.device),
+            "layer": mp,
+        }
+        specs["mtp"] = {"proj": ("fsdp", None), "norm": (None,),
+                        "layer": ms}
     return params, specs
 
 
 # --------------------------- apply ----------------------------------
 
 def _apply_layer(spec: LayerSpec, prm, x, positions, cfg, rules, cache):
+    """One layer: (x, new cache, aux loss [] fp32 of an MoE FFN, else
+    None: the layers without one add nothing, and launch nothing)."""
     mixer, ffn_kind, window = spec
     h = rms_norm(x, prm["ln1"], cfg.rmsnorm_eps)
     if mixer == "attn":
         out, new_cache = attn_lib.gqa_attention(
             prm["mixer"], h, positions, cfg, rules, cache=cache,
             window=window)
-    else:
+    elif mixer == "mla":
+        out, new_cache = attn_lib.mla_attention(
+            prm["mixer"], h, positions, cfg, rules, cache=cache)
+    elif mixer == "rglru":
+        out, new_cache = rglru_lib.rglru_block(prm["mixer"], h, cfg, rules,
+                                               cache)
+    elif mixer == "ssd":
         out, new_cache = ssm_lib.ssd_block(prm["mixer"], h, cfg, rules,
                                            cache)
+    else:
+        raise ValueError(mixer)
     x = x + out
     if ffn_kind == "none":
-        return x, new_cache
+        return x, new_cache, None
     h = rms_norm(x, prm["ln2"], cfg.rmsnorm_eps)
-    return x + ffn_lib.ffn(prm["ffn"], h, cfg, rules), new_cache
+    if ffn_kind == "moe":
+        y, aux = moe_lib.moe(prm["ffn"], h, cfg, rules)
+    else:
+        y, aux = ffn_lib.ffn(prm["ffn"], h, cfg, rules), None
+    return x + y, new_cache, aux
 
 
 def _run_stack(unit, prm_stack, x, positions, cfg, rules, cache_stack):
-    """Loop over the stack's ``count`` units (the reference's scan)."""
+    """Loop over the stack's ``count`` units (the reference's scan):
+    (x, the units' summed aux loss or None, new caches)."""
     count = tree_leaves(prm_stack)[0].shape[0]
     has_cache = cache_stack is not None
 
     def body(xc, unit_prm, unit_cache):
+        # a unit counts its last slot's aux loss, as the reference's
+        # scan body does (every MoE unit of the configs is one layer)
         new_caches = {}
         for j, spec in enumerate(unit):
             c = unit_cache[f"slot{j}"] if has_cache else None
-            xc, new_caches[f"slot{j}"] = _apply_layer(
+            xc, new_caches[f"slot{j}"], aux = _apply_layer(
                 spec, unit_prm[f"slot{j}"], xc, positions, cfg, rules, c)
-        return xc, new_caches
+        return xc, aux, new_caches
 
     remat = cfg.remat and torch.is_grad_enabled() and not has_cache
     ys = []
+    aux_total = None
     for i in range(count):
         unit_prm = tree_map(lambda a, i=i: a[i], prm_stack)
         unit_cache = (tree_map(lambda a, i=i: a[i], cache_stack)
                       if has_cache else None)
         if remat:
-            x = checkpoint(lambda xc, p=unit_prm: body(xc, p, None)[0], x,
-                           use_reentrant=False)
+            x, aux = checkpoint(
+                lambda xc, p=unit_prm: body(xc, p, None)[:2], x,
+                use_reentrant=False)
         else:
-            x, nc = body(x, unit_prm, unit_cache)
+            x, aux, nc = body(x, unit_prm, unit_cache)
             ys.append(nc)
-    return x, (tree_stack(ys) if has_cache else None)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+    return x, aux_total, (tree_stack(ys) if has_cache else None)
 
 
 def forward(params, cfg: ModelConfig, rules, tokens=None, *,
@@ -247,26 +276,42 @@ def forward(params, cfg: ModelConfig, rules, tokens=None, *,
 
     plan = build_plan(cfg)
     new_caches = []
+    aux = torch.zeros((), device=x.device)
     for si, (unit, count) in enumerate(plan):
         cs = caches[si] if caches is not None else None
-        x, nc = _run_stack(unit, params[f"stack{si}"], x, positions, cfg,
-                           rules, cs)
+        x, stack_aux, nc = _run_stack(unit, params[f"stack{si}"], x,
+                                      positions, cfg, rules, cs)
+        if stack_aux is not None:
+            aux = aux + stack_aux
         new_caches.append(nc)
     x = rms_norm(x, params["final_norm"], cfg.rmsnorm_eps)
     head = (params["embed"].T if cfg.tie_embeddings else params["head"])
     logits = torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
     logits = constrain(logits, ("dp", None, "tp"), rules)
-    aux = torch.zeros((), device=x.device)   # MoE only (part 2)
     if return_hidden:
         return logits, (new_caches if caches is not None else None), aux, x
     return logits, (new_caches if caches is not None else None), aux
+
+
+def mtp_logits(params, cfg: ModelConfig, rules, hidden, next_tokens,
+               positions):
+    """DeepSeek-V3 MTP head: predict token t+2 from (h_t, emb(t+1))."""
+    prm = params["mtp"]
+    emb = params["embed"][next_tokens.long()].to(hidden.dtype)
+    h = torch.cat([rms_norm(hidden, prm["norm"], cfg.rmsnorm_eps), emb],
+                  dim=-1)
+    h = torch.einsum("bsd,de->bse", h, prm["proj"])
+    spec = ("mla" if cfg.use_mla else "attn", "dense", 0)
+    h, _, _ = _apply_layer(spec, prm["layer"], h, positions, cfg, rules,
+                           None)
+    head = (params["embed"].T if cfg.tie_embeddings else params["head"])
+    return torch.einsum("bsd,dv->bsv", h, head.to(h.dtype))
 
 
 # --------------------------- caches ---------------------------------
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
     """Per-stack stacked caches matching the parameter layout."""
-    check_supported(cfg)
     caches = []
     for unit, count in build_plan(cfg):
         unit_caches = {}
@@ -274,6 +319,10 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
             t = min(window, max_len) if window else max_len
             if mixer == "attn":
                 c = attn_lib.init_cache_gqa(cfg, batch, t, dtype, device)
+            elif mixer == "mla":
+                c = attn_lib.init_cache_mla(cfg, batch, t, dtype, device)
+            elif mixer == "rglru":
+                c = rglru_lib.init_rglru_cache(cfg, batch, dtype, device)
             else:
                 c = ssm_lib.init_ssm_cache(cfg, batch, dtype, device)
             unit_caches[f"slot{j}"] = tree_map(

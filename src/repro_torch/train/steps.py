@@ -1,10 +1,12 @@
-"""train_step / prefill_step / decode_step builders — twin of
-``repro.train.steps`` for the decoder-only families of part 1.
+"""train_step / prefill_step / decode_step builders for every family —
+twin of ``repro.train.steps``.
 
 Gradients come from ``torch.autograd``.  Microbatched gradient
 accumulation sums each microbatch's gradients in fp32 and averages them
-(the reference's ``lax.scan`` over microbatches).  The encoder-decoder
-raises :data:`repro_torch.models.PART2`.
+(the reference's ``lax.scan`` over microbatches).  The loss adds the
+MoE router's aux loss and the multi-token-prediction term where the
+config has them; the encoder-decoder encodes ``frames`` and decodes the
+tokens, and its prefill and decode carry ``(caches, enc_out)``.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import ModelConfig, cross_entropy
 from repro_torch.optim import adamw
@@ -24,20 +27,42 @@ class TrainState(NamedTuple):
 
 
 def _loss_fn(params, cfg: ModelConfig, rules, batch):
+    if cfg.is_encoder_decoder:
+        enc_out = encdec_lib.encode(params, cfg, rules, batch["frames"])
+        tokens = batch["tokens"]
+        logits, _ = encdec_lib.decode(params, cfg, rules, tokens[:, :-1],
+                                      enc_out)
+        loss = cross_entropy(logits, tokens[:, 1:])
+        return loss, {"loss": loss}
     tokens = batch["tokens"]
     prefix = batch.get("patches") if cfg.family == "vlm" else None
-    logits, _, _aux = tfm.forward(params, cfg, rules, tokens[:, :-1],
-                                  prefix_embeds=prefix)
+    logits, _, aux, hidden = tfm.forward(params, cfg, rules, tokens[:, :-1],
+                                         prefix_embeds=prefix,
+                                         return_hidden=True)
     if prefix is not None:
         logits = logits[:, prefix.shape[1]:]
+        hidden = hidden[:, prefix.shape[1]:]
     loss = cross_entropy(logits, tokens[:, 1:])
-    return loss, {"loss": loss}
+    metrics = {"loss": loss}
+    total = loss
+    if cfg.num_experts:
+        total = total + cfg.router_aux_weight * aux
+        metrics["aux_loss"] = aux
+    if cfg.mtp_depth:
+        # MTP: predict token t+2 from (hidden_t, emb(token_{t+1})).
+        mtp = tfm.mtp_logits(params, cfg, rules, hidden[:, :-1],
+                             tokens[:, 1:-1],
+                             torch.arange(tokens.shape[1] - 2,
+                                          device=tokens.device))
+        mtp_loss = cross_entropy(mtp, tokens[:, 2:])
+        total = total + 0.3 * mtp_loss
+        metrics["mtp_loss"] = mtp_loss
+    return total, metrics
 
 
 def loss_and_grads(params, cfg: ModelConfig, rules, batch):
     """(loss, metrics, grads): grads a tree like ``params`` in the
     parameters' dtypes (zeros for a leaf the loss does not reach)."""
-    tfm.check_supported(cfg)
     p = tree_map(lambda t: t.detach().requires_grad_(True), params)
     with torch.enable_grad():
         loss, metrics = _loss_fn(p, cfg, rules, batch)
@@ -92,11 +117,19 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, rules, *,
 
 
 def make_prefill_step(cfg: ModelConfig, rules, *, max_len: int):
-    """prefill(params, batch) -> (next_token_logits, caches)."""
-    tfm.check_supported(cfg)
+    """prefill(params, batch) -> (next_token_logits, carry); the carry is
+    the caches, and the encoder-decoder's ``(caches, enc_out)``."""
 
     @torch.no_grad()
     def prefill(params, batch):
+        if cfg.is_encoder_decoder:
+            enc_out = encdec_lib.encode(params, cfg, rules, batch["frames"])
+            caches = encdec_lib.init_caches(
+                cfg, batch["tokens"].shape[0], max_len, cfg.cdtype,
+                enc_out.device)
+            logits, caches = encdec_lib.decode(
+                params, cfg, rules, batch["tokens"], enc_out, caches=caches)
+            return logits[:, -1], (caches, enc_out)
         tokens = batch["tokens"]
         prefix = batch.get("patches") if cfg.family == "vlm" else None
         s = tokens.shape[1] + (prefix.shape[1] if prefix is not None else 0)
@@ -112,12 +145,17 @@ def make_prefill_step(cfg: ModelConfig, rules, *, max_len: int):
 
 def make_decode_step(cfg: ModelConfig, rules):
     """decode(params, carry, token [B,1], position []) ->
-    (logits [B, V], new_carry).  carry = caches."""
-    tfm.check_supported(cfg)
+    (logits [B, V], new_carry).  carry = caches (+ enc_out)."""
 
     @torch.no_grad()
     def decode(params, carry, token, position):
         pos = torch.as_tensor(position, device=token.device).reshape(1)
+        if cfg.is_encoder_decoder:
+            caches, enc_out = carry
+            logits, caches = encdec_lib.decode(params, cfg, rules, token,
+                                               enc_out, positions=pos,
+                                               caches=caches)
+            return logits[:, -1], (caches, enc_out)
         logits, caches, _ = tfm.forward(params, cfg, rules, token,
                                         positions=pos, caches=carry)
         return logits[:, -1], caches
@@ -127,5 +165,7 @@ def make_decode_step(cfg: ModelConfig, rules):
 
 def init_train_state(gen: torch.Generator, cfg: ModelConfig,
                      opt_cfg: adamw.OptConfig):
-    params, specs = tfm.init_model(gen, cfg)
+    init = (encdec_lib.init_model if cfg.is_encoder_decoder
+            else tfm.init_model)
+    params, specs = init(gen, cfg)
     return TrainState(params, adamw.init(params, opt_cfg)), specs

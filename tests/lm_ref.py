@@ -1,8 +1,7 @@
 """Shared pieces of the LM scaffold's parity tests
-(``tests/test_torch_{models,train,...}.py``): the six ported
-architectures, their configs in both packages, reference parameters with
-every norm and bias drawn from a numpy seed, and batches.  Holds no
-tests itself."""
+(``tests/test_torch_{models,train,...}.py``): the ten architectures,
+their configs in both packages, reference parameters with every norm and
+bias drawn from a numpy seed, and batches.  Holds no tests itself."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,9 +9,25 @@ import dataclasses
 import numpy as np
 
 PORTED = ("gemma-7b", "qwen2.5-14b", "qwen2-72b", "deepseek-coder-33b",
-          "llava-next-mistral-7b", "mamba2-370m")
-PART2 = ("deepseek-v3-671b", "qwen3-moe-235b-a22b", "recurrentgemma-2b",
-         "seamless-m4t-large-v2")
+          "llava-next-mistral-7b", "mamba2-370m", "deepseek-v3-671b",
+          "qwen3-moe-235b-a22b", "recurrentgemma-2b", "seamless-m4t-large-v2")
+#: the MoE architectures: their decode drops no token only when
+#: capacity_factor = num_experts / experts_per_token (cap >= group)
+MOE = ("deepseek-v3-671b", "qwen3-moe-235b-a22b")
+
+
+def ref_init(ref_cfg):
+    """The reference's init for ``ref_cfg``'s family."""
+    from repro.models import encdec, transformer
+    return (encdec.init_model if ref_cfg.is_encoder_decoder
+            else transformer.init_model)
+
+
+def port_init(cfg):
+    """The port's init for ``cfg``'s family."""
+    from repro_torch.models import encdec, transformer
+    return (encdec.init_model if cfg.is_encoder_decoder
+            else transformer.init_model)
 
 def configs(arch: str, f32: bool = False):
     """(reference SMOKE, port SMOKE), both in fp32 when ``f32``."""
@@ -34,9 +49,7 @@ def ref_params(ref_cfg, seed: int) -> dict:
     import jax
 
     from tools.time_lm import NOISE
-
-    from repro.models import transformer as tfm
-    params, _ = tfm.init_model(jax.random.key(seed), ref_cfg)
+    params, _ = ref_init(ref_cfg)(jax.random.key(seed), ref_cfg)
     rng = np.random.default_rng(seed)
 
     def walk(t):
@@ -64,11 +77,15 @@ def to_jax(tree):
 
 
 def batch(cfg, seed: int, b: int = 2, s: int = 16, extra: int = 1) -> dict:
-    """tokens int32 [b, s + extra] (and bf16 patches for the VLM)."""
+    """tokens int32 [b, s + extra] (and bf16 frames [b, s, d_model] for
+    the encoder-decoder, bf16 patches for the VLM)."""
     import ml_dtypes
     rng = np.random.default_rng(1000 + seed)
     out = {"tokens": rng.integers(0, cfg.vocab_size, (b, s + extra),
                                   dtype=np.int32)}
+    if cfg.is_encoder_decoder:
+        out["frames"] = rng.standard_normal(
+            (b, s, cfg.d_model)).astype(ml_dtypes.bfloat16)
     if cfg.family == "vlm":
         out["patches"] = rng.standard_normal(
             (b, cfg.num_patches, cfg.d_model)).astype(ml_dtypes.bfloat16)

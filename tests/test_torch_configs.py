@@ -1,8 +1,8 @@
 """The port's config registry (``repro_torch.configs``) against the
 reference's: every field of all ten CONFIGs and SMOKEs, the parameter
 counts, the layer specs and stack plans (exact, pure Python), the shape
-cells, and the port's init against the reference's leaf shapes for the
-six ported SMOKEs."""
+cells, and the port's init against the reference's leaf shapes for all
+ten SMOKEs."""
 import dataclasses
 
 import pytest
@@ -23,7 +23,7 @@ CASES = [(a, s) for a in configs.ARCHS for s in (False, True)]
 
 def test_registry_lists_the_same_ten_archs():
     assert configs.ARCHS == ref_configs.ARCHS and len(configs.ARCHS) == 10
-    assert set(lm_ref.PORTED) | set(lm_ref.PART2) == set(configs.ARCHS)
+    assert set(lm_ref.PORTED) == set(configs.ARCHS)
 
 
 @pytest.mark.parametrize("arch,smoke", CASES)
@@ -76,8 +76,8 @@ def test_shape_cells():
 @pytest.mark.parametrize("arch", lm_ref.PORTED)
 def test_init_leaf_shapes_match_reference(arch):
     ref_cfg, cfg = lm_ref.configs(arch)
-    want, want_specs = ref_tfm.init_model(jax.random.key(0), ref_cfg)
-    got, got_specs = transformer.init_model(common.generator(0, "cpu"), cfg)
+    want, want_specs = lm_ref.ref_init(ref_cfg)(jax.random.key(0), ref_cfg)
+    got, got_specs = lm_ref.port_init(cfg)(common.generator(0, "cpu"), cfg)
     w, g = lm_ref.leaves(want), lm_ref.leaves(got)
     assert [k for k, _ in g] == [k for k, _ in w]
     for (k, a), (_, b) in zip(w, g):

@@ -1,5 +1,5 @@
 """The port's LM models (``repro_torch.models``) against the reference's
-``repro.models`` on the six ported SMOKE architectures, the reference's
+``repro.models`` on all ten SMOKE architectures, the reference's
 parameters carried across with ``convert.params_from_reference``:
 
 * fp32 variants (``param_dtype = compute_dtype = "float32"``): logits,
@@ -7,10 +7,12 @@ parameters carried across with ``convert.params_from_reference``:
   in the order XLA and torch sum in fp32;
 * the bf16 SMOKEs as they are: logits and loss at rtol 0.05, atol 0.05
   (the reference's own decode-vs-forward bound), as are prefill and
-  decode, and each arch's decode against its own forward;
+  decode, and each arch's decode against its own forward (the MoE
+  archs' at a capacity factor that drops no token);
 * the blockwise attention over several blocks (windows, empty cache
-  slots) and the chunked SSD scan over several chunks, in fp32;
-* the part-2 families raise ``NotImplementedError``.
+  slots) and the chunked SSD scan over several chunks, in fp32.
+
+MLA and the multi-token-prediction head alone: ``test_torch_mla.py``.
 """
 import pytest
 
@@ -20,14 +22,17 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+import dataclasses  # noqa: E402
+
 from repro.models import attention as ref_attn  # noqa: E402
+from repro.models import encdec as ref_encdec  # noqa: E402
 from repro.models import model as ref_model  # noqa: E402
 from repro.models import ssm as ref_ssm  # noqa: E402
 from repro.models import transformer as ref_tfm  # noqa: E402
 from repro.train import steps as ref_steps  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.models import attention, model, ssm, transformer  # noqa: E402
+from repro_torch.models import (attention, encdec, model, ssm,  # noqa: E402
+                                transformer)
 from repro_torch.train import steps  # noqa: E402
 from tests import lm_ref  # noqa: E402
 from tests.test_torch_ref import partitionable  # noqa: E402,F401
@@ -45,23 +50,39 @@ def _both(arch, f32, seed=0, **batch_kw):
             convert.batch_from_reference(nb, device="cpu"))
 
 
-def _forward_logits(fwd, params, cfg, batch):
+def _forward_logits(pkg, params, cfg, batch, drop_last=True):
+    """The logits of the forward over the batch's tokens (the last one
+    left out when ``drop_last``) through ``pkg``'s transformer or, for
+    the encoder-decoder, its encode then decode."""
+    tfm, enc = pkg
+    tokens = batch["tokens"][:, :-1] if drop_last else batch["tokens"]
+    if cfg.is_encoder_decoder:
+        return enc.decode(params, cfg, {}, tokens,
+                          enc.encode(params, cfg, {}, batch["frames"]))[0]
     prefix = batch.get("patches") if cfg.family == "vlm" else None
-    return fwd(params, cfg, {}, batch["tokens"][:, :-1],
-               prefix_embeds=prefix)[0]
+    return tfm.forward(params, cfg, {}, tokens, prefix_embeds=prefix)[0]
+
+
+REF, PORT = (ref_tfm, ref_encdec), (transformer, encdec)
 
 
 @pytest.mark.parametrize("arch", lm_ref.PORTED)
 def test_f32_logits_loss_and_grads(arch):
     rc, jp, jb, cfg, tp, tb = _both(arch, f32=True)
-    (jloss, _), jgrads = jax.value_and_grad(
+    (jloss, jmetrics), jgrads = jax.value_and_grad(
         lambda p: ref_steps._loss_fn(p, rc, {}, jb), has_aux=True)(jp)
     loss, metrics, grads = steps.loss_and_grads(tp, cfg, {}, tb)
     np.testing.assert_allclose(
-        lm_ref.f32(_forward_logits(transformer.forward, tp, cfg, tb)),
-        lm_ref.f32(_forward_logits(ref_tfm.forward, jp, rc, jb)), **F32_TOL)
+        lm_ref.f32(_forward_logits(PORT, tp, cfg, tb)),
+        lm_ref.f32(_forward_logits(REF, jp, rc, jb)), **F32_TOL)
     np.testing.assert_allclose(float(loss), float(jloss), **F32_TOL)
-    assert float(metrics["loss"]) == float(loss)
+    # the cross-entropy, and the MoE aux loss and the MTP loss where the
+    # config has them; the loss above is their weighted sum
+    assert sorted(metrics) == sorted(jmetrics)
+    for name in jmetrics:
+        np.testing.assert_allclose(float(metrics[name]),
+                                   float(jmetrics[name]), **F32_TOL,
+                                   err_msg=name)
     want, got = lm_ref.leaves(jgrads), lm_ref.leaves(grads)
     assert [k for k, _ in got] == [k for k, _ in want]
     for (k, a), (_, b) in zip(want, got):
@@ -73,11 +94,11 @@ def test_f32_logits_loss_and_grads(arch):
 @pytest.mark.parametrize("arch", lm_ref.PORTED)
 def test_bf16_logits_and_loss(arch):
     rc, jp, jb, cfg, tp, tb = _both(arch, f32=False)
-    got = _forward_logits(transformer.forward, tp, cfg, tb)
+    got = _forward_logits(PORT, tp, cfg, tb)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(
-        lm_ref.f32(got), lm_ref.f32(_forward_logits(ref_tfm.forward, jp, rc,
-                                                    jb)), **BF16_TOL)
+        lm_ref.f32(got), lm_ref.f32(_forward_logits(REF, jp, rc, jb)),
+        **BF16_TOL)
     loss, _, grads = steps.loss_and_grads(tp, cfg, {}, tb)
     jloss, _ = ref_steps._loss_fn(jp, rc, {}, jb)
     np.testing.assert_allclose(float(loss), float(jloss), **BF16_TOL)
@@ -87,8 +108,10 @@ def test_bf16_logits_and_loss(arch):
 
 @pytest.mark.parametrize("arch", lm_ref.PORTED)
 def test_prefill_and_decode_match_reference(arch):
-    """Prefill 8 tokens (after the VLM's patches), then two decode
-    steps, on both packages: each step's logits."""
+    """Prefill 8 tokens (after the VLM's patches; beside the
+    encoder-decoder's 8 frames), then two decode steps, on both
+    packages: each step's logits (the MoE archs at their published
+    capacity factor)."""
     rc, jp, jb, cfg, tp, tb = _both(arch, f32=False, s=8, extra=0)
     npre = cfg.num_patches if cfg.family == "vlm" else 0
     max_len = 8 + npre + 4
@@ -113,13 +136,18 @@ def test_prefill_and_decode_match_reference(arch):
 @pytest.mark.parametrize("arch", lm_ref.PORTED)
 def test_decode_matches_forward(arch):
     """Prefill 8 tokens then decode the 9th: its logits equal the port's
-    own forward over 16 tokens at that position (causal)."""
+    own forward over 16 tokens at that position (causal).  The MoE archs
+    run at capacity_factor = num_experts / experts_per_token, so that the
+    capacity covers a whole group and no token drops: at the published
+    1.25 the forward's 32 tokens share 10 slots an expert, where a
+    one-token decode never drops one."""
     _, _, _, cfg, tp, tb = _both(arch, f32=False, s=15, extra=1)
+    if arch in lm_ref.MOE:
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
     npre = cfg.num_patches if cfg.family == "vlm" else 0
     pb = model.build(cfg, sharded=False, device="cpu")
-    prefix = tb.get("patches")
-    full = transformer.forward(tp, cfg, {}, tb["tokens"],
-                               prefix_embeds=prefix)[0]
+    full = _forward_logits(PORT, tp, cfg, tb, drop_last=False)
     _, carry = pb.prefill_step(max_len=16 + npre)(
         tp, {**tb, "tokens": tb["tokens"][:, :8]})
     logits, _ = pb.decode_step()(tp, carry, tb["tokens"][:, 8:9],
@@ -184,19 +212,4 @@ def test_causal_conv_matches_reference():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
 
 
-@pytest.mark.parametrize("arch", lm_ref.PART2)
-def test_part2_families_raise(arch):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="LM scaffold, part 2"):
-        model.build(cfg, sharded=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="LM scaffold, part 2"):
-        transformer.init_model(torch.Generator().manual_seed(0), cfg)
 
-
-def test_mla_entry_points_raise():
-    cfg = get_config("deepseek-v3-671b", smoke=True)
-    with pytest.raises(NotImplementedError, match="LM scaffold, part 2"):
-        attention.init_mla(torch.Generator(), cfg)
-    with pytest.raises(NotImplementedError, match="LM scaffold, part 2"):
-        attention.mla_attention({}, torch.zeros(1, 1, 64), torch.zeros(1),
-                                cfg, {})

@@ -80,6 +80,38 @@ def test_decay_rule_is_ndim_above_one():
     assert (new["mat"] < 1).all()                      # decay on [1, d]
 
 
+def test_mtp_layer_norms_are_not_decayed():
+    """One AdamW step on the converted deepseek SMOKE tree with zero
+    gradients, fp32: the unstacked MTP layer's norms ([d_model]) keep
+    their values, as the reference's do, while the stacked layers'
+    [count, d_model] norms decay; both packages give the same tree."""
+    rc, cfg = lm_ref.configs("deepseek-v3-671b", f32=True)
+    npp = lm_ref.ref_params(rc, 0)
+    tp = convert.params_from_reference(npp, cfg, device="cpu")
+    jp = lm_ref.to_jax(npp)
+    kw = dict(lr=0.1, warmup_steps=1, weight_decay=0.5)
+    rcfg, pcfg = ref_adamw.OptConfig(**kw), adamw.OptConfig(**kw)
+    new, _, _ = adamw.update(_zeros(tp), adamw.init(tp, pcfg), tp, pcfg)
+    want, _, _ = jax.jit(ref_adamw.update, static_argnums=3)(
+        jax.tree.map(jnp.zeros_like, jp), ref_adamw.init(jp, rcfg), jp, rcfg)
+    for k in ("ln1", "ln2"):
+        assert torch.equal(new["mtp"]["layer"][k], tp["mtp"]["layer"][k])
+        np.testing.assert_array_equal(np.asarray(want["mtp"]["layer"][k]),
+                                      npp["mtp"]["layer"][k])
+        stacked = new["stack1"]["slot0"][k]
+        assert stacked.dim() == 2
+        assert not torch.equal(stacked, tp["stack1"]["slot0"][k])
+    assert torch.equal(new["mtp"]["norm"], tp["mtp"]["norm"])
+    for (k, a), (_, b) in zip(lm_ref.leaves(want), lm_ref.leaves(new)):
+        np.testing.assert_allclose(lm_ref.f32(b), lm_ref.f32(a), rtol=RTOL,
+                                   atol=ATOL, err_msg=k)
+
+
+def _zeros(tree):
+    return {k: (_zeros(v) if isinstance(v, dict) else torch.zeros_like(v))
+            for k, v in tree.items()}
+
+
 @pytest.mark.parametrize("step", [0, 1, 50, 99, 100, 101, 5000, 10000,
                                   20000])
 def test_schedule_matches_reference(step):

@@ -6,7 +6,8 @@ first AdamW step moves each by about ``lr * sign(g)`` and a gradient
 entry near zero may take either sign), microbatched accumulation
 against the reference's and against the full batch, and the launcher on
 the CPU: a few steps with ``--coreset --ckpt``, a resume that restores
-the saved state bit for bit, and a part-2 architecture that raises."""
+the saved state bit for bit, and two steps of each MoE, MLA, RG-LRU and
+encoder-decoder architecture (the encoder-decoder with ``--coreset``)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -47,7 +48,10 @@ def _states(arch, f32=True, b=4, s=16):
 
 
 @pytest.mark.parametrize("arch", ["gemma-7b", "qwen2.5-14b",
-                                  "llava-next-mistral-7b", "mamba2-370m"])
+                                  "llava-next-mistral-7b", "mamba2-370m",
+                                  "deepseek-v3-671b", "qwen3-moe-235b-a22b",
+                                  "recurrentgemma-2b",
+                                  "seamless-m4t-large-v2"])
 @pytest.mark.parametrize("micro", [1, 2])
 def test_train_step_matches_reference(arch, micro):
     rb, rs, jb, pb, ps, tb = _states(arch)
@@ -137,11 +141,27 @@ def test_launcher_runs_vlm_and_ssm(arch, capsys):
     assert "[train] timing: median step" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("arch", lm_ref.PART2)
-def test_launcher_part2_arch_raises(arch):
-    with pytest.raises(NotImplementedError, match="LM scaffold, part 2"):
-        train.main(["--arch", arch, "--smoke", "--steps", "1", "--device",
-                    "cpu"])
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "qwen3-moe-235b-a22b",
+                                  "recurrentgemma-2b",
+                                  "seamless-m4t-large-v2"])
+def test_launcher_runs_moe_mla_rglru_and_encdec(arch, capsys):
+    """Two launcher steps of each architecture the LM scaffold's part 2
+    brought: finite losses, parameters that move; the encoder-decoder's
+    batches carry frames, and it picks them through ``--coreset``."""
+    argv = ["--arch", arch, "--smoke", "--steps", "2", "--batch", "2",
+            "--seq", "16", "--device", "cpu"]
+    if arch == "seamless-m4t-large-v2":
+        argv.append("--coreset")
+    report = {}
+    assert train.main(argv, report=report) == 0
+    assert report["final_step"] == 2 and len(report["losses"]) == 2
+    assert np.isfinite(report["losses"]).all()
+    cfg = get_config(arch, smoke=True)
+    fresh, _ = model.build(cfg, sharded=False, device="cpu").init_state(0)
+    moved = [not torch.equal(a, b) for a, b in
+             zip(tree_leaves(fresh.params), tree_leaves(report["state"].params))]
+    assert all(moved), f"{moved.count(False)} leaves did not move"
+    assert "[train] done at step 2" in capsys.readouterr().out
 
 
 def test_launcher_cuda_without_card_raises(monkeypatch):
