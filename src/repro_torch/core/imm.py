@@ -13,7 +13,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import StageClock, maxcover, randgreedi, theory
+from repro_torch.core import StageClock, maxcover, randgreedi, span, theory
 from repro_torch.core.prng import Key
 from repro_torch.core.rrr import resolve_sampler, sample_incidence
 from repro_torch.graphs.csr import (CSRGraph, padded_adjacency,
@@ -74,8 +74,12 @@ def imm(g: CSRGraph, k: int, eps: float, key: Key, *, model: str = "IC",
         stats: Optional[dict] = None) -> IMMResult:
     """Run IMM on the graph's device and return the final seed set.
 
-    ``stats`` (optional dict) accumulates ``bfs_steps`` and the seconds
-    spent sampling (``sample_s``) and selecting (``select_s``).
+    ``stats`` (optional dict) accumulates the seconds spent sampling
+    (``sample_s``) and selecting (``select_s``), and the sampler's
+    ``bfs_steps`` and ``frontier_words`` (:func:`rrr.rrr_batch_packed`).
+    Each martingale round is the span ``imm.round`` and the final
+    sampling and selection ``imm.final``, with ``imm.sample`` and
+    ``imm.select`` inside them.
     """
     selector = selector or make_greedy_selector(solver)
     sampler = resolve_sampler(sampler)
@@ -87,14 +91,14 @@ def imm(g: CSRGraph, k: int, eps: float, key: Key, *, model: str = "IC",
     eps_p = math.sqrt(2.0) * eps
 
     def sample(sub, count):
-        with StageClock(stats, "sample_s", g.device):
+        with StageClock(stats, "sample_s", g.device, layer="imm"):
             return sample_incidence(
                 nbr, prob, wt, sub, theta=count, n=n, model=model,
                 max_steps=max_steps, sampler=sampler, fwd=fwd,
                 coin_chunk=coin_chunk, gather=gather, stats=stats)
 
     def select(sub):
-        with StageClock(stats, "select_s", g.device):
+        with StageClock(stats, "select_s", g.device, layer="imm"):
             seeds, cov = selector(rows, k, sub)
             return seeds, int(cov)
 
@@ -112,21 +116,23 @@ def imm(g: CSRGraph, k: int, eps: float, key: Key, *, model: str = "IC",
         if theta0 is not None and i == 1:
             theta_i = max(theta_i, _round32(theta0))
         add = theta_i - theta_cur
-        if add > 0:
-            inc = sample(key.fold_in(i), add)
-            rows = inc if rows is None else torch.cat([rows, inc], 1)
-            theta_cur = theta_i
-        seeds, cov = select(k_sel.fold_in(i))
+        with span("imm.round"):
+            if add > 0:
+                inc = sample(key.fold_in(i), add)
+                rows = inc if rows is None else torch.cat([rows, inc], 1)
+                theta_cur = theta_i
+            seeds, cov = select(k_sel.fold_in(i))
         frac = float(cov) / float(theta_cur)
         if n * frac >= (1.0 + eps_p) * x or theta_cur >= max_theta:
             lb = max(n * frac / (1.0 + eps_p), 1.0)
             break
 
     theta = min(_round32(theory.lambda_star(n, k, eps, ell) / lb), max_theta)
-    if theta > theta_cur:
-        inc = sample(key.fold_in(0x5EED), theta - theta_cur)
-        rows = torch.cat([rows, inc], 1)
-        theta_cur = theta
-    seeds, cov = select(k_sel.fold_in(0x5EED))
+    with span("imm.final"):
+        if theta > theta_cur:
+            inc = sample(key.fold_in(0x5EED), theta - theta_cur)
+            rows = torch.cat([rows, inc], 1)
+            theta_cur = theta
+        seeds, cov = select(k_sel.fold_in(0x5EED))
     return IMMResult(seeds.cpu().numpy(), float(cov) / theta_cur, theta_cur,
                      rounds, lb)

@@ -15,7 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import bitset, maxcover, streaming
+from repro_torch.core import bitset, maxcover, span, streaming
 from repro_torch.core.prng import Key
 from repro_torch.kernels import coverage
 
@@ -68,46 +68,56 @@ def randgreedi_maxcover(rows: torch.Tensor, key: Key, *, m: int, k: int,
     solver: local (and greedy-aggregator) path, "scan" | "resident".
     survivors: surviving machine ids; only their blocks are solved and
       aggregated (bit-identical to a round on those machines alone).
+
+    Its phases are the spans ``randgreedi.partition`` (the permutation
+    and the machines' rows), ``.local`` (the machines' greedy),
+    ``.receiver`` (the aggregation) and ``.merge`` (the final choice).
     """
     if aggregator not in ("greedy", "streaming"):
         raise ValueError(f"unknown aggregator {aggregator!r}")
     survivors = normalize_survivors(survivors, m)
     n, w = rows.shape
-    perm = partition_permutation(n, key, device=rows.device)
-    per = n // m
-    assign = perm[:per * m].reshape(m, per).long()
-    if survivors is not None:
-        assign = assign[list(survivors)]
-    local = maxcover.greedy_maxcover(rows[assign], k, solver=solver)
-    local_ids = torch.where(
-        local.seeds >= 0,
-        torch.gather(assign, 1, local.seeds.clamp(min=0).long()).to(
-            torch.int32), -1)                               # [m, k]
-    local_cov = local.coverage                              # [m]
+    with span("randgreedi.partition"):
+        perm = partition_permutation(n, key, device=rows.device)
+        per = n // m
+        assign = perm[:per * m].reshape(m, per).long()
+        if survivors is not None:
+            assign = assign[list(survivors)]
+        machine_rows = rows[assign]
+    with span("randgreedi.local"):
+        local = maxcover.greedy_maxcover(machine_rows, k, solver=solver)
+        del machine_rows        # a copy of every row: freed before the receiver
+        local_ids = torch.where(
+            local.seeds >= 0,
+            torch.gather(assign, 1, local.seeds.clamp(min=0).long()).to(
+                torch.int32), -1)                           # [m, k]
+        local_cov = local.coverage                          # [m]
 
     kk = max(1, int(round(alpha_trunc * k)))
     sent_ids = local_ids[:, :kk].reshape(-1)
     sent_rows = local.rows[:, :kk].reshape(-1, w)
 
-    if aggregator == "greedy":
-        sol = maxcover.greedy_maxcover(sent_rows, k, solver=solver)
-        g_ids = torch.where(sol.seeds >= 0,
-                            sent_ids[sol.seeds.clamp(min=0).long()], -1)
-        g_cov, g_cover = sol.coverage, sol.covered
-    else:
-        # l = max singleton coverage among the stream: each machine's
-        # first pick has its max.
-        lower = float(local.gains[:, 0].max())
-        g_ids, g_cov, state = streaming.streaming_maxcover(
-            sent_ids, sent_rows, k, delta, lower, use_kernel=use_kernel)
-        per_bucket = bitset.coverage_size(state.covers)
-        g_cover = state.covers[torch.argmax(per_bucket)]
+    with span("randgreedi.receiver"):
+        if aggregator == "greedy":
+            sol = maxcover.greedy_maxcover(sent_rows, k, solver=solver)
+            g_ids = torch.where(sol.seeds >= 0,
+                                sent_ids[sol.seeds.clamp(min=0).long()], -1)
+            g_cov, g_cover = sol.coverage, sol.covered
+        else:
+            # l = max singleton coverage among the stream: each
+            # machine's first pick has its max.
+            lower = float(local.gains[:, 0].max())
+            g_ids, g_cov, state = streaming.streaming_maxcover(
+                sent_ids, sent_rows, k, delta, lower, use_kernel=use_kernel)
+            per_bucket = bitset.coverage_size(state.covers)
+            g_cover = state.covers[torch.argmax(per_bucket)]
 
-    best_m = torch.argmax(local_cov)
-    take_global = g_cov >= local_cov[best_m]
-    seeds = torch.where(take_global, g_ids, local_ids[best_m])
-    coverage = torch.maximum(g_cov, local_cov[best_m])
-    covered = torch.where(take_global, g_cover, local.covered[best_m])
+    with span("randgreedi.merge"):
+        best_m = torch.argmax(local_cov)
+        take_global = g_cov >= local_cov[best_m]
+        seeds = torch.where(take_global, g_ids, local_ids[best_m])
+        coverage = torch.maximum(g_cov, local_cov[best_m])
+        covered = torch.where(take_global, g_cover, local.covered[best_m])
     return RandGreediResult(seeds, coverage, g_cov, local_cov.max(),
                             local_ids, covered)
 

@@ -48,7 +48,7 @@ from typing import Literal, Optional
 
 import torch
 
-from repro_torch.core import bitset
+from repro_torch.core import bitset, span
 from repro_torch.core.prng import Key
 from repro_torch.graphs.csr import padded_adjacency, padded_forward_adjacency
 from repro_torch.kernels import coins, rrr_expand
@@ -229,18 +229,19 @@ def _planes(t: _Tables, roots, key: Key, visited, max_steps: int,
     step = 0
     go = roots.numel() > 0
     while go and step < max_steps:
-        key, sub = key.split()
-        mask = (_ic_mask(t, sub, frontier, True) if model == "IC"
-                else _lt_mask(t, sub, frontier))
-        gmask = mask.view(n * t.d_pad, w).index_select(0, t.take)
-        del mask
-        frontier, visited = rrr_expand.rrr_expand_step(
-            frontier, visited, t.nbr_c, gmask.view(n, -1, w), slots=t.slots,
-            lines=lines, next_lines=spare, count=count)
-        del gmask
-        lines, spare = spare, lines
-        step += 1
-        go = bool(int(count))
+        with span("rrr.step"):
+            key, sub = key.split()
+            mask = (_ic_mask(t, sub, frontier, True) if model == "IC"
+                    else _lt_mask(t, sub, frontier))
+            gmask = mask.view(n * t.d_pad, w).index_select(0, t.take)
+            del mask
+            frontier, visited = rrr_expand.rrr_expand_step(
+                frontier, visited, t.nbr_c, gmask.view(n, -1, w),
+                slots=t.slots, lines=lines, next_lines=spare, count=count)
+            del gmask
+            lines, spare = spare, lines
+            step += 1
+            go = bool(int(count))
     return step, visited
 
 
@@ -259,14 +260,16 @@ _PUSH = {"IC": _push_ic, "LT": _push_lt}
 
 
 def _push(t: _Tables, roots, key: Key, visited, max_steps: int,
-          model: str) -> int:
+          model: str) -> tuple[int, int]:
     """The BFS as pushes over word lists (the model's step kernel from
-    ``_PUSH``), ``visited`` updated in place; returns the steps taken.
-    Two frontier planes ping-pong (a step zeroes the words it reads,
+    ``_PUSH``), ``visited`` updated in place; returns the steps taken
+    and the words the steps' lists held (the roots' first).  Two
+    frontier planes ping-pong (a step zeroes the words it reads,
     leaving its plane zero for the step after) and two word lists
     alternate; each step's one host sync reads the next list's count,
     and the loop ends when it is 0.  No step passes over a whole [n, W]
-    plane."""
+    plane.  Each step is the span ``rrr.step``, which ends on that
+    read."""
     push = _PUSH[model]
     n, w = visited.shape
     dev = visited.device
@@ -275,15 +278,17 @@ def _push(t: _Tables, roots, key: Key, visited, max_steps: int,
              for _ in range(2)]
     count = torch.zeros(1, dtype=torch.int32, device=dev)
     words = root_words(roots, w)
-    step = 0
+    step = listed = 0
     while step < max_steps and words.numel():
-        key, sub = key.split()
-        out = lists[step % 2]
-        push(t, sub, words, frontier, visited, spare, out, count)
-        words = out[:int(count)]
-        frontier, spare = spare, frontier
-        step += 1
-    return step
+        with span("rrr.step"):
+            key, sub = key.split()
+            out = lists[step % 2]
+            listed += words.numel()
+            push(t, sub, words, frontier, visited, spare, out, count)
+            words = out[:int(count)]
+            frontier, spare = spare, frontier
+            step += 1
+    return step, listed
 
 
 def rrr_batch_packed(nbr, prob, wt, fwd_nbr, fwd_rslot, roots, key: Key, *,
@@ -293,7 +298,11 @@ def rrr_batch_packed(nbr, prob, wt, fwd_nbr, fwd_rslot, roots, key: Key, *,
     """Packed-state RRR batch -> int32 [n, ceil(batch/32)]: bit i of word
     i//32 at row v is set iff v in RRR(roots[i]).  ``expand`` is "plain"
     (PyTorch coins and gathers) or "kernel" (the CUDA kernels).
-    ``stats`` (optional dict) accumulates ``bfs_steps``."""
+    ``stats`` (optional dict) accumulates ``bfs_steps`` and, on the push
+    (``expand="kernel"``, resident), ``frontier_words``: the words of
+    the live-word lists its steps pushed, the roots' included.  The
+    call's tables are the span ``rrr.tables``, each BFS step the span
+    ``rrr.step``."""
     if expand not in ("plain", "kernel"):
         raise ValueError(f"expand must be 'plain' or 'kernel', got {expand!r}")
     if gather not in GATHERS:
@@ -304,21 +313,27 @@ def rrr_batch_packed(nbr, prob, wt, fwd_nbr, fwd_rslot, roots, key: Key, *,
     visited = packed_roots(roots, n)
     if d == 0:          # edgeless graph: RRR(root) = {root}
         return visited
-    t = _Tables(nbr, prob, wt, fwd_nbr, fwd_rslot, model=model,
-                coin_chunk=coin_chunk, forward=not push)
+    with span("rrr.tables"):
+        t = _Tables(nbr, prob, wt, fwd_nbr, fwd_rslot, model=model,
+                    coin_chunk=coin_chunk, forward=not push)
+    listed = None
     if push:
-        step = _push(t, roots, key, visited, max_steps, model)
+        step, listed = _push(t, roots, key, visited, max_steps, model)
     elif kernel:
         step, visited = _planes(t, roots, key, visited, max_steps, model)
     else:
         frontier = visited
         step = 0
         while step < max_steps and bool(frontier.any()):
-            key, sub = key.split()
-            frontier, visited = _step(t, sub, frontier, visited, model)
-            step += 1
+            with span("rrr.step"):
+                key, sub = key.split()
+                frontier, visited = _step(t, sub, frontier, visited, model)
+                step += 1
     if stats is not None:
         stats["bfs_steps"] = stats.get("bfs_steps", 0) + step
+        if listed is not None:
+            stats["frontier_words"] = stats.get("frontier_words",
+                                                0) + listed
     return visited
 
 
@@ -407,25 +422,28 @@ def sample_incidence(nbr, prob, wt, key: Key, *, theta: int, n: int,
     """Sample ``theta`` RRR sets (theta a multiple of 32); return the
     packed incidence X int32 [n, theta/32] on the tables' device.  The
     packed samplers need ``fwd``; the dense one packs its [theta, n]
-    bool state at the end, as the reference does."""
+    bool state at the end, as the reference does.  The call is the span
+    ``rrr.sample``; ``stats`` (optional dict) accumulates the sampler's
+    counters (:func:`rrr_batch_packed`)."""
     if theta % bitset.WORD_BITS:
         raise ValueError(f"theta must be a multiple of 32, got {theta}")
     sampler = resolve_sampler(sampler)
-    kr, kb = key.split()
-    roots = kr.randint((theta,), 0, n, device=nbr.device)
-    if sampler == "dense":
-        visited = _rrr_batch_dense(nbr, prob, wt, roots, kb, model=model,
-                                   max_steps=max_steps,
-                                   coin_chunk=coin_chunk, stats=stats)
-        return bitset.pack_bool_matrix(visited.T)
-    if fwd is None:
+    if sampler != "dense" and fwd is None:
         raise ValueError("sample_incidence needs fwd=(fwd_nbr, fwd_rslot) "
                          "from graphs.csr.padded_forward_adjacency")
-    return rrr_batch_packed(
-        nbr, prob, wt, fwd[0], fwd[1], roots, kb, model=model,
-        max_steps=max_steps, coin_chunk=coin_chunk,
-        expand=("kernel" if sampler == "kernel" else "plain"), gather=gather,
-        stats=stats)
+    kr, kb = key.split()
+    with span("rrr.sample"):
+        roots = kr.randint((theta,), 0, n, device=nbr.device)
+        if sampler == "dense":
+            visited = _rrr_batch_dense(nbr, prob, wt, roots, kb, model=model,
+                                       max_steps=max_steps,
+                                       coin_chunk=coin_chunk, stats=stats)
+            return bitset.pack_bool_matrix(visited.T)
+        return rrr_batch_packed(
+            nbr, prob, wt, fwd[0], fwd[1], roots, kb, model=model,
+            max_steps=max_steps, coin_chunk=coin_chunk,
+            expand=("kernel" if sampler == "kernel" else "plain"),
+            gather=gather, stats=stats)
 
 
 def sample_incidence_host(g, theta: int, key: Key, model: str = "IC",

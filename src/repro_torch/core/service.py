@@ -41,7 +41,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import StageClock, bitset, maxcover, opim
+from repro_torch.core import StageClock, bitset, maxcover, opim, span
 from repro_torch.core.prng import Key
 from repro_torch.core.rrr import SAMPLERS as _SAMPLERS
 from repro_torch.core.rrr import resolve_sampler, sample_incidence
@@ -394,16 +394,24 @@ def _query_arrays(queries: Sequence[Query], n: int, theta: int):
     return k_max, excl, ks, budget_cov
 
 
-def _finalize_batch(seeds, sel_rows, gains, ks, budget_cov, r2):
+def _limits(ks, budget_cov, device):
+    """The queries' k and budgets (host arrays [B]) as int64 tensors on
+    the card.  Called after the solve is enqueued: a copy from pageable
+    memory waits for the stream, so it returns once the solve has run
+    (the end of the span ``service.solve``)."""
+    return (torch.as_tensor(ks, dtype=torch.int64, device=device),
+            torch.as_tensor(budget_cov, dtype=torch.int64, device=device))
+
+
+def _finalize_batch(seeds, sel_rows, gains, ks, budget, r2):
     """Per query: budget/k truncation and R2 validation.  Greedy picks
     are prefix-consistent, so truncating a k_max solve at the query's k
     (or at the first pick whose cumulative coverage reaches the budget)
     equals solving with that k.  seeds/gains [B, k], sel_rows
-    [B, k, W], ks/budget_cov [B] -> (seeds_t, cov1, cov2, k_used)."""
+    [B, k, W], ks/budget [B] (:func:`_limits`) -> (seeds_t, cov1, cov2,
+    k_used)."""
     k = seeds.shape[1]
     dev = seeds.device
-    ks = torch.as_tensor(ks, dtype=torch.int64, device=dev)
-    budget = torch.as_tensor(budget_cov, dtype=torch.int64, device=dev)
     reached = torch.cumsum(gains.to(torch.int64), 1) >= budget[:, None]
     first = reached.to(torch.int32).argmax(1) + 1
     jstar = torch.where(reached.any(1), first, ks).minimum(ks)
@@ -420,21 +428,23 @@ def _finalize_batch(seeds, sel_rows, gains, ks, budget_cov, r2):
 
 def _answers(pool: SketchPool, queries: Sequence[Query], seeds_t, cov1,
              cov2, k_used, *, delta: float, alpha: float) -> list[Answer]:
-    seeds_t = seeds_t.cpu().numpy()
-    cov1, cov2 = cov1.cpu().numpy(), cov2.cpu().numpy()
-    k_used = k_used.cpu().numpy()
+    with span("service.read"):
+        seeds_t = seeds_t.cpu().numpy()
+        cov1, cov2 = cov1.cpu().numpy(), cov2.cpu().numpy()
+        k_used = k_used.cpu().numpy()
     out = []
-    for b, q in enumerate(queries):
-        c1, c2 = float(cov1[b]), float(cov2[b])
-        sig_l, sig_u, guar = opim.certify(c1, c2, pool.theta, pool.n,
-                                          delta, alpha)
-        certified = guar >= alpha - q.eps or (
-            q.budget is not None and sig_l >= q.budget)
-        out.append(Answer(
-            seeds=seeds_t[b][:q.k], k_used=int(k_used[b]),
-            coverage=int(cov1[b]), spread=c1 * pool.n / pool.theta,
-            sigma_lower=sig_l, sigma_upper=sig_u, guarantee=guar,
-            certified=bool(certified), generation=pool.generation))
+    with span("service.certify"):
+        for b, q in enumerate(queries):
+            c1, c2 = float(cov1[b]), float(cov2[b])
+            sig_l, sig_u, guar = opim.certify(c1, c2, pool.theta, pool.n,
+                                              delta, alpha)
+            certified = guar >= alpha - q.eps or (
+                q.budget is not None and sig_l >= q.budget)
+            out.append(Answer(
+                seeds=seeds_t[b][:q.k], k_used=int(k_used[b]),
+                coverage=int(cov1[b]), spread=c1 * pool.n / pool.theta,
+                sigma_lower=sig_l, sigma_upper=sig_u, guarantee=guar,
+                certified=bool(certified), generation=pool.generation))
     return out
 
 
@@ -443,19 +453,26 @@ def answer_batch(pool: SketchPool, queries: Sequence[Query], *,
                  alpha: Optional[float] = None) -> list[Answer]:
     """Answer B concurrent queries with one batched solve over R1 at
     ``k_max = max(k)`` plus one batched truncation/validation.  Each
-    answer equals :func:`answer_one`'s for the same query."""
+    answer equals :func:`answer_one`'s for the same query.  Its phases
+    are the spans ``service.query_arrays``, ``.solve``, ``.finalize``,
+    and :func:`_answers`' ``.read`` and ``.certify``."""
     if pool.theta == 0:
         raise EmptyPoolError(
             "sketch pool holds no samples; refresh it before answering "
             "(InfluenceService.admit does this automatically)")
     if alpha is None:
         alpha = 1.0 - 1.0 / math.e
-    k_max, excl, ks, budget_cov = _query_arrays(queries, pool.n, pool.theta)
-    sol = maxcover.greedy_maxcover_batch(
-        pool.r1, torch.from_numpy(excl).to(pool.r1.device), k_max,
-        solver=solver)
-    seeds_t, cov1, cov2, k_used = _finalize_batch(
-        sol.seeds, sol.rows, sol.gains, ks, budget_cov, pool.r2)
+    with span("service.query_arrays"):
+        k_max, excl, ks, budget_cov = _query_arrays(queries, pool.n,
+                                                    pool.theta)
+    dev = pool.r1.device
+    with span("service.solve"):
+        sol = maxcover.greedy_maxcover_batch(
+            pool.r1, torch.from_numpy(excl).to(dev), k_max, solver=solver)
+        ks, budget = _limits(ks, budget_cov, dev)
+    with span("service.finalize"):
+        seeds_t, cov1, cov2, k_used = _finalize_batch(
+            sol.seeds, sol.rows, sol.gains, ks, budget, pool.r2)
     return _answers(pool, queries, seeds_t, cov1, cov2, k_used,
                     delta=delta, alpha=alpha)
 
@@ -473,8 +490,8 @@ def answer_one(pool: SketchPool, query: Query, *, solver: str = "resident",
     sol = maxcover.greedy_maxcover(pool.r1, query.k, solver=solver,
                                    excluded=torch.from_numpy(excl[0]))
     seeds_t, cov1, cov2, k_used = _finalize_batch(
-        sol.seeds[None], sol.rows[None], sol.gains[None], ks, budget_cov,
-        pool.r2)
+        sol.seeds[None], sol.rows[None], sol.gains[None],
+        *_limits(ks, budget_cov, pool.r1.device), pool.r2)
     return _answers(pool, [query], seeds_t, cov1, cov2, k_used,
                     delta=delta, alpha=alpha)[0]
 
@@ -500,7 +517,9 @@ class InfluenceService:
 
     ``stats`` (optional dict) accumulates the synchronized seconds and
     counts of the batched solves (``solve_s``, ``solves``) and of the
-    refreshes (``refresh_s``, ``refreshes``).
+    refreshes (``refresh_s``, ``refreshes``).  Each batch's ``solve_s``
+    clock is the span ``serve.solve``, with :func:`answer_batch`'s
+    spans inside.
     """
 
     def __init__(self, g: CSRGraph, key: Key, *, theta0: int = 512,
@@ -563,8 +582,8 @@ class InfluenceService:
         gen = self._gen if generation is None else generation
         return self._inflight.get(gen, 0)
 
-    def _clock(self, name: str):
-        return StageClock(self.stats, name, self.pool.g.device)
+    def _clock(self, name: str, layer: Optional[str] = None):
+        return StageClock(self.stats, name, self.pool.g.device, layer=layer)
 
     def _count(self, name: str, n: int = 1):
         if self.stats is not None:
@@ -650,7 +669,7 @@ class InfluenceService:
             by_gen.setdefault(t.generation, []).append(i)
         out: list[Optional[Answer]] = [None] * len(tickets)
         for gen, idxs in by_gen.items():
-            with self._clock("solve_s"):
+            with self._clock("solve_s", "serve"):
                 answers = answer_batch(
                     self._pools[gen], [tickets[i].query for i in idxs],
                     solver=self.solver, delta=self.delta, alpha=self.alpha)

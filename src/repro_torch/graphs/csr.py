@@ -13,7 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import resolve_device
+from repro_torch.core import resolve_device, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,32 +113,36 @@ def padded_forward_adjacency(g: CSRGraph, pad_to: Optional[int] = None,
 
     Returns ``(fwd_nbr, fwd_rslot)`` int32 ``[n, d_out_max]`` on the
     graph's device, padded with ``fwd_nbr = -1`` (``fwd_rslot = 0``).
+    The build, in numpy on the host, is the span ``tables.forward``, and
+    its copies to the device ``tables.forward.copy`` within it.
     """
-    n = g.num_vertices
-    indptr, src = _host(g)
-    in_deg = np.diff(indptr)
-    rev_v = np.repeat(np.arange(n, dtype=np.int64), in_deg)
-    rev_slot = np.arange(src.shape[0], dtype=np.int64) - np.repeat(
-        indptr[:-1], in_deg)
-    if rev_pad_to is not None:
-        keep = rev_slot < int(rev_pad_to)
-        src, rev_v, rev_slot = src[keep], rev_v[keep], rev_slot[keep]
-    order = np.argsort(src, kind="stable")
-    src, rev_v, rev_slot = src[order], rev_v[order], rev_slot[order]
-    out_deg = (np.bincount(src, minlength=n) if src.size
-               else np.zeros(n, dtype=np.int64))
-    df = int(pad_to if pad_to is not None
-             else (out_deg.max() if src.size else 0))
-    fwd_nbr = np.full((n, df), -1, dtype=np.int32)
-    fwd_rslot = np.zeros((n, df), dtype=np.int32)
-    fptr = np.zeros(n + 1, dtype=np.int64)
-    fptr[1:] = np.cumsum(out_deg)
-    pos = np.arange(src.shape[0], dtype=np.int64) - fptr[src]
-    ok = pos < df
-    fwd_nbr[src[ok], pos[ok]] = rev_v[ok]
-    fwd_rslot[src[ok], pos[ok]] = rev_slot[ok]
-    return (torch.from_numpy(fwd_nbr).to(g.device),
-            torch.from_numpy(fwd_rslot).to(g.device))
+    with span("tables.forward"):
+        n = g.num_vertices
+        indptr, src = _host(g)
+        in_deg = np.diff(indptr)
+        rev_v = np.repeat(np.arange(n, dtype=np.int64), in_deg)
+        rev_slot = np.arange(src.shape[0], dtype=np.int64) - np.repeat(
+            indptr[:-1], in_deg)
+        if rev_pad_to is not None:
+            keep = rev_slot < int(rev_pad_to)
+            src, rev_v, rev_slot = src[keep], rev_v[keep], rev_slot[keep]
+        order = np.argsort(src, kind="stable")
+        src, rev_v, rev_slot = src[order], rev_v[order], rev_slot[order]
+        out_deg = (np.bincount(src, minlength=n) if src.size
+                   else np.zeros(n, dtype=np.int64))
+        df = int(pad_to if pad_to is not None
+                 else (out_deg.max() if src.size else 0))
+        fwd_nbr = np.full((n, df), -1, dtype=np.int32)
+        fwd_rslot = np.zeros((n, df), dtype=np.int32)
+        fptr = np.zeros(n + 1, dtype=np.int64)
+        fptr[1:] = np.cumsum(out_deg)
+        pos = np.arange(src.shape[0], dtype=np.int64) - fptr[src]
+        ok = pos < df
+        fwd_nbr[src[ok], pos[ok]] = rev_v[ok]
+        fwd_rslot[src[ok], pos[ok]] = rev_slot[ok]
+        with span("tables.forward.copy"):
+            return (torch.from_numpy(fwd_nbr).to(g.device),
+                    torch.from_numpy(fwd_rslot).to(g.device))
 
 
 def padded_adjacency(g: CSRGraph, pad_to: Optional[int] = None):
@@ -146,28 +150,30 @@ def padded_adjacency(g: CSRGraph, pad_to: Optional[int] = None):
     the in-neighbors of v, padded with -1 (prob/weight 0).  The
     reference fills rows in a per-vertex loop; this scatters every edge
     to its (row, slot) at once, on the graph's device (one host read:
-    d_max), with identical output."""
-    n = g.num_vertices
-    dev = g.device
-    indptr = g.indptr.long()
-    deg = indptr[1:] - indptr[:-1]
-    d = int(pad_to if pad_to is not None else (deg.max() if n else 0))
-    nbr = torch.full((n, d), -1, dtype=torch.int32, device=dev)
-    prob = torch.zeros((n, d), dtype=torch.float32, device=dev)
-    wt = torch.zeros((n, d), dtype=torch.float32, device=dev)
-    e = g.num_edges
-    if n == 0 or d == 0 or e == 0:
+    d_max), with identical output.  The build is the span
+    ``tables.reverse``; the scatters it starts may run past its end."""
+    with span("tables.reverse"):
+        n = g.num_vertices
+        dev = g.device
+        indptr = g.indptr.long()
+        deg = indptr[1:] - indptr[:-1]
+        d = int(pad_to if pad_to is not None else (deg.max() if n else 0))
+        nbr = torch.full((n, d), -1, dtype=torch.int32, device=dev)
+        prob = torch.zeros((n, d), dtype=torch.float32, device=dev)
+        wt = torch.zeros((n, d), dtype=torch.float32, device=dev)
+        e = g.num_edges
+        if n == 0 or d == 0 or e == 0:
+            return nbr, prob, wt
+        row = torch.repeat_interleave(torch.arange(n, device=dev), deg,
+                                      output_size=e)
+        slot = torch.arange(e, device=dev) - indptr[row]
+        flat = row * d + slot
+        if pad_to is not None:
+            ok = slot < d
+            flat, keep = flat[ok], ok
+        else:
+            keep = slice(None)
+        nbr.view(-1)[flat] = g.indices[keep]
+        prob.view(-1)[flat] = g.probs[keep]
+        wt.view(-1)[flat] = g.weights[keep]
         return nbr, prob, wt
-    row = torch.repeat_interleave(torch.arange(n, device=dev), deg,
-                                  output_size=e)
-    slot = torch.arange(e, device=dev) - indptr[row]
-    flat = row * d + slot
-    if pad_to is not None:
-        ok = slot < d
-        flat, keep = flat[ok], ok
-    else:
-        keep = slice(None)
-    nbr.view(-1)[flat] = g.indices[keep]
-    prob.view(-1)[flat] = g.probs[keep]
-    wt.view(-1)[flat] = g.weights[keep]
-    return nbr, prob, wt
