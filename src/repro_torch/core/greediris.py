@@ -69,9 +69,8 @@ def _machine_sampler(*, n: int, theta_local: int, sample_chunks: int,
     of machine p's i-th sample chunk (b = theta_local / sample_chunks),
     drawn as the reference's shard body draws them."""
     sampler = rrr.resolve_sampler(sampler)
-    if fwd is None and sampler != "dense":
-        raise ValueError(f"sampler={sampler!r} needs fwd=(fwd_nbr, "
-                         "fwd_rslot) from graphs.csr.padded_forward_adjacency")
+    rrr.require_fwd(fwd, sampler, gather, f"sampler={sampler!r}")
+    fwd = (None, None) if fwd is None else fwd
     if not isinstance(coin_chunk, int) or coin_chunk < 1:
         raise ValueError(f"coin_chunk must be a positive slot count, got "
                          f"{coin_chunk!r}")

@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.core import StageClock, maxcover, randgreedi, span, theory
 from repro_torch.core.prng import Key
-from repro_torch.core.rrr import resolve_sampler, sample_incidence
+from repro_torch.core.rrr import (reads_forward, resolve_sampler,
+                                  sample_incidence)
 from repro_torch.graphs.csr import (CSRGraph, padded_adjacency,
                                     padded_forward_adjacency)
 
@@ -85,7 +86,8 @@ def imm(g: CSRGraph, k: int, eps: float, key: Key, *, model: str = "IC",
     sampler = resolve_sampler(sampler)
     n = g.num_vertices
     nbr, prob, wt = padded_adjacency(g)
-    fwd = padded_forward_adjacency(g)
+    fwd = (padded_forward_adjacency(g) if reads_forward(sampler, gather)
+           else None)
     ell = theory.adjust_ell(n, k, ell)
     lp = theory.lambda_prime(n, k, eps, ell)
     eps_p = math.sqrt(2.0) * eps

@@ -18,7 +18,8 @@ import torch
 from repro_torch.core import StageClock, bitset
 from repro_torch.core.imm import Selector, _round32, make_greedy_selector
 from repro_torch.core.prng import Key
-from repro_torch.core.rrr import resolve_sampler, sample_incidence
+from repro_torch.core.rrr import (reads_forward, resolve_sampler,
+                                  sample_incidence)
 from repro_torch.graphs.csr import (CSRGraph, padded_adjacency,
                                     padded_forward_adjacency)
 
@@ -82,7 +83,8 @@ def opim(g: CSRGraph, k: int, eps: float, key: Key, *, model: str = "IC",
         solver_alpha = 1.0 - 1.0 / math.e
     n = g.num_vertices
     nbr, prob, wt = padded_adjacency(g)
-    fwd = padded_forward_adjacency(g) if sampler != "dense" else None
+    fwd = (padded_forward_adjacency(g) if reads_forward(sampler, gather)
+           else None)
     target = solver_alpha - eps
     i_max = max(1, int(math.ceil(math.log2(max_theta / max(theta0, 1)))) + 1)
     delta = fail_prob / (3.0 * i_max)

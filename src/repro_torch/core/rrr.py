@@ -26,7 +26,8 @@ mask[v, rev_slot]`` for every forward pair ``(v, rev_slot)`` of ``u``:
     (LT): a push over the list of the frontier's live words along the
     *reverse* adjacency, which draws each coin or live in-edge inside
     the step, updates ``visited`` in place and appends each newly live
-    word to the next list once (see ``_push``).  With
+    word to the next list once (see ``_push``); it reads no forward
+    table, so its callers build none (:func:`reads_forward`).  With
     ``gather="streamed"``, IC draws the coin plane (``kernels.coins``)
     and LT builds its selection plane with tensor ops (``_lt_mask``),
     each gathered in one pass into the streamed mask of
@@ -66,6 +67,22 @@ def resolve_sampler(sampler: Optional[str], default: str = "kernel") -> str:
         raise ValueError(
             f"unknown sampler {sampler!r}; expected one of {SAMPLERS}")
     return sampler
+
+
+def reads_forward(sampler: str, gather: str = "auto") -> bool:
+    """Whether the path of ``(sampler, gather)`` reads the padded forward
+    table (``graphs.csr.padded_forward_adjacency``): the plain packed
+    path and the kernel path's streamed layout do; the dense sampler and
+    the push (``kernel`` on the resident layout) never do, and take
+    ``fwd=None``."""
+    return sampler == "packed" or (sampler == "kernel"
+                                   and gather == "streamed")
+
+
+def require_fwd(fwd, sampler: str, gather: str, who: str) -> None:
+    if fwd is None and reads_forward(sampler, gather):
+        raise ValueError(f"{who} needs fwd=(fwd_nbr, fwd_rslot) from "
+                         "graphs.csr.padded_forward_adjacency")
 
 
 def _coin_chunks(d: int, coin_chunk: int):
@@ -298,26 +315,27 @@ def rrr_batch_packed(nbr, prob, wt, fwd_nbr, fwd_rslot, roots, key: Key, *,
     """Packed-state RRR batch -> int32 [n, ceil(batch/32)]: bit i of word
     i//32 at row v is set iff v in RRR(roots[i]).  ``expand`` is "plain"
     (PyTorch coins and gathers) or "kernel" (the CUDA kernels).
-    ``stats`` (optional dict) accumulates ``bfs_steps`` and, on the push
-    (``expand="kernel"``, resident), ``frontier_words``: the words of
-    the live-word lists its steps pushed, the roots' included.  The
-    call's tables are the span ``rrr.tables``, each BFS step the span
-    ``rrr.step``."""
+    ``fwd_nbr`` and ``fwd_rslot`` may be None where :func:`reads_forward`
+    is false: the push never reads them.  ``stats`` (optional dict)
+    accumulates ``bfs_steps`` and, on the push (``expand="kernel"``,
+    resident), ``frontier_words``: the words of the live-word lists its
+    steps pushed, the roots' included.  The call's tables are the span
+    ``rrr.tables``, each BFS step the span ``rrr.step``."""
     if expand not in ("plain", "kernel"):
         raise ValueError(f"expand must be 'plain' or 'kernel', got {expand!r}")
     if gather not in GATHERS:
         raise ValueError(f"unknown gather {gather!r}; expected {GATHERS}")
     kernel = expand == "kernel"
-    push = kernel and gather != "streamed"
+    forward = reads_forward("kernel" if kernel else "packed", gather)
     n, d = nbr.shape
     visited = packed_roots(roots, n)
     if d == 0:          # edgeless graph: RRR(root) = {root}
         return visited
     with span("rrr.tables"):
         t = _Tables(nbr, prob, wt, fwd_nbr, fwd_rslot, model=model,
-                    coin_chunk=coin_chunk, forward=not push)
+                    coin_chunk=coin_chunk, forward=forward)
     listed = None
-    if push:
+    if not forward:
         step, listed = _push(t, roots, key, visited, max_steps, model)
     elif kernel:
         step, visited = _planes(t, roots, key, visited, max_steps, model)
@@ -397,16 +415,16 @@ def rrr_batch(nbr, prob, wt, roots, key: Key, *, model: str,
               coin_chunk: int = 32, gather: str = "auto",
               stats: Optional[dict] = None) -> torch.Tensor:
     """One batch of RRR sets as bool [batch, n]: ``visited[i, v]`` iff v
-    is in RRR(roots[i]).  The packed samplers (which need
-    ``fwd=(fwd_nbr, fwd_rslot)``) return their words unpacked."""
+    is in RRR(roots[i]).  The packed samplers return their words
+    unpacked; where :func:`reads_forward` holds they need ``fwd=(fwd_nbr,
+    fwd_rslot)``."""
     sampler = resolve_sampler(sampler, default="dense")
     if sampler == "dense":
         return _rrr_batch_dense(nbr, prob, wt, roots, key, model=model,
                                 max_steps=max_steps, coin_chunk=coin_chunk,
                                 stats=stats)
-    if fwd is None:
-        raise ValueError(f"sampler={sampler!r} needs fwd=(fwd_nbr, "
-                         "fwd_rslot) from graphs.csr.padded_forward_adjacency")
+    require_fwd(fwd, sampler, gather, f"sampler={sampler!r}")
+    fwd = (None, None) if fwd is None else fwd
     packed = rrr_batch_packed(
         nbr, prob, wt, fwd[0], fwd[1], roots, key, model=model,
         max_steps=max_steps, coin_chunk=coin_chunk,
@@ -421,16 +439,15 @@ def sample_incidence(nbr, prob, wt, key: Key, *, theta: int, n: int,
                      gather: str = "auto", stats: Optional[dict] = None):
     """Sample ``theta`` RRR sets (theta a multiple of 32); return the
     packed incidence X int32 [n, theta/32] on the tables' device.  The
-    packed samplers need ``fwd``; the dense one packs its [theta, n]
-    bool state at the end, as the reference does.  The call is the span
-    ``rrr.sample``; ``stats`` (optional dict) accumulates the sampler's
-    counters (:func:`rrr_batch_packed`)."""
+    paths :func:`reads_forward` names need ``fwd``; the dense one packs
+    its [theta, n] bool state at the end, as the reference does.  The
+    call is the span ``rrr.sample``; ``stats`` (optional dict)
+    accumulates the sampler's counters (:func:`rrr_batch_packed`)."""
     if theta % bitset.WORD_BITS:
         raise ValueError(f"theta must be a multiple of 32, got {theta}")
     sampler = resolve_sampler(sampler)
-    if sampler != "dense" and fwd is None:
-        raise ValueError("sample_incidence needs fwd=(fwd_nbr, fwd_rslot) "
-                         "from graphs.csr.padded_forward_adjacency")
+    require_fwd(fwd, sampler, gather, "sample_incidence")
+    fwd = (None, None) if fwd is None else fwd
     kr, kb = key.split()
     with span("rrr.sample"):
         roots = kr.randint((theta,), 0, n, device=nbr.device)
@@ -457,7 +474,8 @@ def sample_incidence_host(g, theta: int, key: Key, model: str = "IC",
     sampler = resolve_sampler(sampler)
     theta = bitset.num_words(theta) * bitset.WORD_BITS
     nbr, prob, wt = padded_adjacency(g)
-    fwd = padded_forward_adjacency(g) if sampler != "dense" else None
+    fwd = (padded_forward_adjacency(g) if reads_forward(sampler, gather)
+           else None)
     n = g.num_vertices
     chunks = []
     done = i = 0

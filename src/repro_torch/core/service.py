@@ -44,7 +44,8 @@ import torch
 from repro_torch.core import StageClock, bitset, maxcover, opim, span
 from repro_torch.core.prng import Key
 from repro_torch.core.rrr import SAMPLERS as _SAMPLERS
-from repro_torch.core.rrr import resolve_sampler, sample_incidence
+from repro_torch.core.rrr import (reads_forward, resolve_sampler,
+                                  sample_incidence)
 from repro_torch.graphs.csr import (CSRGraph, padded_adjacency,
                                     padded_forward_adjacency)
 from repro_torch.runtime.faults import (FaultPlan, InjectedFault,
@@ -154,7 +155,7 @@ def _sample_slabs(g: CSRGraph, key: Key, slabs: Sequence[Tuple[int, int]],
     aborted build can be retried."""
     n = g.num_vertices
     nbr, prob, wt = padded_adjacency(g)
-    fwd = padded_forward_adjacency(g) if sampler != "dense" else None
+    fwd = padded_forward_adjacency(g) if reads_forward(sampler) else None
     out = ([], [])
     for half in (0, 1):
         kh = key.fold_in(half)

@@ -43,7 +43,7 @@ from repro_torch.core import (StageClock, cascade, greediris, imm,
                               maxcover, opim, prng, resolve_device, rrr,
                               theory)
 from repro_torch.core.diffusion import influence
-from repro_torch.core.rrr import resolve_sampler
+from repro_torch.core.rrr import reads_forward, resolve_sampler
 from repro_torch.graphs import generators
 from repro_torch.graphs.csr import padded_adjacency, padded_forward_adjacency
 from repro_torch.runtime import faults
@@ -307,6 +307,8 @@ def _fixed_theta_round(args, g, m: int, key, stats: dict) -> RoundResult:
     """The reference's ``--theta`` path: one distributed round of m
     machines (``greediris.build_round``) on the graph's device."""
     nbr, prob, wt = padded_adjacency(g)
+    fwd = (padded_forward_adjacency(g)
+           if reads_forward(args.sampler, args.gather) else None)
     alpha = args.alpha if args.selector == "greediris-trunc" else 1.0
     fn, _, theta = greediris.build_round(
         m=m, n=g.num_vertices, theta=args.theta, k=args.k,
@@ -314,8 +316,7 @@ def _fixed_theta_round(args, g, m: int, key, stats: dict) -> RoundResult:
         alpha_trunc=alpha, aggregate=args.aggregate,
         use_kernel=args.use_kernel, solver=args.solver,
         chunk_size=args.chunk_size, sampler=args.sampler,
-        fwd=padded_forward_adjacency(g), coin_chunk=args.coin_chunk,
-        gather=args.gather)
+        fwd=fwd, coin_chunk=args.coin_chunk, gather=args.gather)
     out = fn(nbr, prob, wt, key, stats=stats)
     stats["sample_s"] = stats["sample_shuffle_s"]
     stats["select_s"] = (stats["senders_s"] + stats["receiver_s"]
@@ -361,7 +362,7 @@ def _main_faulted(args, g, key, device, graph_s: float) -> dict:
     with StageClock(stats, "sample_s", device):
         nbr, prob, wt = padded_adjacency(g)
         fwd = (padded_forward_adjacency(g)
-               if args.sampler != "dense" else None)
+               if reads_forward(args.sampler, args.gather) else None)
         rows = rrr.sample_incidence(
             nbr, prob, wt, key.fold_in(1), theta=theta, n=n,
             model=args.model, sampler=args.sampler, fwd=fwd,

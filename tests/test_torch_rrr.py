@@ -242,3 +242,87 @@ def test_sampler_codes_follow_the_reference():
     assert rrr.resolve_sampler("dense") == "dense"
     with pytest.raises(ValueError, match="unknown sampler"):
         rrr.resolve_sampler("sparse")
+
+
+def _rmat_tables():
+    from repro_torch.graphs import generators
+    g = generators.rmat(7, 700, seed=4, device="cpu")
+    return g, csr.padded_adjacency(g)
+
+
+@pytest.mark.parametrize("sampler,gather", [(s, g) for s in rrr.SAMPLERS
+                                            for g in rrr.GATHERS])
+def test_reads_forward_names_the_paths_that_read_the_table(sampler, gather):
+    """Only the plain packed path and the kernel path's streamed layout
+    gather through the forward table; the dense sampler and the push
+    never read it."""
+    want = sampler == "packed" or (sampler, gather) == ("kernel", "streamed")
+    assert rrr.reads_forward(sampler, gather) is want
+
+
+@pytest.mark.parametrize("model", ["IC", "LT"])
+@pytest.mark.parametrize("gather", ["auto", "resident"])
+def test_the_push_samples_without_the_forward_table(model, gather):
+    """The push takes ``fwd=None`` and draws the same words as with the
+    table given."""
+    g, tables = _rmat_tables()
+    kw = dict(theta=96, n=g.num_vertices, model=model, sampler="kernel",
+              gather=gather)
+    key = port_key(jax.random.key(6))
+    want = rrr.sample_incidence(*tables, key, fwd=csr.padded_forward_adjacency(
+        g), **kw)
+    got = rrr.sample_incidence(*tables, key, fwd=None, **kw)
+    np.testing.assert_array_equal(u32(got), u32(want))
+    assert u32(want).any()
+
+
+@pytest.mark.parametrize("caller", ["sample_incidence", "rrr_batch",
+                                    "round"])
+@pytest.mark.parametrize("sampler,gather", [("packed", "auto"),
+                                            ("kernel", "streamed")])
+def test_the_forward_paths_still_need_the_table(caller, sampler, gather):
+    g, tables = _rmat_tables()
+    n = g.num_vertices
+    key = port_key(jax.random.key(6))
+    with pytest.raises(ValueError, match=r"needs fwd=\(fwd_nbr, fwd_rslot\)"):
+        if caller == "sample_incidence":
+            rrr.sample_incidence(*tables, key, theta=64, n=n, model="IC",
+                                 sampler=sampler, gather=gather)
+        elif caller == "rrr_batch":
+            rrr.rrr_batch(*tables, torch.arange(32, dtype=torch.int32), key,
+                          model="IC", sampler=sampler, gather=gather)
+        else:
+            from repro_torch.core import greediris
+            greediris.build_round(m=2, n=n, theta=64, k=2, max_degree=0,
+                                  sampler=sampler, gather=gather)
+
+
+@pytest.mark.parametrize("model", ["IC", "LT"])
+def test_the_push_round_and_host_sampling_build_no_forward_table(
+        model, monkeypatch):
+    """On the push the GreediRIS round runs with ``fwd=None`` and
+    ``sample_incidence_host`` never builds the forward table, with the
+    words and the round's result of the table given."""
+    from repro_torch.core import greediris
+    g, tables = _rmat_tables()
+    n = g.num_vertices
+    key = port_key(jax.random.key(7))
+    fwd = csr.padded_forward_adjacency(g)
+    outs = []
+    for f in (fwd, None):
+        fn, _, _ = greediris.build_round(m=2, n=n, theta=128, k=3,
+                                         max_degree=0, model=model,
+                                         sampler="kernel", fwd=f)
+        out = fn(*tables, key)
+        outs.append([out.seeds.tolist(), int(out.coverage),
+                     int(out.global_coverage), int(out.best_local_coverage)])
+    assert outs[0] == outs[1]
+    want, _ = rrr.sample_incidence_host(g, 96, key, model=model, batch=64,
+                                        sampler="packed")
+
+    def refuse(g):
+        raise AssertionError("the push built the forward table")
+
+    monkeypatch.setattr(rrr, "padded_forward_adjacency", refuse)
+    got, _ = rrr.sample_incidence_host(g, 96, key, model=model, batch=64)
+    np.testing.assert_array_equal(u32(got), u32(want))

@@ -40,9 +40,14 @@ def _inside(spans, child: str, parents: tuple[str, ...]) -> bool:
         any(p[1] <= c[1] and c[2] <= p[2] for p in outer) for c in kids)
 
 
-def _imm(model="IC", stats=None):
+def _imm(model="IC", stats=None, gather="auto"):
     return imm.imm(_graph(), 3, 0.5, KEY, model=model, max_theta=512,
-                   selector=imm.make_randgreedi_selector(4), stats=stats)
+                   selector=imm.make_randgreedi_selector(4), gather=gather,
+                   stats=stats)
+
+
+def _imm_streamed():
+    return _imm(gather="streamed")
 
 
 def _serve(stats=None):
@@ -59,7 +64,6 @@ NESTING = {
                    ("rrr.sample", ("imm.sample",)),
                    ("imm.sample", ("imm.round", "imm.final")),
                    ("imm.select", ("imm.round", "imm.final")),
-                   ("tables.forward.copy", ("tables.forward",)),
                    ("randgreedi.partition", ("imm.select",)),
                    ("randgreedi.local", ("imm.select",)),
                    ("randgreedi.receiver", ("imm.select",)),
@@ -69,8 +73,13 @@ NESTING = {
                        ("service.finalize", ("serve.solve",)),
                        ("service.read", ("serve.solve",)),
                        ("service.certify", ("serve.solve",)),
-                       ("tables.forward.copy", ("tables.forward",)),
                        ("rrr.step", ("rrr.sample",))]),
+    # the streamed layout gathers through the forward table, which the
+    # push (the default's) never builds
+    "imm_streamed": (_imm_streamed,
+                     [("tables.forward.copy", ("tables.forward",)),
+                      ("rrr.tables", ("rrr.sample",)),
+                      ("rrr.step", ("rrr.sample",))]),
 }
 
 
@@ -83,10 +92,12 @@ def test_the_spans_nest_as_the_layers_do(case):
     spans = _spans(prof)
     for child, parents in pairs:
         assert _inside(spans, child, parents), (child, parents)
-    if case == "imm":
-        assert {s[0] for s in spans} >= {"imm.round", "imm.final",
-                                         "tables.reverse"}
+    names = {s[0] for s in spans}
+    if case.startswith("imm"):
+        assert names >= {"imm.round", "imm.final", "tables.reverse"}
+        assert ("tables.forward" in names) == (case == "imm_streamed")
     else:
+        assert "tables.forward" not in names
         phases = ["service.query_arrays", "service.solve",
                   "service.finalize", "service.read", "service.certify"]
         firsts = [min(s[1] for s in spans if s[0] == p) for p in phases]
