@@ -837,20 +837,31 @@ def parity_cascade(gen, dev) -> int:
 
 
 def lt_sampler_tables(g, coin_chunk: int, forward: bool = True):
-    """The LT sampler's tables on graph ``g`` (with the forward tables of
-    the plane route when ``forward``)."""
-    nbr, prob, wt = csr.padded_adjacency(g)
-    fwd = csr.padded_forward_adjacency(g) if forward else (None, None)
-    return rrr._Tables(nbr, prob, wt, *fwd, model="LT",
-                       coin_chunk=coin_chunk, forward=forward)
-
-
-def unsorted_rows(gen, t):
-    """``t`` with each row's cumulative weights permuted, so its rows
-    are marked and searched over all their slots."""
-    t.cumw, t.lt_rows = rrr_expand.lt_tables(t.nbr, t.cumw[:, torch.randperm(
-        t.d, generator=gen).to(t.cumw.device)])
+    """The LT sampler's tables on graph ``g``: the push's CSR tables
+    (``t.lt``, ``graphs.csr.lt_reverse``; no padded table) and, with
+    ``forward``, the padded tables and forward gathers of the plane
+    route.  ``t.d`` is the largest in-degree."""
+    lt = csr.lt_reverse(g)
+    if forward:
+        nbr, prob, wt = csr.padded_adjacency(g)
+        t = rrr._Tables(nbr, prob, wt, *csr.padded_forward_adjacency(g),
+                        model="LT", coin_chunk=coin_chunk)
+        t.lt = lt
+    else:
+        t = rrr._Tables(None, None, None, None, None, model="LT",
+                        coin_chunk=coin_chunk, forward=False, lt=lt)
+    t.d = g.max_in_degree()
     return t
+
+
+def dips_graph(dev):
+    """Rows of 300 to 2,600 in-edges padded to a hub's 5,000: tails that
+    dip an ulp below their rows' last sums."""
+    rng = np.random.default_rng(0)
+    rows = [5000, 300, 400, 520, 700, 900, 1300, 2000, 2600]
+    dst = np.repeat(np.arange(len(rows)), rows)
+    return csr.from_edge_list(rng.integers(0, 30, dst.size), dst, 30,
+                              seed=0, device=dev)
 
 
 def lt_push_pair(t, frontier, visited, key):
@@ -865,7 +876,8 @@ def lt_push_pair(t, frontier, visited, key):
             frontier)
         listed = torch.empty(n * w, dtype=torch.int32, device=f.device)
         count = torch.zeros(1, dtype=torch.int32, device=f.device)
-        fn(words, f, vis, t.nbr, t.cumw, t.lt_rows, key, nxt, listed, count)
+        fn(words, f, vis, t.lt.indptr, t.lt.src, t.lt.cumw, key, nxt,
+           listed, count)
         outs.append((nxt, vis, listed[:int(count)].sort().values, f))
         del f, vis, nxt, listed
     return outs
@@ -886,15 +898,13 @@ def parity_lt_push(gen, dev) -> int:
     route it replaces (the selection plane, rrr._lt_mask, through
     rrr_expand_resident): the LT IMM's first sampling step (n = 262,144,
     W = 1,024: the draw index s * n + v passes 2^32), the IMM-size rmat
-    graph's (hub rows, binary searched; 10 rows marked), a reverse star
-    with its rows' sums permuted (4,999 slots, marked and searched
-    whole), a star (every leaf pushes into the hub's words), and an
-    empty word list."""
+    graph's (hub rows, binary searched), rows whose padded tails dip
+    below their last sums (kept as the reference counts them), a star
+    (every leaf pushes into the hub's words), and an empty word list.
+    The push reads the CSR tables alone."""
     args = im_driver.parser().parse_args(LT_FULL)
     err = 0
     key = prng.key(args.seed).fold_in(1)
-    rev = csr.from_edge_list(np.arange(1, 5000), np.zeros(4999, np.int64),
-                             5000, seed=2, device=dev)
     cases = [
         ("imm first step", lambda: lt_sampler_tables(
             generators.erdos_renyi(args.n, args.avg_deg, args.seed,
@@ -903,8 +913,7 @@ def parity_lt_push(gen, dev) -> int:
             im_driver.make_graph("rmat", args.n, args.avg_deg, args.seed,
                                  dev), args.coin_chunk, forward=False),
          False),
-        ("reverse star, rows permuted", lambda: unsorted_rows(
-            gen, lt_sampler_tables(rev, 32, forward=False)), False),
+        ("dips", lambda: lt_sampler_tables(dips_graph(dev), 32), True),
         ("star", lambda: lt_sampler_tables(
             generators.star(5000, device=dev), 32), True)]
     for label, make, composed in cases:
@@ -917,7 +926,7 @@ def parity_lt_push(gen, dev) -> int:
                        & rand_words(gen, t.n, 7, dev=dev))
             sub = key.fold_in(7)
         shape = dict(input=label, n=t.n, d=t.d, W=f.shape[1],
-                     sorted_rows=int((t.lt_rows >= 0).sum()),
+                     edges=t.lt.num_edges,
                      max_flat_index=32 * f.shape[1] * t.n)
         kernel, plain = lt_push_pair(t, f, vis, sub)
         err = max(err, require_equal("rrr_expand_lt", kernel, plain,
@@ -927,8 +936,8 @@ def parity_lt_push(gen, dev) -> int:
             raise AssertionError(f"rrr_expand_lt: no walk went on ({label})")
         del kernel, plain
         if composed:
-            got = rrr_expand.rrr_expand_step_lt(f, vis, t.nbr, t.cumw,
-                                                t.lt_rows, sub)
+            got = rrr_expand.rrr_expand_step_lt(f, vis, t.lt.indptr,
+                                                t.lt.src, t.lt.cumw, sub)
             plane = rrr._lt_mask(t, sub, f).reshape(t.n * t.d_pad, -1)
             err = max(err, require_equal(
                 "rrr_expand_lt", got, rrr_expand.rrr_expand_step_resident(
@@ -943,10 +952,10 @@ def parity_lt_push(gen, dev) -> int:
     before = ops.LAUNCHES["rrr_expand_lt"]
     rrr_expand.rrr_expand_push_lt(
         torch.zeros(0, dtype=torch.int32, device=dev), f, f.clone(),
-        torch.zeros((5, 1), dtype=torch.int32, device=dev),
-        torch.zeros((5, 1), device=dev), torch.zeros(5, dtype=torch.int32,
-                                                     device=dev),
-        key, f.clone(), torch.empty(10, dtype=torch.int32, device=dev), count)
+        torch.arange(6, dtype=torch.int32, device=dev),
+        torch.zeros(5, dtype=torch.int32, device=dev),
+        torch.zeros(5, device=dev), key, f.clone(),
+        torch.empty(10, dtype=torch.int32, device=dev), count)
     if int(count) or ops.LAUNCHES["rrr_expand_lt"] != before:
         raise AssertionError("rrr_expand_lt: an empty list launched or "
                              "listed")
@@ -2597,12 +2606,12 @@ def rmat_ic_timing(dev) -> dict:
     return row
 
 
-def choice_reads(rows, d: int, draws_v) -> int:
+def choice_reads(slots, draws_v) -> int:
     """The cumulative weights that ``draws_v[v]`` LT choices on each row
     must read, each once: a binary search's ceil(log2(slots)) + 1 a
-    draw, at most the row's slots (a non-decreasing row's in-degree, a
-    marked row's d)."""
-    slots = torch.where(rows >= 0, rows, d).long()
+    draw, at most the row's slots (the push's rows: the in-degree; the
+    cascade's: a non-decreasing row's in-degree, a marked row's d)."""
+    slots = slots.long()
     per_draw = torch.log2(slots.clamp(min=1).double()).ceil().long() + 1
     per_v = torch.minimum(draws_v * per_draw, slots)
     return int(torch.where(draws_v > 0, per_v, 0).sum())
@@ -2610,24 +2619,25 @@ def choice_reads(rows, d: int, draws_v) -> int:
 
 def lt_push_work(t, frontier, key, appended: int) -> dict:
     """What one LT sampling step's data needs: the live frontier words
-    (each read once, and its list entry), the row code of each vertex
-    with a live word (4 B), the cumulative weights its choices read
-    (:func:`choice_reads`), the nbr entry of each edge
+    (each read once, and its list entry), the two row offsets of each
+    vertex with a live word (8 B), the cumulative weights its choices
+    read (:func:`choice_reads`), the src entry of each edge
     taken (4 B; counted as the bits the step sets over an empty visited
     plane), the hit words (visited and the next plane read, modified and
     written, 16 B each), the appended entries (4 B each) and one draw a
     live bit (OPS_PER_COIN each)."""
     bits_v = bitset.popcount(frontier).sum(1, dtype=torch.int64)
-    cumw_reads = choice_reads(t.lt_rows, t.d, bits_v)
+    cumw_reads = choice_reads(t.lt.indptr[1:] - t.lt.indptr[:-1], bits_v)
     hits = rrr_expand.rrr_expand_step_lt(frontier, torch.zeros_like(frontier),
-                                         t.nbr, t.cumw, t.lt_rows, key)[0]
+                                         t.lt.indptr, t.lt.src, t.lt.cumw,
+                                         key)[0]
     work = dict(live_words=int((frontier != 0).sum()),
                 live_rows=int((bits_v > 0).sum()), cumw_reads=cumw_reads,
                 edges=int(bitset.popcount(hits).sum(dtype=torch.int64)),
                 hit_words=int((hits != 0).sum()), appended=appended,
                 coins=int(bits_v.sum()))
     del hits
-    work["bytes"] = (8 * work["live_words"] + 4 * work["live_rows"]
+    work["bytes"] = (8 * work["live_words"] + 8 * work["live_rows"]
                      + 4 * cumw_reads + 4 * work["edges"]
                      + 16 * work["hit_words"] + 4 * appended)
     return work
@@ -2649,8 +2659,8 @@ def time_lt_step(t, frontier, visited, key, label: str, reps: int = 10,
     check_push(kernel, label, "rrr_expand_lt")
     appended = kernel[2].numel()
     del kernel, plain
-    entry = rrr_expand.rrr_expand_step_lt(frontier, visited, t.nbr, t.cumw,
-                                          t.lt_rows, key)
+    entry = rrr_expand.rrr_expand_step_lt(frontier, visited, t.lt.indptr,
+                                          t.lt.src, t.lt.cumw, key)
     extra = dict(shape=label, n=n, d=t.d, W=w)
     if composed:
         def parent():
@@ -2681,8 +2691,8 @@ def time_lt_step(t, frontier, visited, key, label: str, reps: int = 10,
         nxt.zero_()
 
     def step(fn):
-        return lambda: fn(words, f, vis, t.nbr, t.cumw, t.lt_rows, key, nxt,
-                          listed, count)
+        return lambda: fn(words, f, vis, t.lt.indptr, t.lt.src, t.lt.cumw,
+                          key, nxt, listed, count)
 
     ms = median_ms(step(rrr_expand.rrr_expand_push_lt), reps, restore,
                    hide_host=True)
@@ -2691,7 +2701,7 @@ def time_lt_step(t, frontier, visited, key, label: str, reps: int = 10,
                          plain_reps, restore)
     del f, vis, nxt, listed
     extra["entry_ms"] = median_ms(lambda: rrr_expand.rrr_expand_step_lt(
-        frontier, visited, t.nbr, t.cumw, t.lt_rows, key), reps)
+        frontier, visited, t.lt.indptr, t.lt.src, t.lt.cumw, key), reps)
     torch.cuda.empty_cache()
     row = dict(name="rrr_expand_lt", route="cuda",
                source=SOURCES["rrr_expand_lt"][0],
@@ -2797,7 +2807,8 @@ def lt_cascade_work(step, f, vis) -> dict:
         cand |= fr
     cand &= open_
     draws_v = bitset.popcount(cand).sum(1, dtype=torch.int64)
-    cumw_reads = choice_reads(step["rows"], d, draws_v)
+    cumw_reads = choice_reads(torch.where(step["rows"] >= 0, step["rows"], d),
+                              draws_v)
     work = dict(open_words=int(open_words.sum()),
                 row_slots=int(((open_words > 0) * slots).sum()),
                 gathered=min(gathered, n * w), cumw_reads=cumw_reads,

@@ -326,15 +326,18 @@ def mask_shape() -> tuple:
 
 
 def _sampler(gather: str, model: str = "IC"):
+    """The kernel sampler on the fixture graph, fed only the tables its
+    path reads (``rrr.graph_tables``: the LT push its CSR tables)."""
     def build_(device):
         from repro_torch.core import prng, rrr
-        g, nbr, prob, wt, fwd = _graph(device)
+        g = _graph(device)[0]
+        nbr, prob, wt, fwd, lt = rrr.graph_tables(g, "kernel", gather, model)
         stats: dict = {}
         return Fixture(
             fn=lambda: rrr.sample_incidence(
                 nbr, prob, wt, prng.key(0), theta=64, n=g.num_vertices,
                 model=model, max_steps=6, sampler="kernel", gather=gather,
-                fwd=fwd, stats=stats),
+                fwd=fwd, stats=stats, lt=lt),
             shapes={k: (2, 0) for k in ("rrr_expand_ic", "rrr_expand_lt",
                                         "coin_pack", "rrr_expand_streamed")},
             steps=lambda: stats["bfs_steps"])

@@ -64,10 +64,12 @@ def _local_theta(theta: int, m: int, sample_chunks: int) -> int:
 
 def _machine_sampler(*, n: int, theta_local: int, sample_chunks: int,
                      model: str, max_steps: int, sampler, fwd,
-                     coin_chunk: int, gather: str):
+                     coin_chunk: int, gather: str, lt=None):
     """sample(nbr, prob, wt, key, p, i) -> the packed words [rows, b/32]
     of machine p's i-th sample chunk (b = theta_local / sample_chunks),
-    drawn as the reference's shard body draws them."""
+    drawn as the reference's shard body draws them.  The LT push reads
+    ``lt`` (``graphs.csr.lt_reverse``), and its callers may pass
+    ``nbr = prob = wt = None`` (``rrr.reads_padded``)."""
     sampler = rrr.resolve_sampler(sampler)
     rrr.require_fwd(fwd, sampler, gather, f"sampler={sampler!r}")
     fwd = (None, None) if fwd is None else fwd
@@ -81,7 +83,7 @@ def _machine_sampler(*, n: int, theta_local: int, sample_chunks: int,
 
     def sample(nbr, prob, wt, key, p: int, i: int):
         kr, kb = key.fold_in(p).fold_in(i).split()
-        roots = kr.randint((b,), 0, n, device=nbr.device)
+        roots = kr.randint((b,), 0, n, device=rrr._device(nbr, lt))
         if sampler == "dense":
             return bitset.pack_bool_matrix(rrr.rrr_batch(
                 nbr, prob, wt, roots, kb, model=model, max_steps=max_steps,
@@ -89,7 +91,7 @@ def _machine_sampler(*, n: int, theta_local: int, sample_chunks: int,
         return rrr.rrr_batch_packed(
             nbr, prob, wt, fwd[0], fwd[1], roots, kb, model=model,
             max_steps=max_steps, coin_chunk=coin_chunk, expand=expand,
-            gather=gather)
+            gather=gather, lt=lt)
     return sample
 
 
@@ -102,11 +104,13 @@ def build_round(*, m: int, n: int, theta: int, k: int, max_degree: int,
                 chunk_size: int | str | None = None,
                 solver: str | None = None, sampler: str | None = None,
                 fwd=None, coin_chunk: int = 32, gather: str = "auto",
-                survivors=None):
+                survivors=None, lt=None):
     """The distributed round over m machines on one device: returns
     ``(fn, n_pad, theta)`` where ``fn(nbr, prob, wt, key, stats=None)``
     -> :class:`GreediRISOut` runs on the graph tables' device;
     ``fn.sample_shuffle(nbr, prob, wt, key)`` runs S1 and S2 alone.
+    The LT push samples from ``lt`` (``rrr.graph_tables``), and ``fn``
+    then takes ``nbr = prob = wt = None``.
 
     The reference's arguments, less ``mesh`` and ``axes`` (``m`` is the
     machine count) and ``block_v`` (the port's kernels fix their tiles).
@@ -150,16 +154,16 @@ def build_round(*, m: int, n: int, theta: int, k: int, max_degree: int,
     sample = _machine_sampler(
         n=n, theta_local=theta_local, sample_chunks=sample_chunks,
         model=model, max_steps=max_steps, sampler=sampler, fwd=fwd,
-        coin_chunk=coin_chunk, gather=gather)
+        coin_chunk=coin_chunk, gather=gather, lt=lt)
 
     def dense_shuffle(nbr, prob, wt, key, perm):
-        x_s = torch.empty((m, per, w_global), dtype=torch.int32,
-                          device=nbr.device)
+        dev = rrr._device(nbr, lt)
+        x_s = torch.empty((m, per, w_global), dtype=torch.int32, device=dev)
         for p in range(m):
-            x_p = torch.zeros((max(n_pad, nbr.shape[0]), w_local),
-                              dtype=torch.int32, device=nbr.device)
+            x_p = torch.zeros((n_pad, w_local), dtype=torch.int32,
+                              device=dev)
             for i in range(sample_chunks):
-                x_p[:nbr.shape[0], i * b // 32:(i + 1) * b // 32] = sample(
+                x_p[:n, i * b // 32:(i + 1) * b // 32] = sample(
                     nbr, prob, wt, key, p, i)
             x_s[:, :, p * w_local:(p + 1) * w_local] = x_p[perm].reshape(
                 m, per, w_local)
@@ -167,7 +171,7 @@ def build_round(*, m: int, n: int, theta: int, k: int, max_degree: int,
         return x_s
 
     def sparse_shuffle(nbr, prob, wt, key, perm, stats):
-        dev = nbr.device
+        dev = rrr._device(nbr, lt)
         inv_perm = torch.argsort(perm)
         send = torch.zeros((m, m, cap, 2), dtype=torch.int32, device=dev)
         send[..., 1] = -1                      # empty slot: sample id -1
@@ -208,14 +212,14 @@ def build_round(*, m: int, n: int, theta: int, k: int, max_degree: int,
     def sample_shuffle(nbr, prob, wt, key, stats=None):
         """S1 + S2: (the machines' shuffled rows int32 [m, per, W_global],
         the vertex permutation int64 [n_pad])."""
-        perm = key.fold_in(0x9E37).permutation(n_pad,
-                                               device=nbr.device).long()
+        perm = key.fold_in(0x9E37).permutation(
+            n_pad, device=rrr._device(nbr, lt)).long()
         if shuffle == "dense":
             return dense_shuffle(nbr, prob, wt, key, perm), perm
         return sparse_shuffle(nbr, prob, wt, key, perm, stats), perm
 
     def fn(nbr, prob, wt, key, stats=None) -> GreediRISOut:
-        dev = nbr.device
+        dev = rrr._device(nbr, lt)
         with StageClock(stats, "sample_shuffle_s", dev):
             x_s, perm = sample_shuffle(nbr, prob, wt, key, stats)
         with StageClock(stats, "senders_s", dev):
@@ -305,7 +309,8 @@ def build_ripples_round(*, m: int, n: int, theta: int, k: int,
                         model: str = "IC", max_steps: int = 32,
                         sample_chunks: int = 1, use_kernel: bool = False,
                         sampler: str | None = None, fwd=None,
-                        coin_chunk: int = 32, gather: str = "auto"):
+                        coin_chunk: int = 32, gather: str = "auto",
+                        lt=None):
     """The Ripples baseline over m machines on one device: returns
     ``(fn, theta)`` where ``fn(nbr, prob, wt, key, stats=None)`` ->
     (seeds int32 [k], coverage int32 []).  Machine p keeps its own
@@ -315,18 +320,20 @@ def build_ripples_round(*, m: int, n: int, theta: int, k: int,
     ``sampler``, ``fwd``, ``coin_chunk`` and ``gather`` choose the
     sampler, whose output equals the reference's dense one.  ``stats``
     gathers ``sample_s`` and ``select_s``; ``fn.sample(nbr, prob, wt,
-    key)`` draws the machines' samples alone."""
+    key)`` draws the machines' samples alone.  ``lt`` as in
+    :func:`build_round`."""
     theta_local = _local_theta(theta, m, sample_chunks)
     w_local = theta_local // 32
     b = theta_local // sample_chunks
     sample = _machine_sampler(
         n=n, theta_local=theta_local, sample_chunks=sample_chunks,
         model=model, max_steps=max_steps, sampler=sampler, fwd=fwd,
-        coin_chunk=coin_chunk, gather=gather)
+        coin_chunk=coin_chunk, gather=gather, lt=lt)
 
     def sample_all(nbr, prob, wt, key):
         """Every machine's samples, int32 [m, n, w_local]."""
-        x = torch.zeros((m, n, w_local), dtype=torch.int32, device=nbr.device)
+        x = torch.zeros((m, n, w_local), dtype=torch.int32,
+                        device=rrr._device(nbr, lt))
         for p in range(m):
             for i in range(sample_chunks):
                 x[p, :, i * b // 32:(i + 1) * b // 32] = sample(
@@ -334,7 +341,7 @@ def build_ripples_round(*, m: int, n: int, theta: int, k: int,
         return x
 
     def fn(nbr, prob, wt, key, stats=None):
-        dev = nbr.device
+        dev = rrr._device(nbr, lt)
         with StageClock(stats, "sample_s", dev):
             x = sample_all(nbr, prob, wt, key)
         with StageClock(stats, "select_s", dev):

@@ -15,10 +15,9 @@ import torch
 
 from repro_torch.core import StageClock, maxcover, randgreedi, span, theory
 from repro_torch.core.prng import Key
-from repro_torch.core.rrr import (reads_forward, resolve_sampler,
+from repro_torch.core.rrr import (graph_tables, resolve_sampler,
                                   sample_incidence)
-from repro_torch.graphs.csr import (CSRGraph, padded_adjacency,
-                                    padded_forward_adjacency)
+from repro_torch.graphs.csr import CSRGraph
 
 # selector(rows [n, W], k, key) -> (seeds [k] int32, coverage int32)
 Selector = Callable[[torch.Tensor, int, Key], tuple]
@@ -77,7 +76,10 @@ def imm(g: CSRGraph, k: int, eps: float, key: Key, *, model: str = "IC",
 
     ``stats`` (optional dict) accumulates the seconds spent sampling
     (``sample_s``) and selecting (``select_s``), and the sampler's
-    ``bfs_steps`` and ``frontier_words`` (:func:`rrr.rrr_batch_packed`).
+    counters (``bfs_steps``, ``frontier_words``, and on the LT push
+    ``frontier_bits``, ``root_bits``, ``choice_reads``;
+    :func:`rrr.rrr_batch_packed`).  The graph's tables are built once a
+    call, only those the sampler path reads (:func:`rrr.graph_tables`).
     Each martingale round is the span ``imm.round`` and the final
     sampling and selection ``imm.final``, with ``imm.sample`` and
     ``imm.select`` inside them.
@@ -85,9 +87,7 @@ def imm(g: CSRGraph, k: int, eps: float, key: Key, *, model: str = "IC",
     selector = selector or make_greedy_selector(solver)
     sampler = resolve_sampler(sampler)
     n = g.num_vertices
-    nbr, prob, wt = padded_adjacency(g)
-    fwd = (padded_forward_adjacency(g) if reads_forward(sampler, gather)
-           else None)
+    nbr, prob, wt, fwd, lt = graph_tables(g, sampler, gather, model)
     ell = theory.adjust_ell(n, k, ell)
     lp = theory.lambda_prime(n, k, eps, ell)
     eps_p = math.sqrt(2.0) * eps
@@ -97,7 +97,7 @@ def imm(g: CSRGraph, k: int, eps: float, key: Key, *, model: str = "IC",
             return sample_incidence(
                 nbr, prob, wt, sub, theta=count, n=n, model=model,
                 max_steps=max_steps, sampler=sampler, fwd=fwd,
-                coin_chunk=coin_chunk, gather=gather, stats=stats)
+                coin_chunk=coin_chunk, gather=gather, stats=stats, lt=lt)
 
     def select(sub):
         with StageClock(stats, "select_s", g.device, layer="imm"):

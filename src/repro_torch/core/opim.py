@@ -18,10 +18,9 @@ import torch
 from repro_torch.core import StageClock, bitset
 from repro_torch.core.imm import Selector, _round32, make_greedy_selector
 from repro_torch.core.prng import Key
-from repro_torch.core.rrr import (reads_forward, resolve_sampler,
+from repro_torch.core.rrr import (graph_tables, resolve_sampler,
                                   sample_incidence)
-from repro_torch.graphs.csr import (CSRGraph, padded_adjacency,
-                                    padded_forward_adjacency)
+from repro_torch.graphs.csr import CSRGraph
 
 
 class OPIMResult(NamedTuple):
@@ -82,9 +81,7 @@ def opim(g: CSRGraph, k: int, eps: float, key: Key, *, model: str = "IC",
     if solver_alpha is None:
         solver_alpha = 1.0 - 1.0 / math.e
     n = g.num_vertices
-    nbr, prob, wt = padded_adjacency(g)
-    fwd = (padded_forward_adjacency(g) if reads_forward(sampler, gather)
-           else None)
+    nbr, prob, wt, fwd, lt = graph_tables(g, sampler, gather, model)
     target = solver_alpha - eps
     i_max = max(1, int(math.ceil(math.log2(max_theta / max(theta0, 1)))) + 1)
     delta = fail_prob / (3.0 * i_max)
@@ -94,7 +91,7 @@ def opim(g: CSRGraph, k: int, eps: float, key: Key, *, model: str = "IC",
             return sample_incidence(
                 nbr, prob, wt, sub, theta=count, n=n, model=model,
                 max_steps=max_steps, sampler=sampler, fwd=fwd,
-                coin_chunk=coin_chunk, gather=gather, stats=stats)
+                coin_chunk=coin_chunk, gather=gather, stats=stats, lt=lt)
 
     r1 = r2 = None
     theta = 0

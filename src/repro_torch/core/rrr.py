@@ -27,7 +27,9 @@ mask[v, rev_slot]`` for every forward pair ``(v, rev_slot)`` of ``u``:
     *reverse* adjacency, which draws each coin or live in-edge inside
     the step, updates ``visited`` in place and appends each newly live
     word to the next list once (see ``_push``); it reads no forward
-    table, so its callers build none (:func:`reads_forward`).  With
+    table, so its callers build none (:func:`reads_forward`), and the LT
+    push reads the graph's own CSR rows (``graphs.csr.lt_reverse``), no
+    padded table at all (:func:`reads_padded`).  With
     ``gather="streamed"``, IC draws the coin plane (``kernels.coins``)
     and LT builds its selection plane with tensor ops (``_lt_mask``),
     each gathered in one pass into the streamed mask of
@@ -51,7 +53,8 @@ import torch
 
 from repro_torch.core import bitset, span
 from repro_torch.core.prng import Key
-from repro_torch.graphs.csr import padded_adjacency, padded_forward_adjacency
+from repro_torch.graphs.csr import (LTReverse, lt_reverse, padded_adjacency,
+                                    padded_forward_adjacency)
 from repro_torch.kernels import coins, rrr_expand
 
 Model = Literal["IC", "LT"]
@@ -83,6 +86,52 @@ def require_fwd(fwd, sampler: str, gather: str, who: str) -> None:
     if fwd is None and reads_forward(sampler, gather):
         raise ValueError(f"{who} needs fwd=(fwd_nbr, fwd_rslot) from "
                          "graphs.csr.padded_forward_adjacency")
+
+
+def reads_padded(sampler: str, gather: str = "auto",
+                 model: str = "IC") -> bool:
+    """Whether the path of ``(sampler, gather, model)`` reads the padded
+    reverse tables (``graphs.csr.padded_adjacency``): every path but the
+    LT push (``kernel`` on the resident layout under LT), which reads
+    the graph's CSR through ``graphs.csr.lt_reverse`` and takes
+    ``nbr = prob = wt = None`` with ``lt=``."""
+    return not (sampler == "kernel" and gather != "streamed"
+                and model == "LT")
+
+
+def graph_tables(g, sampler: str, gather: str = "auto", model: str = "IC"):
+    """The tables the sampler path reads, built for graph ``g`` and
+    nothing else: ``(nbr, prob, wt, fwd, lt)`` with the padded reverse
+    tables where :func:`reads_padded` holds (else None each), the padded
+    forward table where :func:`reads_forward` holds (else None), and the
+    LT push's CSR tables (:class:`graphs.csr.LTReverse`) where the path
+    is that push (else None)."""
+    sampler = resolve_sampler(sampler)
+    padded = reads_padded(sampler, gather, model)
+    nbr, prob, wt = padded_adjacency(g) if padded else (None, None, None)
+    fwd = (padded_forward_adjacency(g) if reads_forward(sampler, gather)
+           else None)
+    return nbr, prob, wt, fwd, (None if padded else lt_reverse(g))
+
+
+def lt_reverse_padded(nbr, wt) -> LTReverse:
+    """The LT push's CSR tables from padded reverse tables ``nbr`` int32
+    and ``wt`` float32 [n, d] (valid slots first): each row's sums over
+    its d slots in XLA's blocked order, sorted, the first ``deg`` kept
+    (what ``graphs.csr.lt_reverse`` computes without the [n, d]
+    tables)."""
+    valid = nbr >= 0
+    deg = valid.sum(1)
+    indptr = torch.zeros(nbr.shape[0] + 1, dtype=torch.int64,
+                         device=nbr.device)
+    indptr[1:] = torch.cumsum(deg, 0)
+    cumw = xla_cumsum(wt).sort(1).values if nbr.shape[1] else wt
+    return LTReverse(indptr.to(torch.int32), nbr[valid].contiguous(),
+                     cumw[valid].contiguous())
+
+
+def _device(nbr, lt):
+    return nbr.device if nbr is not None else lt.device
 
 
 def _coin_chunks(d: int, coin_chunk: int):
@@ -160,10 +209,20 @@ def _live_bits(frontier: torch.Tensor):
 
 
 class _Tables:
-    """Per-graph tables of one sampling call, built once."""
+    """Per-graph tables of one sampling call, built once.  ``forward``
+    says whether the path reads the forward gathers; the LT push
+    (``lt`` given, or derived from ``nbr`` and ``wt``) reads only the
+    CSR tables ``self.lt``."""
 
     def __init__(self, nbr, prob, wt, fwd_nbr, fwd_rslot, *, model: str,
-                 coin_chunk: int, forward: bool = True):
+                 coin_chunk: int, forward: bool = True,
+                 lt: Optional[LTReverse] = None):
+        if model not in ("IC", "LT"):
+            raise ValueError(f"unknown model {model!r}; expected IC or LT")
+        if model == "LT" and not forward:   # the push: no padded table
+            self.lt = lt if lt is not None else lt_reverse_padded(nbr, wt)
+            self.n = self.lt.num_vertices
+            return
         n, d = nbr.shape
         self.n, self.d = n, d
         self.nbr = nbr
@@ -184,14 +243,12 @@ class _Tables:
         if model == "IC":
             self.prob_p = torch.nn.functional.pad(
                 prob, (0, self.d_pad - d)).contiguous()
-        elif model == "LT":
+        else:
             # rows ascending (rrr_expand.lt_tables): every count of
             # sums at or below a draw is the reference's
             self.cumw, self.lt_rows = rrr_expand.lt_tables(nbr,
                                                            xla_cumsum(wt))
             self.in_deg = (nbr >= 0).sum(1)
-        else:
-            raise ValueError(f"unknown model {model!r}; expected IC or LT")
 
 
 def _ic_mask(t: _Tables, sub: Key, frontier, kernel: bool):
@@ -269,15 +326,57 @@ def _push_ic(t: _Tables, sub: Key, *planes) -> None:
 
 
 def _push_lt(t: _Tables, sub: Key, *planes) -> None:
-    rrr_expand.rrr_expand_push_lt(*planes[:3], t.nbr, t.cumw, t.lt_rows, sub,
-                                  *planes[3:])
+    rrr_expand.rrr_expand_push_lt(*planes[:3], t.lt.indptr, t.lt.src,
+                                  t.lt.cumw, sub, *planes[3:])
 
 
 _PUSH = {"IC": _push_ic, "LT": _push_lt}
 
 
+class _LTTally:
+    """The LT push's counters, read once a sampling call: the live bits
+    the steps draw (``frontier_bits``; the roots' are ``root_bits``, one
+    a sample), and the cumulative weights their searches read
+    (``choice_reads``: ceil(log2 deg) + 1 a draw, at most the row's
+    ``deg`` sums a step).  A step keeps its list and its frontier words
+    (two launches); the counts are taken over all steps at the end."""
+
+    def __init__(self, lt: LTReverse, w: int, samples: int):
+        self.lt, self.w, self.samples = lt, w, samples
+        self.words, self.values = [], []
+
+    def step(self, words, frontier) -> None:
+        self.words.append(words.clone())
+        self.values.append(frontier.view(-1).index_select(0, words))
+
+    def add_to(self, stats: dict) -> None:
+        n = self.lt.num_vertices
+        dev = self.lt.device
+        sizes = torch.tensor([x.numel() for x in self.words], device=dev)
+        step = torch.repeat_interleave(torch.arange(len(self.words),
+                                                    device=dev), sizes)
+        bits = bitset.popcount(torch.cat(self.values)).long()
+        code = step * n + torch.cat(self.words).long() // self.w
+        rows, inv = torch.unique(code, return_inverse=True)
+        draws = torch.zeros(rows.shape, dtype=torch.int64,
+                            device=dev).index_add_(0, inv, bits)
+        rows = rows % n
+        deg = (self.lt.indptr[rows + 1] - self.lt.indptr[rows]).long()
+        # ceil(log2 deg) + 1: the bit length of deg - 1, plus one
+        per_draw = torch.ones_like(deg)
+        rest = (deg - 1).clamp(min=0)
+        for _ in range(int(rest.max()).bit_length() if rest.numel() else 0):
+            per_draw += rest > 0
+            rest = rest >> 1
+        reads = torch.minimum(draws * per_draw, deg).sum()
+        for name, v in (("frontier_bits", int(bits.sum())),
+                        ("choice_reads", int(reads)),
+                        ("root_bits", self.samples)):
+            stats[name] = stats.get(name, 0) + v
+
+
 def _push(t: _Tables, roots, key: Key, visited, max_steps: int,
-          model: str) -> tuple[int, int]:
+          model: str, stats: Optional[dict] = None) -> tuple[int, int]:
     """The BFS as pushes over word lists (the model's step kernel from
     ``_PUSH``), ``visited`` updated in place; returns the steps taken
     and the words the steps' lists held (the roots' first).  Two
@@ -286,7 +385,9 @@ def _push(t: _Tables, roots, key: Key, visited, max_steps: int,
     alternate; each step's one host sync reads the next list's count,
     and the loop ends when it is 0.  No step passes over a whole [n, W]
     plane.  Each step is the span ``rrr.step``, which ends on that
-    read."""
+    read.  With ``stats``, the LT push adds its counters
+    (:class:`_LTTally`), kept outside the steps' spans and counted once
+    at the end."""
     push = _PUSH[model]
     n, w = visited.shape
     dev = visited.device
@@ -295,8 +396,12 @@ def _push(t: _Tables, roots, key: Key, visited, max_steps: int,
              for _ in range(2)]
     count = torch.zeros(1, dtype=torch.int32, device=dev)
     words = root_words(roots, w)
+    tally = (_LTTally(t.lt, w, roots.numel())
+             if stats is not None and model == "LT" else None)
     step = listed = 0
     while step < max_steps and words.numel():
+        if tally is not None:
+            tally.step(words, frontier)
         with span("rrr.step"):
             key, sub = key.split()
             out = lists[step % 2]
@@ -305,38 +410,55 @@ def _push(t: _Tables, roots, key: Key, visited, max_steps: int,
             words = out[:int(count)]
             frontier, spare = spare, frontier
             step += 1
+    if tally is not None:
+        tally.add_to(stats)
     return step, listed
 
 
 def rrr_batch_packed(nbr, prob, wt, fwd_nbr, fwd_rslot, roots, key: Key, *,
                      model: str, max_steps: int = 64, coin_chunk: int = 32,
                      expand: str = "plain", gather: str = "auto",
-                     stats: Optional[dict] = None):
+                     stats: Optional[dict] = None,
+                     lt: Optional[LTReverse] = None):
     """Packed-state RRR batch -> int32 [n, ceil(batch/32)]: bit i of word
     i//32 at row v is set iff v in RRR(roots[i]).  ``expand`` is "plain"
     (PyTorch coins and gathers) or "kernel" (the CUDA kernels).
     ``fwd_nbr`` and ``fwd_rslot`` may be None where :func:`reads_forward`
-    is false: the push never reads them.  ``stats`` (optional dict)
-    accumulates ``bfs_steps`` and, on the push (``expand="kernel"``,
-    resident), ``frontier_words``: the words of the live-word lists its
-    steps pushed, the roots' included.  The call's tables are the span
-    ``rrr.tables``, each BFS step the span ``rrr.step``."""
+    is false: the push never reads them.  The LT push reads ``lt``
+    (``graphs.csr.lt_reverse``; derived from ``nbr`` and ``wt`` when
+    None), and ``nbr``, ``prob`` and ``wt`` may then be None
+    (:func:`reads_padded`).  ``stats`` (optional dict) accumulates
+    ``bfs_steps`` and, on the push (``expand="kernel"``, resident),
+    ``frontier_words``: the words of the live-word lists its steps
+    pushed, the roots' included; the LT push adds ``frontier_bits``,
+    ``root_bits`` and ``choice_reads`` (``_LTTally``).  The call's
+    tables are the span ``rrr.tables``, each BFS step the span
+    ``rrr.step``."""
     if expand not in ("plain", "kernel"):
         raise ValueError(f"expand must be 'plain' or 'kernel', got {expand!r}")
     if gather not in GATHERS:
         raise ValueError(f"unknown gather {gather!r}; expected {GATHERS}")
     kernel = expand == "kernel"
-    forward = reads_forward("kernel" if kernel else "packed", gather)
-    n, d = nbr.shape
+    sampler = "kernel" if kernel else "packed"
+    forward = reads_forward(sampler, gather)
+    if reads_padded(sampler, gather, model):
+        n, d = nbr.shape
+    elif lt is None and nbr is None:
+        raise ValueError("the LT push needs lt= (graphs.csr.lt_reverse) "
+                         "or the padded tables")
+    else:
+        n = lt.num_vertices if lt is not None else nbr.shape[0]
+        d = lt.num_edges if lt is not None else nbr.shape[1]
     visited = packed_roots(roots, n)
     if d == 0:          # edgeless graph: RRR(root) = {root}
         return visited
     with span("rrr.tables"):
         t = _Tables(nbr, prob, wt, fwd_nbr, fwd_rslot, model=model,
-                    coin_chunk=coin_chunk, forward=forward)
+                    coin_chunk=coin_chunk, forward=forward, lt=lt)
     listed = None
     if not forward:
-        step, listed = _push(t, roots, key, visited, max_steps, model)
+        step, listed = _push(t, roots, key, visited, max_steps, model,
+                             stats)
     elif kernel:
         step, visited = _planes(t, roots, key, visited, max_steps, model)
     else:
@@ -413,11 +535,13 @@ def _rrr_batch_dense(nbr, prob, wt, roots, key: Key, *, model: str,
 def rrr_batch(nbr, prob, wt, roots, key: Key, *, model: str,
               max_steps: int = 64, sampler: str = "dense", fwd=None,
               coin_chunk: int = 32, gather: str = "auto",
-              stats: Optional[dict] = None) -> torch.Tensor:
+              stats: Optional[dict] = None,
+              lt: Optional[LTReverse] = None) -> torch.Tensor:
     """One batch of RRR sets as bool [batch, n]: ``visited[i, v]`` iff v
     is in RRR(roots[i]).  The packed samplers return their words
     unpacked; where :func:`reads_forward` holds they need ``fwd=(fwd_nbr,
-    fwd_rslot)``."""
+    fwd_rslot)``, and the LT push takes ``lt`` in place of the padded
+    tables (:func:`rrr_batch_packed`)."""
     sampler = resolve_sampler(sampler, default="dense")
     if sampler == "dense":
         return _rrr_batch_dense(nbr, prob, wt, roots, key, model=model,
@@ -429,19 +553,21 @@ def rrr_batch(nbr, prob, wt, roots, key: Key, *, model: str,
         nbr, prob, wt, fwd[0], fwd[1], roots, key, model=model,
         max_steps=max_steps, coin_chunk=coin_chunk,
         expand=("kernel" if sampler == "kernel" else "plain"), gather=gather,
-        stats=stats)
+        stats=stats, lt=lt)
     return bitset.unpack_words(packed, roots.shape[0]).T
 
 
 def sample_incidence(nbr, prob, wt, key: Key, *, theta: int, n: int,
                      model: str, max_steps: int = 64,
                      sampler: str = "kernel", fwd=None, coin_chunk: int = 32,
-                     gather: str = "auto", stats: Optional[dict] = None):
+                     gather: str = "auto", stats: Optional[dict] = None,
+                     lt: Optional[LTReverse] = None):
     """Sample ``theta`` RRR sets (theta a multiple of 32); return the
     packed incidence X int32 [n, theta/32] on the tables' device.  The
-    paths :func:`reads_forward` names need ``fwd``; the dense one packs
-    its [theta, n] bool state at the end, as the reference does.  The
-    call is the span ``rrr.sample``; ``stats`` (optional dict)
+    paths :func:`reads_forward` names need ``fwd``; the LT push reads
+    ``lt`` (``nbr``, ``prob`` and ``wt`` may then be None); the dense one
+    packs its [theta, n] bool state at the end, as the reference does.
+    The call is the span ``rrr.sample``; ``stats`` (optional dict)
     accumulates the sampler's counters (:func:`rrr_batch_packed`)."""
     if theta % bitset.WORD_BITS:
         raise ValueError(f"theta must be a multiple of 32, got {theta}")
@@ -450,7 +576,7 @@ def sample_incidence(nbr, prob, wt, key: Key, *, theta: int, n: int,
     fwd = (None, None) if fwd is None else fwd
     kr, kb = key.split()
     with span("rrr.sample"):
-        roots = kr.randint((theta,), 0, n, device=nbr.device)
+        roots = kr.randint((theta,), 0, n, device=_device(nbr, lt))
         if sampler == "dense":
             visited = _rrr_batch_dense(nbr, prob, wt, roots, kb, model=model,
                                        max_steps=max_steps,
@@ -460,7 +586,7 @@ def sample_incidence(nbr, prob, wt, key: Key, *, theta: int, n: int,
             nbr, prob, wt, fwd[0], fwd[1], roots, kb, model=model,
             max_steps=max_steps, coin_chunk=coin_chunk,
             expand=("kernel" if sampler == "kernel" else "plain"),
-            gather=gather, stats=stats)
+            gather=gather, stats=stats, lt=lt)
 
 
 def sample_incidence_host(g, theta: int, key: Key, model: str = "IC",
@@ -473,9 +599,7 @@ def sample_incidence_host(g, theta: int, key: Key, model: str = "IC",
     the rounded theta)."""
     sampler = resolve_sampler(sampler)
     theta = bitset.num_words(theta) * bitset.WORD_BITS
-    nbr, prob, wt = padded_adjacency(g)
-    fwd = (padded_forward_adjacency(g) if reads_forward(sampler, gather)
-           else None)
+    nbr, prob, wt, fwd, lt = graph_tables(g, sampler, gather, model)
     n = g.num_vertices
     chunks = []
     done = i = 0
@@ -484,7 +608,7 @@ def sample_incidence_host(g, theta: int, key: Key, model: str = "IC",
         chunks.append(sample_incidence(
             nbr, prob, wt, key.fold_in(i), theta=b, n=n, model=model,
             max_steps=max_steps, sampler=sampler, fwd=fwd,
-            coin_chunk=coin_chunk, gather=gather))
+            coin_chunk=coin_chunk, gather=gather, lt=lt))
         done += b
         i += 1
     x = torch.cat(chunks, 1)[:, :bitset.num_words(theta)]

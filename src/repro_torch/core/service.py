@@ -44,10 +44,9 @@ import torch
 from repro_torch.core import StageClock, bitset, maxcover, opim, span
 from repro_torch.core.prng import Key
 from repro_torch.core.rrr import SAMPLERS as _SAMPLERS
-from repro_torch.core.rrr import (reads_forward, resolve_sampler,
+from repro_torch.core.rrr import (graph_tables, resolve_sampler,
                                   sample_incidence)
-from repro_torch.graphs.csr import (CSRGraph, padded_adjacency,
-                                    padded_forward_adjacency)
+from repro_torch.graphs.csr import CSRGraph
 from repro_torch.runtime.faults import (FaultPlan, InjectedFault,
                                         fire as _fire_fault)
 
@@ -154,8 +153,7 @@ def _sample_slabs(g: CSRGraph, key: Key, slabs: Sequence[Tuple[int, int]],
     fault site; a fill is a pure function of (key, slab, salt), so an
     aborted build can be retried."""
     n = g.num_vertices
-    nbr, prob, wt = padded_adjacency(g)
-    fwd = padded_forward_adjacency(g) if reads_forward(sampler) else None
+    nbr, prob, wt, fwd, lt = graph_tables(g, sampler, model=model)
     out = ([], [])
     for half in (0, 1):
         kh = key.fold_in(half)
@@ -165,7 +163,7 @@ def _sample_slabs(g: CSRGraph, key: Key, slabs: Sequence[Tuple[int, int]],
             out[half].append(sample_incidence(
                 nbr, prob, wt, kh.fold_in(s).fold_in(salt), theta=slab, n=n,
                 model=model, max_steps=max_steps, sampler=sampler, fwd=fwd,
-                coin_chunk=coin_chunk))
+                coin_chunk=coin_chunk, lt=lt))
     return out
 
 

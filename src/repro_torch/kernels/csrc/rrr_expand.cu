@@ -605,10 +605,11 @@ extern "C" int cascade_ic(const void* frontier, const void* visited,
 // chosen = sum_j (cumw[v, j] <= r) over all d slots of the padded row
 // (jnp.sum(r >= cumw), repro/core/rrr.py:326-345 and
 // repro/core/cascade.py:243-257); the edge is live iff chosen <
-// in_deg[v], and is then slot `chosen` (valid slots come first).  cumw
-// holds the reference's cumulative sums in XLA's blocked order, each row
-// ascending, built once per sampling call or spread by the wrapper's
-// caller (rrr_expand.lt_tables): the kernels never sum.  A blocked sum
+// in_deg[v], and is then slot `chosen` (valid slots come first).  The
+// cascade's cumw holds the reference's cumulative sums in XLA's blocked
+// order, each row ascending, built once per spread by the wrapper's
+// caller (rrr_expand.lt_tables; the sampler's push reads a CSR form,
+// below): the kernels never sum.  A blocked sum
 // can round a later sum an ulp below an earlier one (10 of the IMM-size
 // rmat graph's rows); such a row is stored sorted, which leaves the count
 // unchanged, and rows[v] = -1 - in_deg[v] marks it; every other row is
@@ -661,27 +662,36 @@ __device__ __forceinline__ void push_bits(uint64_t t, uint32_t bits,
 // once.  Bit b of the word is sample s = 32w + b: it draws r =
 // uniform(key)[s * n + v] (the reference's [batch, n] draw; the index
 // passes 2^32 at the IMM shape and is split into hi and lo words), picks
-// slot j = lt_choice(r), and, if j < in_deg[v], pushes bit b into word
-// (nbr[v, j], w).  Consecutive bits that pick the same target are pushed
-// with one atomic.
+// slot j = lt_choice(r) and, if j < in_deg[v], pushes bit b into word
+// (src[indptr[v] + j], w).  Consecutive bits that pick the same target
+// are pushed with one atomic.
+//
+// The graph is read as its reverse CSR, with no padded table: row v is
+// edges indptr[v] .. indptr[v + 1] - 1 of src and cumw, and cumw holds
+// the row's in_deg smallest sums of the reference's padded row,
+// ascending (graphs.csr.lt_reverse builds them): the reference's count
+// over all d sums is below in_deg exactly when the in_deg-th smallest
+// passes r, and then equals the count over those in_deg.  So every row
+// is binary searched over its own in_deg sums, marked or not.
 //
 // One thread per entry with a loop over its set bits: an LT walk has at
 // most one frontier vertex per sample, so the sampler's words hold one
 // bit or a few, and a bit has one target, not one per slot as IC's coins
 // have (IC's push spreads a word over a lane group per slot).  Bound on
-// the H100: the list, the live words, a cumw row and one nbr entry per
-// bit, the visited and next words read-modify-written, and ~80 integer
-// operations a draw — a few MB at the sampler's frontiers (at most
-// theta live bits a step), so the step's time is latency: the launch and
-// a chain of dependent loads and atomics per thread.
+// the H100: the list, the live words, a row's two offsets, ceil(log2
+// in_deg) + 1 sums a draw and one src entry per bit, the visited and
+// next words read-modify-written, and ~80 integer operations a draw -- a
+// few MB at the sampler's frontiers (at most theta live bits a step), so
+// the step's time is latency: the launch and a chain of dependent loads
+// and atomics per thread.
 __global__ void push_lt_kernel(const int32_t* __restrict__ words,
                                uint32_t count, uint32_t* frontier,
                                uint32_t* visited,
-                               const int32_t* __restrict__ nbr,
-                               const float* __restrict__ cumw,
-                               const int32_t* __restrict__ rows, uint32_t k0,
-                               uint32_t k1, uint32_t n, uint32_t d,
-                               uint32_t W, uint32_t* next,
+                               const int32_t* __restrict__ indptr,
+                               const int32_t* __restrict__ src,
+                               const float* __restrict__ cumw, uint32_t k0,
+                               uint32_t k1, uint32_t n, uint32_t W,
+                               uint32_t* next,
                                int32_t* __restrict__ next_words,
                                uint32_t* next_count) {
   const uint32_t e = blockIdx.x * blockDim.x + threadIdx.x;
@@ -690,21 +700,21 @@ __global__ void push_lt_kernel(const int32_t* __restrict__ words,
   const uint32_t f = frontier[word];
   frontier[word] = 0u;
   const uint32_t v = word / W;
-  const int32_t code = rows[v];
-  const int deg = lt_in_deg(code);
+  const int32_t first = indptr[v];
+  const int deg = indptr[v + 1] - first;
   if (!f || !deg) return;               // no in-edge: no walk goes on
   const uint32_t w = word - v * W;
-  const float* row = cumw + (uint64_t)v * d;
-  const int32_t* nrow = nbr + (uint64_t)v * d;
+  const float* row = cumw + first;
+  const int32_t* srow = src + first;
   const uint64_t sample0 = (uint64_t)(32u * w) * n + v;
   uint64_t pend_t = 0;
   uint32_t pend = 0;
   for (uint32_t rest = f; rest; rest &= rest - 1) {
     const int b = __ffs(rest) - 1;
-    const int j = lt_choice(row, (int)d, code,
+    const int j = lt_choice(row, deg, deg,
                             uniform_at(k0, k1, sample0 + (uint64_t)b * n));
     if (j >= deg) continue;
-    const uint64_t t = (uint64_t)nrow[j] * W + w;
+    const uint64_t t = (uint64_t)srow[j] * W + w;
     if (pend && t != pend_t) {
       push_bits(pend_t, pend, visited, next, next_words, next_count);
       pend = 0;
@@ -716,13 +726,15 @@ __global__ void push_lt_kernel(const int32_t* __restrict__ words,
 }
 
 extern "C" int rrr_expand_lt(const void* words, int64_t count,
-                             void* frontier, void* visited, const void* nbr,
-                             const void* cumw, const void* rows, int64_t k0,
-                             int64_t k1, void* next, void* next_words,
-                             void* next_count, int64_t n, int64_t d,
-                             int64_t W, void* stream) {
-  // 32-bit words, as rrr_expand_ic: int32 list entries, 32 * W samples.
-  if (count < 1 || d < 1 || d >= (int64_t(1) << 31) ||
+                             void* frontier, void* visited,
+                             const void* indptr, const void* src,
+                             const void* cumw, int64_t k0, int64_t k1,
+                             void* next, void* next_words, void* next_count,
+                             int64_t n, int64_t edges, int64_t W,
+                             void* stream) {
+  // 32-bit words, as rrr_expand_ic: int32 list entries, 32 * W samples;
+  // int32 row offsets.
+  if (count < 1 || edges < 1 || edges >= (int64_t(1) << 31) ||
       n * W >= (int64_t(1) << 31) || 32 * W >= (int64_t(1) << 32))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(next_count, 0, sizeof(uint32_t),
@@ -731,9 +743,9 @@ extern "C" int rrr_expand_lt(const void* words, int64_t count,
   const int64_t blocks = (count + kThreads - 1) / kThreads;
   push_lt_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)words, (uint32_t)count, (uint32_t*)frontier,
-      (uint32_t*)visited, (const int32_t*)nbr, (const float*)cumw,
-      (const int32_t*)rows, (uint32_t)k0, (uint32_t)k1, (uint32_t)n,
-      (uint32_t)d, (uint32_t)W, (uint32_t*)next, (int32_t*)next_words,
+      (uint32_t*)visited, (const int32_t*)indptr, (const int32_t*)src,
+      (const float*)cumw, (uint32_t)k0, (uint32_t)k1, (uint32_t)n,
+      (uint32_t)W, (uint32_t*)next, (int32_t*)next_words,
       (uint32_t*)next_count);
   return (int)cudaGetLastError();
 }

@@ -54,13 +54,16 @@ for word, so the spread builds no plane.
 LT has one live in-edge per (sample or simulation, vertex): slot
 ``chosen`` = the count of ``cumw[v, j] <= r`` over the padded row, live
 below the in-degree (``cumw`` the reference's blocked cumulative
-weights, built by the caller with ``lt_tables``, which also codes each
-row's in-degree).  The LT sampler's step is
+weights).  The LT sampler's step is
 ``rrr_expand_push_lt`` (kernel ``rrr_expand_lt``): the IC push's list
-and planes, with bit ``b`` of live word ``(v, w)`` drawing ``r =
-uniform(key)[(32 w + b) * n + v]`` and pushing into the word of
-``nbr[v, chosen]``; plain version ``expand_step_lt_push_plain``, dense
-entry point ``rrr_expand_step_lt``.  The LT cascade's step is
+and planes over the graph's reverse CSR (``graphs.csr.lt_reverse``:
+each row's ``deg`` smallest sums of its padded row, ascending, which
+give the same ``chosen`` and pad nothing), with bit ``b`` of live word
+``(v, w)`` drawing ``r = uniform(key)[(32 w + b) * n + v]`` and pushing
+into the word of ``src[indptr[v] + chosen]``; plain version
+``expand_step_lt_push_plain``, dense entry point
+``rrr_expand_step_lt``.  The LT cascade's step, on the padded table
+and ``lt_tables``, which also codes each row's in-degree, is
 ``cascade_step_lt`` (kernel ``cascade_lt``), a pull whose simulation
 ``s`` draws ``r = uniform(fold_in(key, s), (n,))[v]`` only for an open
 bit that some in-neighbour's frontier word holds (keys from
@@ -293,21 +296,37 @@ def live_words(frontier: torch.Tensor) -> torch.Tensor:
     return torch.nonzero(frontier.reshape(-1)).reshape(-1).to(torch.int32)
 
 
-def _check_lists(words, frontier, visited, nbr, next_frontier, next_words,
-                 next_count):
-    """The push's list, planes and reverse table, either model."""
+def _check_planes(words, frontier, visited, next_frontier, next_words,
+                  next_count):
+    """The push's list and planes, either model."""
     n, w = frontier.shape
     ops.check(words, "words", torch.int32, (None,))
     for name, t in (("frontier", frontier), ("visited", visited),
                     ("next_frontier", next_frontier)):
         ops.check(t, name, torch.int32, (n, w))
-    ops.check(nbr, "nbr", torch.int32, (n, None))
     ops.check(next_words, "next_words", torch.int32, (n * w,))
     ops.check(next_count, "next_count", torch.int32, (1,))
     planes = {t.data_ptr() for t in (frontier, visited, next_frontier)}
     if len(planes) != 3:
         raise ValueError("frontier, visited and next_frontier must be "
                          "three distinct planes")
+
+
+def _check_lists(words, frontier, visited, nbr, next_frontier, next_words,
+                 next_count):
+    """The push's list, planes and padded reverse table."""
+    _check_planes(words, frontier, visited, next_frontier, next_words,
+                  next_count)
+    ops.check(nbr, "nbr", torch.int32, (frontier.shape[0], None))
+
+
+def refuse_wide(n: int, w: int, kernel: str) -> None:
+    """The pushes' limit: their word lists hold the flat index ``v * W +
+    w`` in int32, so an [n, W] plane of 2^31 words or more is refused
+    (on every device, before anything is read)."""
+    if n * w >= 2**31:
+        raise ValueError(f"{kernel}: n x W = {n * w} words do not fit the "
+                         "int32 word list")
 
 
 def _check_push(words, frontier, visited, nbr, prob_p, keys, chunk,
@@ -415,6 +434,7 @@ def rrr_expand_push_ic(words, frontier, visited, nbr, prob_p,
     each row, -1 after; ``prob_p`` float32 [n, d_pad] its probabilities;
     one key per chunk of ``chunk`` reverse slots."""
     n, w = frontier.shape
+    refuse_wide(n, w, "rrr_expand_ic")
     _check_push(words, frontier, visited, nbr, prob_p, keys, chunk,
                 next_frontier, next_words, next_count)
     tensors = (words, frontier, visited, nbr, prob_p, next_frontier,
@@ -423,9 +443,6 @@ def rrr_expand_push_ic(words, frontier, visited, nbr, prob_p,
         return expand_step_ic_push_plain(words, frontier, visited, nbr,
                                          prob_p, keys, chunk, next_frontier,
                                          next_words, next_count)
-    if n * w >= 2**31:
-        raise ValueError(f"n x W = {n * w} words do not fit the int32 "
-                         "word list")
     if words.numel() == 0:
         next_count.zero_()
         return None
@@ -501,7 +518,33 @@ def _check_lt(nbr, cumw, rows):
     ops.check(rows, "rows", torch.int32, (n,))
 
 
-def expand_step_lt_push_plain(words, frontier, visited, nbr, cumw, rows,
+def _check_lt_csr(indptr, src, cumw, n: int):
+    ops.check(indptr, "indptr", torch.int32, (n + 1,))
+    e = src.shape[0] if src.dim() == 1 else -1
+    ops.check(src, "src", torch.int32, (e,))
+    ops.check(cumw, "cumw", torch.float32, (e,))
+    if e >= 2**31:
+        raise ValueError(f"{e} edges do not fit int32 row offsets")
+
+
+def lt_csr_slots(indptr, cumw, v, r):
+    """(slot, live) of the LT draws ``r`` at vertices ``v`` over the CSR
+    tables (``graphs.csr.lt_reverse``): the count of row ``v``'s sums at
+    or below ``r`` (a binary search: they are ascending), live below
+    its in-degree."""
+    first = indptr[v].long()
+    deg = indptr[v + 1].long() - first
+    lo, hi = torch.zeros_like(deg), deg.clone()
+    for _ in range(int(deg.max()).bit_length() if deg.numel() else 0):
+        go = lo < hi
+        mid = (lo + hi) // 2
+        below = cumw[(first + mid).clamp(max=max(cumw.numel() - 1, 0))] <= r
+        lo = torch.where(go & below, mid + 1, lo)
+        hi = torch.where(go & ~below, mid, hi)
+    return lo, lo < deg
+
+
+def expand_step_lt_push_plain(words, frontier, visited, indptr, src, cumw,
                               key: Key, next_frontier, next_words,
                               next_count) -> None:
     """The LT push step in plain PyTorch, with the kernel's in-place
@@ -513,53 +556,56 @@ def expand_step_lt_push_plain(words, frontier, visited, nbr, cumw, rows,
     i, b = torch.nonzero(live, as_tuple=True)          # set bits of each
     v, w = idx[i] // w_total, idx[i] % w_total
     r = key.uniform_at((bitset.WORD_BITS * w + b) * n + v)
-    chosen, ok = _lt_slots(cumw, rows, v, r)
-    tgt = nbr[v[ok], chosen[ok]].long() * w_total + w[ok]
+    chosen, ok = lt_csr_slots(indptr, cumw, v, r)
+    edge = indptr[v[ok]].long() + chosen[ok]
+    tgt = src[edge].long() * w_total + w[ok]
     _settle([tgt * bitset.WORD_BITS + b[ok]], idx, visited, next_frontier,
             next_words, next_count)
 
 
-def rrr_expand_push_lt(words, frontier, visited, nbr, cumw, rows, key: Key,
-                       next_frontier, next_words, next_count) -> None:
+def rrr_expand_push_lt(words, frontier, visited, indptr, src, cumw,
+                       key: Key, next_frontier, next_words,
+                       next_count) -> None:
     """One LT sampling step as a push over the live frontier words, in
     place, with :func:`rrr_expand_push_ic`'s contract for ``words``,
     ``frontier``, ``visited``, ``next_frontier``, ``next_words`` and
-    ``next_count``.  ``nbr`` int32 [n, d] is the reverse adjacency
-    (valid slots first, -1 after), ``cumw`` float32 [n, d] and ``rows``
-    int32 [n] its LT tables (:func:`lt_tables`), ``key`` the step's key:
-    sample ``s`` at vertex ``v`` draws ``uniform(key)[s * n + v]``."""
+    ``next_count``.  The reverse adjacency is the graph's CSR: ``indptr``
+    int32 [n + 1], ``src`` int32 [nnz] and ``cumw`` float32 [nnz], each
+    row's cumulative weights as ``graphs.csr.lt_reverse`` keeps them
+    (ascending; no padded table); ``key`` the step's key: sample ``s``
+    at vertex ``v`` draws ``uniform(key)[s * n + v]`` and follows the
+    edge ``indptr[v] + chosen`` when ``chosen``, the count of the row's
+    sums at or below it, is below the in-degree."""
     n, w = frontier.shape
-    _check_lists(words, frontier, visited, nbr, next_frontier, next_words,
-                 next_count)
-    _check_lt(nbr, cumw, rows)
-    tensors = (words, frontier, visited, nbr, cumw, rows, next_frontier,
+    refuse_wide(n, w, "rrr_expand_lt")
+    _check_planes(words, frontier, visited, next_frontier, next_words,
+                  next_count)
+    _check_lt_csr(indptr, src, cumw, n)
+    tensors = (words, frontier, visited, indptr, src, cumw, next_frontier,
                next_words, next_count)
     if not ops.on_card(*tensors):
-        return expand_step_lt_push_plain(words, frontier, visited, nbr, cumw,
-                                         rows, key, next_frontier,
+        return expand_step_lt_push_plain(words, frontier, visited, indptr,
+                                         src, cumw, key, next_frontier,
                                          next_words, next_count)
-    if n * w >= 2**31:
-        raise ValueError(f"n x W = {n * w} words do not fit the int32 "
-                         "word list")
     if words.numel() == 0:
         next_count.zero_()
         return None
     ops.launch("rrr_expand_lt", "rrr_expand", "rrr_expand_lt", _LT_ARGS,
                words.data_ptr(), words.numel(), frontier.data_ptr(),
-               visited.data_ptr(), nbr.data_ptr(), cumw.data_ptr(),
-               rows.data_ptr(), key.k0, key.k1, next_frontier.data_ptr(),
+               visited.data_ptr(), indptr.data_ptr(), src.data_ptr(),
+               cumw.data_ptr(), key.k0, key.k1, next_frontier.data_ptr(),
                next_words.data_ptr(), next_count.data_ptr(), n,
-               nbr.shape[1], w)
+               src.shape[0], w)
     return None
 
 
-def rrr_expand_step_lt(frontier, visited, nbr, cumw, rows, key: Key):
+def rrr_expand_step_lt(frontier, visited, indptr, src, cumw, key: Key):
     """The dense entry point of the LT push (frontier and visited left
     untouched) -> (new_frontier, new_visited), equal word for word to
     the expansion over the reference's LT selection plane."""
     return _dense_step(
         lambda *planes: rrr_expand_push_lt(planes[0], planes[1], planes[2],
-                                           nbr, cumw, rows, key,
+                                           indptr, src, cumw, key,
                                            *planes[3:]),
         frontier, visited)
 

@@ -105,7 +105,8 @@ _NONE = ("rrr_expand_resident", "rrr_expand_streamed", "rrr_expand_ic",
 # avg degree 4 has a padded in-degree of 16 (one coin chunk), the
 # supercritical ER n = 32,768 at 76.3 one of 112 (4 chunks of 32), and
 # the IMM-size rmat graph one of 7,567 (237 chunks); spreads take 64
-# simulations.
+# simulations.  The LT push reads the CSR rows (no padded width): its
+# ``g500_lt_s18`` shape is the benchmark cell's widest sampling call.
 FULL_SIZE = {
     "rrr_expand_resident": (("wc resident", 2, 0),),
     "rrr_expand_streamed": (("imm streamed", 1024, 0),),
@@ -113,7 +114,7 @@ FULL_SIZE = {
                       ("serve slab", 128, 0)),
     "cascade_ic": (("imm", 2, 2 * 1 * 64), ("supercritical", 2, 2 * 4 * 64),
                    ("rmat", 2, 2 * 237 * 64)),
-    "rrr_expand_lt": (("lt", 1024, 0),),
+    "rrr_expand_lt": (("lt", 1024, 0), ("g500_lt_s18", 8192, 0)),
     "cascade_lt": (("lt", 2, 2 * 64),),
     "coin_pack": (("imm streamed", 1024, 0),),
     "greedy_pick": (("imm supercritical", 1024, 0),),

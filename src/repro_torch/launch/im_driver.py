@@ -43,9 +43,8 @@ from repro_torch.core import (StageClock, cascade, greediris, imm,
                               maxcover, opim, prng, resolve_device, rrr,
                               theory)
 from repro_torch.core.diffusion import influence
-from repro_torch.core.rrr import reads_forward, resolve_sampler
+from repro_torch.core.rrr import graph_tables, resolve_sampler
 from repro_torch.graphs import generators
-from repro_torch.graphs.csr import padded_adjacency, padded_forward_adjacency
 from repro_torch.runtime import faults
 from repro_torch.runtime.fault_tolerance import StragglerMonitor
 
@@ -306,9 +305,8 @@ class RoundResult(NamedTuple):
 def _fixed_theta_round(args, g, m: int, key, stats: dict) -> RoundResult:
     """The reference's ``--theta`` path: one distributed round of m
     machines (``greediris.build_round``) on the graph's device."""
-    nbr, prob, wt = padded_adjacency(g)
-    fwd = (padded_forward_adjacency(g)
-           if reads_forward(args.sampler, args.gather) else None)
+    nbr, prob, wt, fwd, lt = graph_tables(g, args.sampler, args.gather,
+                                          args.model)
     alpha = args.alpha if args.selector == "greediris-trunc" else 1.0
     fn, _, theta = greediris.build_round(
         m=m, n=g.num_vertices, theta=args.theta, k=args.k,
@@ -316,7 +314,7 @@ def _fixed_theta_round(args, g, m: int, key, stats: dict) -> RoundResult:
         alpha_trunc=alpha, aggregate=args.aggregate,
         use_kernel=args.use_kernel, solver=args.solver,
         chunk_size=args.chunk_size, sampler=args.sampler,
-        fwd=fwd, coin_chunk=args.coin_chunk, gather=args.gather)
+        fwd=fwd, coin_chunk=args.coin_chunk, gather=args.gather, lt=lt)
     out = fn(nbr, prob, wt, key, stats=stats)
     stats["sample_s"] = stats["sample_shuffle_s"]
     stats["select_s"] = (stats["senders_s"] + stats["receiver_s"]
@@ -360,13 +358,12 @@ def _main_faulted(args, g, key, device, graph_s: float) -> dict:
     theta = args.theta or 1024
     stats: dict = {}
     with StageClock(stats, "sample_s", device):
-        nbr, prob, wt = padded_adjacency(g)
-        fwd = (padded_forward_adjacency(g)
-               if reads_forward(args.sampler, args.gather) else None)
+        nbr, prob, wt, fwd, lt = graph_tables(g, args.sampler, args.gather,
+                                              args.model)
         rows = rrr.sample_incidence(
             nbr, prob, wt, key.fold_in(1), theta=theta, n=n,
             model=args.model, sampler=args.sampler, fwd=fwd,
-            coin_chunk=args.coin_chunk, gather=args.gather)
+            coin_chunk=args.coin_chunk, gather=args.gather, lt=lt)
     plan = faults.FaultPlan(args.faults)
     monitor = StragglerMonitor()
     alpha0 = args.alpha if "trunc" in args.selector else 1.0

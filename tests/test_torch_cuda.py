@@ -398,17 +398,25 @@ def _lt_graph(graph, dev):
                                   2000, seed=2, device=dev)
     if graph == "rmat":
         return generators.rmat(14, 1 << 16, seed=3, device=dev)
+    if graph == "dips":         # padded tails an ulp below their rows' sums
+        rng = np.random.default_rng(0)
+        rows = [5000, 300, 400, 520, 700, 900, 1300, 2000, 2600]
+        dst = np.repeat(np.arange(len(rows)), rows)
+        return csr.from_edge_list(rng.integers(0, 30, dst.size), dst, 30,
+                                  seed=0, device=dev)
     return generators.erdos_renyi(262144, 4.0, seed=0, device=dev)
 
 
-def _lt_sampler_tables(gen, graph, dev, forward=True):
-    """LT tables on ``graph``; "unsorted rows" permutes each row's
-    cumulative weights, so the hub row is marked and searched whole."""
+def _lt_sampler_tables(gen, graph, dev):
+    """LT tables on ``graph``: the padded ones of the plane routes and
+    the cascade (``t.cumw``, ``t.lt_rows``; "unsorted rows" permutes each
+    row's cumulative weights, so the hub row is marked and searched
+    whole) and the push's CSR tables (``t.lt``)."""
     g = _lt_graph(graph, dev)
     nbr, prob, wt = csr.padded_adjacency(g)
-    fwd = csr.padded_forward_adjacency(g) if forward else (None, None)
-    t = rrr._Tables(nbr, prob, wt, *fwd, model="LT", coin_chunk=32,
-                    forward=forward)
+    t = rrr._Tables(nbr, prob, wt, *csr.padded_forward_adjacency(g),
+                    model="LT", coin_chunk=32)
+    t.lt = csr.lt_reverse(g)
     if graph == "unsorted rows":
         t.cumw, t.lt_rows = rrr_expand.lt_tables(t.nbr, t.cumw[
             :, torch.randperm(t.d, generator=gen).to(dev)])
@@ -425,14 +433,16 @@ def _lt_push_both(t, f, vis, key):
         fc, vc, nxt = f.clone(), vis.clone(), torch.zeros_like(f)
         listed = torch.empty(n * w, dtype=torch.int32, device=f.device)
         count = torch.zeros(1, dtype=torch.int32, device=f.device)
-        fn(words, fc, vc, t.nbr, t.cumw, t.lt_rows, key, nxt, listed, count)
+        fn(words, fc, vc, t.lt.indptr, t.lt.src, t.lt.cumw, key, nxt, listed,
+           count)
         outs.append((nxt, vc, listed[:int(count)].sort().values, fc))
     return outs
 
 
 @pytest.mark.parametrize("graph,w", [
     ("er", 3), ("er", 1), ("star", 7), ("reverse star", 7), ("rmat", 7),
-    ("unsorted rows", 7), ("imm", 520)])   # imm: the draw index passes 2**32
+    ("unsorted rows", 7), ("dips", 7),
+    ("imm", 520)])   # imm: the draw index passes 2**32
 def test_expand_lt(dev, graph, w):
     """rrr_expand_lt against its plain version (planes word for word,
     lists as sorted sets, each word listed once, the frontier it read
@@ -457,7 +467,8 @@ def test_expand_lt(dev, graph, w):
     assert not bool(kernel[3].any())
     assert kernel[2].unique().numel() == kernel[2].numel()
     assert int((kernel[0] != 0).sum()) > 0
-    got = rrr_expand.rrr_expand_step_lt(f, vis, t.nbr, t.cumw, t.lt_rows, key)
+    got = rrr_expand.rrr_expand_step_lt(f, vis, t.lt.indptr, t.lt.src,
+                                        t.lt.cumw, key)
     _equal(got, kernel[:2])
     if graph != "unsorted rows":
         plane = rrr._lt_mask(t, key, f).reshape(n * t.d_pad, -1)
@@ -467,15 +478,15 @@ def test_expand_lt(dev, graph, w):
 
 def test_expand_lt_empty_list(dev):
     """An empty word list launches nothing and lists nothing."""
-    t = _lt_sampler_tables(torch.Generator().manual_seed(0), "er", dev,
-                           forward=False)
-    f = torch.zeros((t.n, 2), dtype=torch.int32, device=dev)
-    listed = torch.empty(t.n * 2, dtype=torch.int32, device=dev)
+    lt = csr.lt_reverse(_lt_graph("er", dev))
+    n = lt.num_vertices
+    f = torch.zeros((n, 2), dtype=torch.int32, device=dev)
+    listed = torch.empty(n * 2, dtype=torch.int32, device=dev)
     count = torch.full((1,), 9, dtype=torch.int32, device=dev)
     ops.reset_launches()
     rrr_expand.rrr_expand_push_lt(
-        torch.zeros(0, dtype=torch.int32, device=dev), f, f.clone(), t.nbr,
-        t.cumw, t.lt_rows, prng.key(1), f.clone(), listed, count)
+        torch.zeros(0, dtype=torch.int32, device=dev), f, f.clone(),
+        lt.indptr, lt.src, lt.cumw, prng.key(1), f.clone(), listed, count)
     assert int(count) == 0 and ops.LAUNCHES["rrr_expand_lt"] == 0
 
 
@@ -487,7 +498,7 @@ def test_cascade_lt(dev, graph, num_sims):
     with its count of new words: dense frontiers, pad lanes, hub rows
     searched and a marked row searched whole."""
     gen = torch.Generator().manual_seed(num_sims)
-    t = _lt_sampler_tables(gen, graph, dev, forward=False)
+    t = _lt_sampler_tables(gen, graph, dev)
     n, w = t.n, bitset.num_words(num_sims)
     f = _words(gen, n, w, dev=dev) | 1
     vis = _words(gen, n, w, dev=dev) & _words(gen, n, w, dev=dev)
@@ -1226,3 +1237,27 @@ def _leaves(x):
     if isinstance(x, torch.Tensor):
         return [x]
     return [t for y in x for t in _leaves(y)]
+
+
+@pytest.mark.parametrize("solve", ["resident", "dense", "lazy"])
+def test_machine_solves_past_2_31_words(dev, solve):
+    """The machine-axis solves index rows [m, n, W] in 64 bits: one
+    machine of 2^31 + 2^21 words whose picks lie past word 2^31 (the
+    compact layout, the dense sweep forced by cap 0, the lazy solve)."""
+    n, w = (1 << 16) + 64, 1 << 15
+    rows = torch.zeros((1, n, w), dtype=torch.int32, device=dev)
+    rows[0, n - 1, w - 4:] = -1                      # 128 bits
+    rows[0, n - 2, :2] = 0x0F0F0F0F                  # 32
+    rows[0, 5, 7] = 0xFF                             # 8
+    ex = greedy_pick.excluded_ids(None, 1, dev)
+    if solve == "resident":
+        out = greedy_pick.greedy_maxcover_resident(rows, 3)
+    elif solve == "dense":
+        out = greedy_pick.greedy_dense(rows, 3, ex, cap=0)
+    else:
+        out = lazy_greedy.greedy_maxcover_lazy(rows, 3)
+    seeds, sel, covered, gains = out[:4]
+    assert seeds.tolist() == [[n - 1, n - 2, 5]]
+    assert gains.tolist() == [[128, 32, 8]]
+    assert torch.equal(sel[0, 0], rows[0, n - 1])
+    assert int(bitset.coverage_size(covered)) == 168

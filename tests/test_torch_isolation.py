@@ -81,8 +81,9 @@ def test_cpu_tensors_take_plain_versions_without_launches():
         count=torch.zeros(1, dtype=torch.int32))
     cumw, lt_rows = rrr_expand.lt_tables(
         nbr, torch.linspace(0.2, 1.0, df).expand(n, df))
-    rrr_expand.rrr_expand_step_lt(frontier, visited, nbr, cumw, lt_rows,
-                                  prng.key(1))
+    indptr = torch.arange(0, n * df + 1, df, dtype=torch.int32)
+    rrr_expand.rrr_expand_step_lt(frontier, visited, indptr, nbr.reshape(-1),
+                                  cumw.reshape(-1).contiguous(), prng.key(1))
     rrr_expand.cascade_step_lt(
         frontier, visited, nbr, cumw, lt_rows,
         rrr_expand.lt_cascade_keys(prng.key(1), 64, "cpu"), 64,

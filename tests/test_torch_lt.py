@@ -60,20 +60,22 @@ def _ref_step(g_ref, frontier, visited, jkey):
 
 
 def _tables(g):
+    """The padded LT tables of the plane routes (forward gathers, the
+    cascade's ``lt_tables``)."""
     nbr, prob, wt = csr.padded_adjacency(g)
-    return rrr._Tables(nbr, prob, wt, None, None, model="LT", coin_chunk=32,
-                       forward=False)
+    return rrr._Tables(nbr, prob, wt, *csr.padded_forward_adjacency(g),
+                       model="LT", coin_chunk=32)
 
 
-def _push(fn, t, f, vis, key):
-    """One push step on copies: (next plane, visited, sorted next list,
-    frontier after)."""
+def _push(fn, lt, f, vis, key):
+    """One push step on copies over the CSR tables ``lt``: (next plane,
+    visited, sorted next list, frontier after)."""
     n, w = f.shape
     fc, vc, nxt = f.clone(), vis.clone(), torch.zeros_like(f)
     listed = torch.empty(n * w, dtype=torch.int32)
     count = torch.full((1,), -3, dtype=torch.int32)
-    fn(rrr_expand.live_words(f), fc, vc, t.nbr, t.cumw, t.lt_rows, key, nxt,
-       listed, count)
+    fn(rrr_expand.live_words(f), fc, vc, lt.indptr, lt.src, lt.cumw, key,
+       nxt, listed, count)
     return nxt, vc, listed[:int(count)].sort().values, fc
 
 
@@ -91,11 +93,11 @@ def test_push_step_matches_reference_step(kind, w, density):
     vis = f | words(rng, (n, w), 0.1)
     jkey = jax.random.fold_in(jax.random.key(4), w)
     want = _ref_step(g_ref, f, vis, jkey)
-    t = _tables(port_graph(g_ref))
+    lt = csr.lt_reverse(port_graph(g_ref))
     for fn in (rrr_expand.expand_step_lt_push_plain,
                rrr_expand.rrr_expand_push_lt):
-        nxt, got_vis, listed, after = _push(fn, t, to_port(f), to_port(vis),
-                                            port_key(jkey))
+        nxt, got_vis, listed, after = _push(fn, lt, to_port(f),
+                                            to_port(vis), port_key(jkey))
         np.testing.assert_array_equal(u32(nxt), u32(want[0]))
         np.testing.assert_array_equal(u32(got_vis), u32(want[1]))
         assert listed.tolist() == torch.nonzero(
@@ -113,11 +115,10 @@ def test_dense_entry_point_equals_the_plane_route(kind):
     rng = np.random.default_rng(7)
     f, vis = to_port(words(rng, (n, 2), 0.1)), to_port(words(rng, (n, 2)))
     vis |= f
-    nbr, prob, wt = csr.padded_adjacency(g)
-    t = rrr._Tables(nbr, prob, wt, *csr.padded_forward_adjacency(g),
-                    model="LT", coin_chunk=32)
+    t = _tables(g)
+    lt = csr.lt_reverse(g)
     key = prng.key(9)
-    got = rrr_expand.rrr_expand_step_lt(f, vis, t.nbr, t.cumw, t.lt_rows,
+    got = rrr_expand.rrr_expand_step_lt(f, vis, lt.indptr, lt.src, lt.cumw,
                                         key)
     plane = rrr._lt_mask(t, key, f).reshape(n * t.d_pad, -1)
     want = rrr_expand.rrr_expand_step_resident(f, vis, t.nbr_c, t.gidx, plane)
@@ -324,14 +325,16 @@ def test_lt_wrappers_refuse_what_the_kernels_do_not_take():
     words_ = torch.zeros(1, dtype=torch.int32)
     listed = torch.empty(n * w, dtype=torch.int32)
     count = torch.zeros(1, dtype=torch.int32)
+    lt = rrr.lt_reverse_padded(nbr, torch.zeros((n, 3)))
     with pytest.raises(ValueError, match="distinct planes"):
-        rrr_expand.rrr_expand_push_lt(words_, f, f.clone(), nbr, cumw, rows,
-                                      prng.key(1), f, listed, count)
+        rrr_expand.rrr_expand_push_lt(words_, f, f.clone(), lt.indptr, lt.src,
+                                      lt.cumw, prng.key(1), f, listed, count)
     with pytest.raises(ValueError, match="cumw"):
-        rrr_expand.rrr_expand_push_lt(words_, f, f.clone(), nbr, cumw[:, :2],
-                                      rows, prng.key(1), torch.zeros_like(f),
-                                      listed, count)
+        rrr_expand.rrr_expand_push_lt(words_, f, f.clone(), lt.indptr, lt.src,
+                                      lt.cumw[:2], prng.key(1),
+                                      torch.zeros_like(f), listed, count)
     ops.reset_launches()
     rrr_expand.cascade_step_lt(f, f, nbr, cumw, rows, keys, 64)
-    rrr_expand.rrr_expand_step_lt(f, f, nbr, cumw, rows, prng.key(1))
+    rrr_expand.rrr_expand_step_lt(f, f, lt.indptr, lt.src, lt.cumw,
+                                  prng.key(1))
     assert ops.LAUNCHES["cascade_lt"] == ops.LAUNCHES["rrr_expand_lt"] == 0

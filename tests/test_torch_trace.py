@@ -50,6 +50,10 @@ def _imm_streamed():
     return _imm(gather="streamed")
 
 
+def _imm_lt():
+    return _imm(model="LT")
+
+
 def _serve(stats=None):
     svc = service.InfluenceService(_graph(), KEY, theta0=128,
                                    max_theta=256, slab=64, stats=stats)
@@ -80,6 +84,10 @@ NESTING = {
                      [("tables.forward.copy", ("tables.forward",)),
                       ("rrr.tables", ("rrr.sample",)),
                       ("rrr.step", ("rrr.sample",))]),
+    # the LT push reads the CSR tables (tables.lt), no padded table
+    "imm_lt": (_imm_lt, [("rrr.step", ("rrr.sample",)),
+                         ("rrr.tables", ("rrr.sample",)),
+                         ("rrr.sample", ("imm.sample",))]),
 }
 
 
@@ -94,8 +102,10 @@ def test_the_spans_nest_as_the_layers_do(case):
         assert _inside(spans, child, parents), (child, parents)
     names = {s[0] for s in spans}
     if case.startswith("imm"):
-        assert names >= {"imm.round", "imm.final", "tables.reverse"}
+        table = "tables.lt" if case == "imm_lt" else "tables.reverse"
+        assert names >= {"imm.round", "imm.final", table}
         assert ("tables.forward" in names) == (case == "imm_streamed")
+        assert ("tables.reverse" in names) == (case != "imm_lt")
     else:
         assert "tables.forward" not in names
         phases = ["service.query_arrays", "service.solve",
@@ -153,9 +163,14 @@ def test_the_imm_counters(model):
     step pushes at least one live word."""
     stats = {}
     _imm(model, stats)
+    lt = {"frontier_bits", "root_bits", "choice_reads"} if model == "LT" \
+        else set()
     assert set(stats) == {"sample_s", "select_s", "bfs_steps",
-                          "frontier_words"}
+                          "frontier_words"} | lt
     assert stats["frontier_words"] >= stats["bfs_steps"] > 0
+    if lt:
+        assert stats["frontier_bits"] > stats["root_bits"] > 0
+        assert stats["choice_reads"] > 0
 
 
 @pytest.mark.parametrize("run", [_imm, _serve], ids=["imm", "serve"])

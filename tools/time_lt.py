@@ -56,7 +56,6 @@ def wall_ms(fn, reps: int):
 def time_graph(graph: str, reps: int, dev) -> dict:
     import chip_smoke as cs
     from repro_torch.core import cascade, prng, rrr
-    from repro_torch.graphs import csr
     from repro_torch.kernels import rrr_expand
     from repro_torch.launch import im_driver
     from tools.timing import median_ms
@@ -78,11 +77,11 @@ def time_graph(graph: str, reps: int, dev) -> dict:
         vis.copy_(visited)
         nxt.zero_()
 
-    row = dict(graph=graph, n=n, d=t.d, marked_rows=int(
-        (t.lt_rows < 0).sum()))
+    row = dict(graph=graph, n=n, d=t.d, edges=t.lt.num_edges)
     row["push_first_step_ms"] = median_ms(
         lambda: rrr_expand.rrr_expand_push_lt(
-            words, f, vis, t.nbr, t.cumw, t.lt_rows, sub, nxt, listed, count),
+            words, f, vis, t.lt.indptr, t.lt.src, t.lt.cumw, sub, nxt, listed,
+            count),
         reps, restore, hide_host=True)
     del f, vis, nxt, listed, t, frontier, visited
 
@@ -98,12 +97,12 @@ def time_graph(graph: str, reps: int, dev) -> dict:
             hide_host=True)
         del step, sf, svis
 
-    nbr, prob, wt = csr.padded_adjacency(g)
+    lt = rrr.graph_tables(g, "kernel", model="LT")[4]
     row["sample_ms"], inc = wall_ms(lambda: rrr.sample_incidence(
-        nbr, prob, wt, key, theta=args.max_theta, n=n, model="LT",
-        max_steps=32, fwd=(None, None)), reps)
+        None, None, None, key, theta=args.max_theta, n=n, model="LT",
+        max_steps=32, lt=lt), reps)
     row["sample_digest"] = digest(inc)
-    del inc, nbr, prob, wt     # the rmat graph's spread needs the room
+    del inc, lt     # the rmat graph's spread needs the room
     torch.cuda.empty_cache()
     row["spread_ms"], act = wall_ms(lambda: cascade.simulate_cascades(
         g, seeds, ckey, model="LT", num_sims=args.eval_sims), reps)
